@@ -10,6 +10,8 @@ Layers (bottom-up):
   ops       hand-written CUDA kernels (csrc/) + plain-torch versions
   nn        ``linear`` dispatch over weight leaves, ``quantize_params``
   models    Llama decoder, KV-cached greedy decode
+  serve     continuous-batching engine over a paged (optionally int8) KV cache
+  metrics   counters, gauges and timers the engine records into
   interop   JAX parameter trees -> torch parameter trees (duck-typed)
 """
 

@@ -2,4 +2,5 @@
 device:
 
   python -m quanta_tpu_torch.benchmarks.decode_bench   # decode/prefill/TTFT
+  python -m quanta_tpu_torch.benchmarks.serve_bench    # the Engine under Poisson load
 """

@@ -1,9 +1,12 @@
 """Hand parameter trees from the JAX package to the port.
 
 ``from_jax_params(tree, device)`` turns a ``quanta_tpu`` parameter tree
-(dicts and lists of arrays, ``QuantizedTensor`` and ``Int4cWeight`` leaves)
-into the port's tree with the same keys. It never imports jax: leaves are
-recognised by their attributes, and arrays go through ``np.asarray``.
+(dicts and lists of arrays, ``QuantizedTensor``, ``Int8Weight`` and
+``Int4cWeight`` leaves) into the port's tree with the same keys. It never
+imports jax: leaves are recognised by their attributes, and arrays go
+through ``np.asarray``. A leaf that is neither an array nor one of those
+weights (``LoRAWeight``, ``TapWeight``, ...) raises a ``TypeError`` that
+names its type: converting it as something else would compute garbage.
 
 bf16 arrays arrive from ``np.asarray`` as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` does not take; they go through f32, which is exact.
@@ -16,6 +19,7 @@ import torch
 
 from quanta_tpu_torch.core.qtensor import QuantizedTensor
 from quanta_tpu_torch.ops.int4c import Int4cWeight
+from quanta_tpu_torch.ops.int8mm import Int8Weight
 
 _QT_FIELDS = ("codes", "scale", "zero_point", "bits", "scheme", "codebook",
               "shape", "block_size", "packed")
@@ -54,7 +58,17 @@ def from_jax_params(tree, device=None):
             shape=tuple(tree.shape), dtype=to_torch_dtype(tree.dtype),
             block_size=tree.block_size, packed=tree.packed,
         )
+    # Int8Weight also has codes, scale and shape: test it before Int4cWeight
+    if all(hasattr(tree, f) for f in ("codes", "scale", "outlier_idx", "w_outlier", "shape")):
+        return Int8Weight(codes=to_tensor(tree.codes, device),
+                          scale=to_tensor(tree.scale, device),
+                          outlier_idx=to_tensor(tree.outlier_idx, device),
+                          w_outlier=to_tensor(tree.w_outlier, device),
+                          threshold=float(tree.threshold), shape=tuple(tree.shape))
     if all(hasattr(tree, f) for f in ("codes", "scale", "shape")):
         return Int4cWeight(codes=to_tensor(tree.codes, device),
                            scale=to_tensor(tree.scale, device), shape=tuple(tree.shape))
-    return to_tensor(tree, device)
+    if hasattr(tree, "__array__") or isinstance(tree, (bool, int, float, np.generic)):
+        return to_tensor(tree, device)
+    raise TypeError(f"from_jax_params: a {type(tree).__name__} leaf has no counterpart "
+                    "in the port")

@@ -2,6 +2,7 @@
 
 from quanta_tpu_torch.nn.linear import (
     Linear4bit,
+    Linear8bitLt,
     dequantize_params,
     linear,
     quantize_linear_weight,
@@ -10,6 +11,7 @@ from quanta_tpu_torch.nn.linear import (
 
 __all__ = [
     "Linear4bit",
+    "Linear8bitLt",
     "linear",
     "quantize_linear_weight",
     "quantize_params",

@@ -1,10 +1,11 @@
 """Quantized linear layers (port of quanta_tpu/nn/linear.py).
 
 The functional entry point is :func:`linear`, which dispatches on the
-weight leaf: a dense tensor, a ``QuantizedTensor`` (matmul layout) or an
-``Int4cWeight``. Whole-model quantization is a transformation of the
-parameter tree (:func:`quantize_params`), not module surgery; the
-``Linear4bit`` module wraps ``linear`` for callers who want a module.
+weight leaf: a dense tensor, a ``QuantizedTensor`` (matmul layout), an
+``Int8Weight`` (LLM.int8) or an ``Int4cWeight``. Whole-model quantization
+is a transformation of the parameter tree (:func:`quantize_params`), not
+module surgery; the ``Linear8bitLt`` and ``Linear4bit`` modules wrap
+``linear`` for callers who want a module.
 
 Weights are (in_features, out_features): ``y = x @ W``.
 """
@@ -20,14 +21,14 @@ from torch import nn
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.core.qtensor import QuantizedTensor
 from quanta_tpu_torch.ops.int4c import Int4cWeight, dequantize_int4c, matmul_int4c, quantize_int4c_weight
+from quanta_tpu_torch.ops.int8mm import Int8Weight, matmul_int8, quantize_int8_weight
 from quanta_tpu_torch.ops.matmul import matmul_quantized
 
-WeightLike = Any  # torch.Tensor | QuantizedTensor | Int4cWeight
+WeightLike = Any  # torch.Tensor | QuantizedTensor | Int8Weight | Int4cWeight
 
 # Weight leaves of the JAX package that the port does not have yet, and the
 # ROADMAP item that ports each.
 _NOT_PORTED = {
-    "Int8Weight": "ROADMAP Queue 1 item 4 (ops/int8mm.py, LLM.int8)",
     "LoRAWeight": "ROADMAP Queue 1 item 5 (nn/lora.py)",
     "TapWeight": "ROADMAP Queue 1 item 12 (calib.py)",
     "ActQuantWeight": "ROADMAP Queue 1 item 12 (calib.py)",
@@ -51,6 +52,8 @@ def linear(
         raise NotImplementedError(f"{name} leaves are not ported yet: {_NOT_PORTED[name]}")
     if isinstance(w, QuantizedTensor):
         y = matmul_quantized(x, w, use_kernel=use_kernel)
+    elif isinstance(w, Int8Weight):
+        y = matmul_int8(x, w, use_kernel=use_kernel)
     elif isinstance(w, Int4cWeight):
         y = matmul_int4c(x, w, use_kernel=use_kernel)
     else:
@@ -66,15 +69,16 @@ def quantize_linear_weight(
     mode: str = "nf4",
     block_size: int = 64,
     threshold: float = 6.0,
+    calib_colmax: Optional[torch.Tensor] = None,
 ) -> WeightLike:
     """Convert a dense (in, out) weight into a quantized representation.
 
     mode: "nf4"/"nf4a"/"int4"/"fp4"/"int8"/"nf8"/"fp8", "int8a"/"int4a"
-    (affine), or "int4c". "llm_int8" is not ported yet.
+    (affine), "llm_int8" (outlier decomposition; ``calib_colmax`` picks the
+    outlier features where calibration gave one), or "int4c".
     """
     if mode == "llm_int8":
-        raise NotImplementedError(
-            f"llm_int8 (threshold={threshold}) is not ported yet: {_NOT_PORTED['Int8Weight']}")
+        return quantize_int8_weight(w, threshold=threshold, calib_colmax=calib_colmax)
     if mode == "int4c":
         return quantize_int4c_weight(w)
     return codecs.quantize_matmul_weight(w, fmt=mode, block_size=block_size)
@@ -103,7 +107,8 @@ def quantize_params(
     ``predicate(path, leaf) -> bool`` selects the leaves; ``path`` is the
     tuple of dict keys and list indices. Default: 2-D float tensors with at
     least ``min_size`` elements, except embeddings (``emb``, ``wte``,
-    ``wpe`` in the path), which are gathered, not multiplied.
+    ``wpe`` in the path), which are gathered, not multiplied. Calibration
+    ``stats`` for llm_int8 wait for ``calib.py`` (ROADMAP Queue 1 item 12).
     """
 
     def default_pred(path, leaf):
@@ -135,6 +140,11 @@ def dequantize_params(params):
     def deq(_path, leaf):
         if isinstance(leaf, QuantizedTensor):
             return codecs.dequantize_matmul_weight(leaf)
+        if isinstance(leaf, Int8Weight):
+            k, n = leaf.shape
+            dense = leaf.codes.to(torch.float32) * leaf.scale[None, :]
+            dense[leaf.outlier_idx] = leaf.w_outlier.to(torch.float32)  # in place, fresh tensor
+            return dense[:k, :n]  # drop the kernel-tile padding
         if isinstance(leaf, Int4cWeight):
             return dequantize_int4c(leaf)
         return leaf
@@ -175,3 +185,38 @@ class Linear4bit(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x.to(self.compute_dtype), self.weight, self.bias)
+
+
+class Linear8bitLt(nn.Module):
+    """LLM.int8 linear over :func:`linear`.
+
+    Holds a dense (in, out) weight after construction
+    (``has_fp16_weights`` semantics), as the JAX module does;
+    :meth:`quantize_` swaps it for an ``Int8Weight`` with outliers at
+    ``threshold``. ``forward`` handles both.
+    """
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
+                 has_fp16_weights: bool = False, threshold: float = 6.0,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.has_fp16_weights = has_fp16_weights
+        self.threshold = threshold
+        # kaiming-uniform over fan_in, as flax's default kernel init
+        bound = math.sqrt(3.0 / in_features) * math.sqrt(2.0)
+        w = torch.empty((in_features, out_features), dtype=dtype, device=device)
+        w.uniform_(-bound, bound, generator=generator)
+        self.weight: WeightLike = nn.Parameter(w)
+        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype, device=device))
+                     if bias else None)
+
+    @torch.no_grad()
+    def quantize_(self) -> "Linear8bitLt":
+        w = self.weight.detach()
+        del self.weight  # a registered Parameter cannot be reassigned a non-Parameter
+        self.weight = quantize_linear_weight(w, mode="llm_int8", threshold=self.threshold)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)

@@ -7,7 +7,16 @@ for CPU tensors.
 """
 
 from quanta_tpu_torch.ops.int4c import Int4cWeight, matmul_int4c, quantize_int4c_weight
+from quanta_tpu_torch.ops.int8mm import (
+    Int8Weight,
+    matmul_int8,
+    matmul_int8_fused,
+    matmul_int8_kernel,
+    outlier_coverage,
+    quantize_int8_weight,
+)
 from quanta_tpu_torch.ops.matmul import matmul_4bit, matmul_quantized
+from quanta_tpu_torch.ops.quantize import dequantize_blockwise, quantize_blockwise
 
 __all__ = [
     "matmul_quantized",
@@ -15,4 +24,12 @@ __all__ = [
     "Int4cWeight",
     "matmul_int4c",
     "quantize_int4c_weight",
+    "Int8Weight",
+    "matmul_int8",
+    "matmul_int8_fused",
+    "matmul_int8_kernel",
+    "outlier_coverage",
+    "quantize_int8_weight",
+    "quantize_blockwise",
+    "dequantize_blockwise",
 ]

@@ -34,7 +34,7 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes (pointers and the stream as void*, sizes as int)
 _SIGNATURES = {
     # x, codes, scales, levels, out, M, N, K2, block, stream
@@ -42,9 +42,17 @@ _SIGNATURES = {
     "qt_matmul_4bit_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xq, codes, row_scale, col_scale, out, M, N, K2, stream
     "qt_matmul_int4c": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x (f32), codes, row_scale, col_scale, y_out, out, M, N, K, stream
+    "qt_matmul_int8_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # xq, codes, row_scale, col_scale, out, M, N, K, stream
+    "qt_matmul_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, codes, scale, midpoints, n, block, n_blocks, n_mids, stream
+    "qt_quantize_blockwise_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "qt_quantize_blockwise_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
 }
 
-launches: dict[str, int] = {"matmul_4bit": 0, "matmul_int4c": 0}
+launches: dict[str, int] = {"matmul_4bit": 0, "matmul_int4c": 0, "matmul_int8_fused": 0,
+                            "matmul_int8": 0, "quantize_blockwise": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

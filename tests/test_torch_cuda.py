@@ -8,9 +8,12 @@ installed:
 
 Tolerances: ``matmul_4bit`` kernel and plain version multiply the same
 bf16 weights and differ only in f32 summation order, so they agree within
-2 bf16 ulps of max|plain|; ``matmul_int4c`` sums exactly and must agree
-bit for bit.
+2 bf16 ulps of max|plain|; ``matmul_int4c``, both LLM.int8 kernels and
+``quantize_blockwise`` compute exactly what their plain versions compute,
+in the same rounding order, and must agree bit for bit.
 """
+
+import numpy as np
 
 import pytest
 import torch
@@ -19,8 +22,11 @@ from quanta_tpu_torch import core as tcore
 from quanta_tpu_torch import nn as tnn
 from quanta_tpu_torch.ops import _build
 from quanta_tpu_torch.ops import int4c as tint4c
+from quanta_tpu_torch.ops import int8mm as tint8
 from quanta_tpu_torch.ops import matmul as tmm
+from quanta_tpu_torch.ops import quantize as tquant
 from quanta_tpu_torch.models import llama as tllama
+from quanta_tpu_torch.serve import Engine, Request
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +122,96 @@ def test_tiny_model_f32_kernel_path_matches_plain(cuda):
     lk, _ = tllama.forward(params, prompt, cfg)
     lp, _ = tllama.forward(params, prompt, cfg, use_kernel=False)
     assert ((lk - lp).norm() / lp.norm()).item() < 1e-5
+
+
+# ------------------------------------------------------------------ LLM.int8
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 5, 70])
+@pytest.mark.parametrize("k,n", [(200, 72), (200, 300), (1000, 72), (1000, 300)])
+def test_int8_routes_bit_exact(cuda, xdtype, m, k, n):
+    """Both kernels (fused, plain variant) against the plain versions: the
+    same exact integer sums and the same f32 rounding order."""
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    qw = tint8.quantize_int8_weight(torch.randn((k, n), generator=g, device=cuda) * 0.1)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    x[:, qw.outlier_idx[:3].long()] *= 20.0
+    x = x.to(xdtype)
+    before = dict(_build.launches)
+    fused = tint8.matmul_int8(x, qw)
+    unfused = tint8.matmul_int8(x, qw, fused=False)
+    plain = tint8.matmul_int8(x, qw, use_kernel=False)
+    plain_fused = tint8.matmul_int8(x, qw, use_kernel=False, fused=True)
+    torch.cuda.synchronize()
+    assert _build.launches["matmul_int8_fused"] == before["matmul_int8_fused"] + 1
+    assert _build.launches["matmul_int8"] == before["matmul_int8"] + 1
+    assert fused.dtype == xdtype and fused.shape == (m, n)
+    for out in (fused, unfused, plain_fused):
+        assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("k,n", [(203, 77), (200, 130)])
+def test_int8_raw_kernels_ragged(cuda, k, n):
+    """Unpadded K and N: the kernels' masked (scalar) loads."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    m = 37
+    codes = torch.randint(-127, 128, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    x = torch.randn((m, k), generator=g, device=cuda) * 30
+    rs = torch.rand(m, generator=g, device=cuda) + 0.05
+    cs = torch.rand(n, generator=g, device=cuda) * 0.01
+    y_out = torch.randn((m, n), generator=g, device=cuda)
+    xq = tint8.quantize_rows(x, rs)
+    assert torch.equal(tint8.matmul_int8_fused(x, codes, rs, cs, y_out),
+                       tint8.matmul_int8_fused(x, codes, rs, cs, y_out, use_kernel=False))
+    assert torch.equal(tint8.matmul_int8_kernel(xq, codes, rs, cs),
+                       tint8.matmul_int8_kernel(xq, codes, rs, cs, use_kernel=False))
+
+
+@pytest.mark.parametrize("fmt", ["int8_sym", "nf4", "nf4a", "fp4", "nf8"])
+@pytest.mark.parametrize("n,block,dtype", [(64 * 1000, 64, torch.float32),
+                                           (1000, 64, torch.bfloat16),
+                                           (517, 32, torch.float32),
+                                           (1000, 100, torch.float32)])
+def test_quantize_blockwise_bit_exact(cuda, fmt, n, block, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n + block)
+    x = (torch.randn(n, generator=g, device=cuda) * 3).to(dtype)
+    x[:block] = 0.0  # an all-zero block
+    before = _build.launches["quantize_blockwise"]
+    codes, scale = tquant.quantize_blockwise(x, fmt=fmt, block=block)
+    ref_codes, ref_scale = tquant.quantize_blockwise(x, fmt=fmt, block=block, use_kernel=False)
+    torch.cuda.synchronize()
+    assert _build.launches["quantize_blockwise"] == before + 1
+    assert codes.shape == (-(-n // block), block) and scale.shape == (codes.shape[0], 1)
+    assert torch.equal(codes, ref_codes) and torch.equal(scale, ref_scale)
+    assert scale[0, 0].item() == 1.0
+
+
+def test_tiny_engine_llm_int8_kv8_kernels_match_plain(cuda):
+    """The serve path through the kernels gives the plain path's tokens,
+    with the launches the design implies: every forward (one prefill per
+    admission, multi_step per window) runs 7 L + 1 fused int8 GEMMs, and
+    every prefill and window writes K and V through one quantize each."""
+    cfg = tllama.LlamaConfig.tiny(dim=256, hidden_dim=512)
+    dense = tllama.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    params = tnn.quantize_params(dense, mode="llm_int8")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 33, 9)]
+    outs = {}
+    for use_kernel in (None, False):
+        eng = Engine(params, cfg, n_slots=2, page_size=8, prefill_buckets=(16, 32, 64),
+                     kv_quant=True, multi_step=4, use_kernel=use_kernel)
+        _build.reset_launches()
+        done = eng.run([Request(uid=i, prompt=p, max_new_tokens=10)
+                        for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        outs[use_kernel] = {r.uid: r.output for r in done}
+        m = eng.metrics()
+        forwards = m["admissions"] + 4 * m["decode_steps"]
+        expected = dict.fromkeys(_build.launches, 0)
+        if use_kernel is None:
+            expected["matmul_int8_fused"] = (7 * cfg.n_layers + 1) * forwards
+            expected["quantize_blockwise"] = 2 * (m["admissions"] + m["decode_steps"])
+        assert dict(_build.launches) == expected
+    assert outs[None] == outs[False]
+    assert all(len(o) == 10 for o in outs[None].values())

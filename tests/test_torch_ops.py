@@ -123,13 +123,15 @@ def test_linear_dispatch_and_unported_leaves():
     out = tnn.linear(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
     np.testing.assert_allclose(out.numpy(), x @ w + b, rtol=1e-5, atol=1e-5)
 
-    class Int8Weight:  # stands in for the JAX leaf the port lacks
+    class LoRAWeight:  # stands in for the JAX leaf the port lacks
         pass
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tnn.linear(torch.from_numpy(x), Int8Weight())
-    with pytest.raises(NotImplementedError):
-        tnn.quantize_linear_weight(torch.from_numpy(w), mode="llm_int8")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        tnn.linear(torch.from_numpy(x), LoRAWeight())
+    # llm_int8 is ported: the leaf is an Int8Weight and linear takes it
+    q = tnn.quantize_linear_weight(torch.from_numpy(w), mode="llm_int8")
+    assert type(q).__name__ == "Int8Weight"
+    assert tnn.linear(torch.from_numpy(x), q).shape == (3, 32)
 
 
 @pytest.mark.parametrize("mode", ["nf4a", "int4c"])
