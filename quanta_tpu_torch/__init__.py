@@ -8,8 +8,10 @@ numpy inputs. This package imports torch and numpy and never jax.
 Layers (bottom-up):
   core      plain-torch quant math (reference path)
   ops       hand-written CUDA kernels (csrc/) + plain-torch versions
-  nn        ``linear`` dispatch over weight leaves, ``quantize_params``
+  nn        ``linear`` dispatch over weight leaves, ``quantize_params``, LoRA
+  optim     blockwise 8-bit Adam(W)
   models    Llama decoder, KV-cached greedy decode
+  train     QLoRA fine-tuning steps (frozen 4-bit base, LoRA, 8-bit Adam)
   serve     continuous-batching engine over a paged (optionally int8) KV cache
   metrics   counters, gauges and timers the engine records into
   interop   JAX parameter trees -> torch parameter trees (duck-typed)

@@ -9,12 +9,10 @@
 // byte (k, n) is row k, the high nibble row k + K2), where
 // deq(code) = T(levels[code] * scale[row / block, n]): one f32 multiply
 // rounded once, then rounded to the activation type T before the product,
-// as the TPU kernel rounds `w.astype(x.dtype)`. The 16-entry f32 level
-// table serves every 4-bit codebook: for nf4a/int4 the registered levels
-// are the f32 Horner values, so a lookup gives the same numbers without
-// evaluating the polynomial here (where nvcc would contract it into FMAs).
-// Products accumulate in f32: on the tensor cores (wmma bf16 16x16x16) for
-// bf16 activations, in plain FMAs for f32 ones.
+// as the TPU kernel rounds `w.astype(x.dtype)`, through a 16-entry level
+// table (load_b in dequant4.cuh, shared with the backward,
+// matmul_4bit_t.cu). Products accumulate in f32: on the tensor cores (wmma
+// bf16 16x16x16) for bf16 activations, in plain FMAs for f32 ones.
 //
 // What bounds it on the H100:
 //   - decode (M = 8) is bound by memory: every weight streams once at
@@ -35,28 +33,15 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "dequant4.cuh"  // BN, BKP, THREADS, from_f32, kPad, load_b
+
 using namespace nvcuda;
 
 namespace {
 
 constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BKP = 32;          // packed rows per step
 constexpr int BK = 2 * BKP;      // logical K per step: BKP lo rows + BKP hi rows
-constexpr int THREADS = 128;     // 4 warps
 constexpr int C_LD = BN + 4;     // f32 epilogue tile
-
-static_assert(THREADS * 16 == BKP * BN, "one 16-byte code load per thread per step");
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ float from_f32(float v) { return v; }
-
-// Row stride of the shared A and B tiles: 16 bytes of padding keeps rows
-// 16-byte aligned and breaks bank conflicts.
-template <typename T> constexpr int kPad = 16 / sizeof(T);
 
 // A tile: x[m0:m0+BM, kp:kp+BKP] ++ x[m0:m0+BM, K2+kp:K2+kp+BKP], row-major.
 template <typename T>
@@ -81,41 +66,6 @@ __device__ __forceinline__ void load_a(T* As, const T* __restrict__ x, int m0, i
         dst[e] = (m < M && kk + e < K2) ? x[m * ldx + (int64_t)half * K2 + kk + e]
                                         : from_f32<T>(0.0f);
     }
-  }
-}
-
-// B tile: dequantize BKP packed rows x BN columns into 2*BKP rows of T,
-// row-major (lo nibbles in rows [0, BKP), hi nibbles in [BKP, 2*BKP)).
-template <typename T>
-__device__ __forceinline__ void load_b(T* Bs, const uint8_t* __restrict__ codes,
-                                       const float* __restrict__ scales, const float* lv,
-                                       int n0, int N, int K2, int kp, int block, int tid) {
-  constexpr int B_LD = BN + kPad<T>;
-  const int r = tid / (BN / 16);
-  const int c = (tid % (BN / 16)) * 16;
-  const int k = kp + r;
-  const int n = n0 + c;
-  uint4 raw = make_uint4(0, 0, 0, 0);
-  if (k < K2 && (N % 16) == 0 && n + 16 <= N) {
-    raw = __ldg(reinterpret_cast<const uint4*>(codes + (int64_t)k * N + n));
-  } else if (k < K2) {
-    uint8_t* bw = reinterpret_cast<uint8_t*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 16; ++e)
-      if (n + e < N) bw[e] = codes[(int64_t)k * N + n + e];
-  }
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-  const float* s_lo = scales + (int64_t)(k / block) * N + n;
-  const float* s_hi = scales + (int64_t)((K2 + k) / block) * N + n;
-#pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    float w_lo = 0.0f, w_hi = 0.0f;
-    if (k < K2 && n + e < N) {
-      w_lo = __fmul_rn(lv[b[e] & 0x0F], __ldg(s_lo + e));
-      w_hi = __fmul_rn(lv[b[e] >> 4], __ldg(s_hi + e));
-    }
-    Bs[r * B_LD + c + e] = from_f32<T>(w_lo);
-    Bs[(BKP + r) * B_LD + c + e] = from_f32<T>(w_hi);
   }
 }
 

@@ -1,12 +1,14 @@
 """Hand parameter trees from the JAX package to the port.
 
 ``from_jax_params(tree, device)`` turns a ``quanta_tpu`` parameter tree
-(dicts and lists of arrays, ``QuantizedTensor``, ``Int8Weight`` and
-``Int4cWeight`` leaves) into the port's tree with the same keys. It never
-imports jax: leaves are recognised by their attributes, and arrays go
-through ``np.asarray``. A leaf that is neither an array nor one of those
-weights (``LoRAWeight``, ``TapWeight``, ...) raises a ``TypeError`` that
-names its type: converting it as something else would compute garbage.
+(dicts and lists of arrays, ``QuantizedTensor``, ``Int8Weight``,
+``Int4cWeight`` and ``LoRAWeight`` leaves) into the port's tree with the
+same keys. It never imports jax: leaves are recognised by their
+attributes, and arrays go through ``np.asarray``. LoRA adapters arrive as
+trainable tensors (``requires_grad=True``), as ``nn.init_lora`` makes
+them. A leaf that is neither an array nor one of those weights
+(``TapWeight``, ...) raises a ``TypeError`` that names its type:
+converting it as something else would compute garbage.
 
 bf16 arrays arrive from ``np.asarray`` as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` does not take; they go through f32, which is exact.
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from quanta_tpu_torch.core.qtensor import QuantizedTensor
+from quanta_tpu_torch.nn.lora import LoRAWeight
 from quanta_tpu_torch.ops.int4c import Int4cWeight
 from quanta_tpu_torch.ops.int8mm import Int8Weight
 
@@ -49,6 +52,11 @@ def from_jax_params(tree, device=None):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax_params(v, device) for v in tree)
+    if all(hasattr(tree, f) for f in ("base", "lora_a", "lora_b", "alpha")):
+        return LoRAWeight(base=from_jax_params(tree.base, device),
+                          lora_a=to_tensor(tree.lora_a, device).requires_grad_(),
+                          lora_b=to_tensor(tree.lora_b, device).requires_grad_(),
+                          alpha=float(tree.alpha))
     if all(hasattr(tree, f) for f in _QT_FIELDS):
         return QuantizedTensor(
             codes=to_tensor(tree.codes, device),

@@ -8,6 +8,7 @@ from quanta_tpu_torch.nn.linear import (
     quantize_linear_weight,
     quantize_params,
 )
+from quanta_tpu_torch.nn.lora import LoRAWeight, init_lora, lora_linear, lora_parameters, merge_lora
 
 __all__ = [
     "Linear4bit",
@@ -16,4 +17,9 @@ __all__ = [
     "quantize_linear_weight",
     "quantize_params",
     "dequantize_params",
+    "LoRAWeight",
+    "init_lora",
+    "lora_linear",
+    "lora_parameters",
+    "merge_lora",
 ]

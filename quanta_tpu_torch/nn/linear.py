@@ -2,7 +2,8 @@
 
 The functional entry point is :func:`linear`, which dispatches on the
 weight leaf: a dense tensor, a ``QuantizedTensor`` (matmul layout), an
-``Int8Weight`` (LLM.int8) or an ``Int4cWeight``. Whole-model quantization
+``Int8Weight`` (LLM.int8), an ``Int4cWeight`` or a ``LoRAWeight`` (a base
+leaf plus adapters, ``nn/lora.py``). Whole-model quantization
 is a transformation of the parameter tree (:func:`quantize_params`), not
 module surgery; the ``Linear8bitLt`` and ``Linear4bit`` modules wrap
 ``linear`` for callers who want a module.
@@ -20,16 +21,16 @@ from torch import nn
 
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.core.qtensor import QuantizedTensor
+from quanta_tpu_torch.nn.lora import LoRAWeight, lora_linear
 from quanta_tpu_torch.ops.int4c import Int4cWeight, dequantize_int4c, matmul_int4c, quantize_int4c_weight
 from quanta_tpu_torch.ops.int8mm import Int8Weight, matmul_int8, quantize_int8_weight
 from quanta_tpu_torch.ops.matmul import matmul_quantized
 
-WeightLike = Any  # torch.Tensor | QuantizedTensor | Int8Weight | Int4cWeight
+WeightLike = Any  # torch.Tensor | QuantizedTensor | Int8Weight | Int4cWeight | LoRAWeight
 
 # Weight leaves of the JAX package that the port does not have yet, and the
 # ROADMAP item that ports each.
 _NOT_PORTED = {
-    "LoRAWeight": "ROADMAP Queue 1 item 5 (nn/lora.py)",
     "TapWeight": "ROADMAP Queue 1 item 12 (calib.py)",
     "ActQuantWeight": "ROADMAP Queue 1 item 12 (calib.py)",
 }
@@ -45,11 +46,16 @@ def linear(
     """``x @ W (+ b)`` for any supported weight representation.
 
     ``use_kernel=None`` runs the CUDA kernel for a CUDA ``x`` and the plain
-    version for a CPU one; ``False`` forces the plain version.
+    version for a CPU one; ``False`` forces the plain version. Under
+    autograd, gradients reach x through dense, ``QuantizedTensor`` and
+    ``LoRAWeight`` leaves (and the adapters); the LLM.int8 and int4c
+    kernels have no backward and raise rather than drop it.
     """
     name = type(w).__name__
     if name in _NOT_PORTED:
         raise NotImplementedError(f"{name} leaves are not ported yet: {_NOT_PORTED[name]}")
+    if isinstance(w, LoRAWeight):
+        return lora_linear(x, w, b, use_kernel=use_kernel)
     if isinstance(w, QuantizedTensor):
         y = matmul_quantized(x, w, use_kernel=use_kernel)
     elif isinstance(w, Int8Weight):

@@ -6,6 +6,7 @@ the same function. Dispatch: the kernel for CUDA tensors, the plain version
 for CPU tensors.
 """
 
+from quanta_tpu_torch.ops.adam8bit import adam8bit_update
 from quanta_tpu_torch.ops.int4c import Int4cWeight, matmul_int4c, quantize_int4c_weight
 from quanta_tpu_torch.ops.int8mm import (
     Int8Weight,
@@ -15,12 +16,14 @@ from quanta_tpu_torch.ops.int8mm import (
     outlier_coverage,
     quantize_int8_weight,
 )
-from quanta_tpu_torch.ops.matmul import matmul_4bit, matmul_quantized
+from quanta_tpu_torch.ops.matmul import matmul_4bit, matmul_4bit_t, matmul_quantized
 from quanta_tpu_torch.ops.quantize import dequantize_blockwise, quantize_blockwise
 
 __all__ = [
     "matmul_quantized",
     "matmul_4bit",
+    "matmul_4bit_t",
+    "adam8bit_update",
     "Int4cWeight",
     "matmul_int4c",
     "quantize_int4c_weight",

@@ -34,12 +34,15 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argtypes (pointers and the stream as void*, sizes as int)
 _SIGNATURES = {
     # x, codes, scales, levels, out, M, N, K2, block, stream
     "qt_matmul_4bit_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "qt_matmul_4bit_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # g, codes, scales, levels, out, M, N, K2, block, stream
+    "qt_matmul_4bit_t_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qt_matmul_4bit_t_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xq, codes, row_scale, col_scale, out, M, N, K2, stream
     "qt_matmul_int4c": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x (f32), codes, row_scale, col_scale, y_out, out, M, N, K, stream
@@ -49,10 +52,14 @@ _SIGNATURES = {
     # x, codes, scale, midpoints, n, block, n_blocks, n_mids, stream
     "qt_quantize_blockwise_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     "qt_quantize_blockwise_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # g, m_codes, m_scale, v_codes, v_scale, (lr, bc1, bc2), upd, m_codes', m_scale',
+    # v_codes', v_scale', n_blocks, b1, b2, 1 - b1, 1 - b2, eps, stream
+    "qt_adam8bit_update": [_P] * 11 + [_I, _F, _F, _F, _F, _F, _P],
 }
 
-launches: dict[str, int] = {"matmul_4bit": 0, "matmul_int4c": 0, "matmul_int8_fused": 0,
-                            "matmul_int8": 0, "quantize_blockwise": 0}
+launches: dict[str, int] = {"matmul_4bit": 0, "matmul_4bit_t": 0, "matmul_int4c": 0,
+                            "matmul_int8_fused": 0, "matmul_int8": 0, "quantize_blockwise": 0,
+                            "adam8bit_update": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -141,3 +148,18 @@ def use_kernel_for(use_kernel: bool | None, t) -> bool:
         raise ValueError("use_kernel=True needs a CUDA tensor: the CUDA kernels "
                          f"have no CPU mode (got a tensor on {t.device})")
     return bool(use_kernel)
+
+
+def refuse_grad(x, name: str, why: str) -> None:
+    """Raise where a kernel's output would silently cut the gradient.
+
+    A wrapper's output comes from ``torch.empty`` filled by a ctypes call,
+    so it has no ``grad_fn``: under autograd, whatever ``x`` depends on
+    would get no gradient and no error. Kernel routes without a backward
+    call this with the tensor they read (the JAX package raises there too:
+    ``jax.grad`` has no rule through a bare ``pallas_call``)."""
+    import torch
+
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(f"{name}: the CUDA kernel has no backward, and its output "
+                                  f"would carry no gradient to x; {why}")

@@ -88,6 +88,10 @@ def matmul_int4c_reference(xq, codes, row_scale, col_scale) -> torch.Tensor:
     return acc * row_scale[:, None] * col_scale[None, :]
 
 
+_NO_BACKWARD = ("int4c weights have no backward in the JAX package either; "
+                "QLoRA bases are QuantizedTensors (nf4, nf4a, ...)")
+
+
 def matmul_int4c_kernel(
     xq: torch.Tensor,
     codes: torch.Tensor,
@@ -134,6 +138,8 @@ def matmul_int4c(
 ) -> torch.Tensor:
     """``x (.., K) @ W (K, N)``: row-quantize activations to int8, then the
     int4c GEMM with scales on the accumulator."""
+    if _build.use_kernel_for(use_kernel, x):
+        _build.refuse_grad(x, "matmul_int4c", _NO_BACKWARD)
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     k, n = qw.shape

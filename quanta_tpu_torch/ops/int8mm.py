@@ -172,6 +172,10 @@ def _launch(entry: str, counter: str, a, codes, row_scale, col_scale, y_out, a_d
     return out
 
 
+_NO_BACKWARD = ("LLM.int8 weights have no backward in the JAX package either; "
+                "QLoRA bases are QuantizedTensors (nf4, nf4a, ...)")
+
+
 def matmul_int8_fused(
     x: torch.Tensor,
     codes: torch.Tensor,
@@ -188,6 +192,7 @@ def matmul_int8_fused(
         raise ValueError(f"x K={x.shape[1]} != codes K={codes.shape[0]}")
     if not _build.use_kernel_for(use_kernel, x):
         return matmul_int8_fused_reference(x, codes, row_scale, col_scale, y_out)
+    _build.refuse_grad(x, "matmul_int8_fused", _NO_BACKWARD)
     return _launch("qt_matmul_int8_fused", "matmul_int8_fused", x, codes, row_scale,
                    col_scale, y_out, torch.float32)
 
@@ -227,6 +232,8 @@ def matmul_int8(
     JAX package's XLA oracle.
     """
     kernel = _build.use_kernel_for(use_kernel, x)
+    if kernel:
+        _build.refuse_grad(x, "matmul_int8", _NO_BACKWARD)
     if fused is None:
         fused = kernel
     out_dtype = out_dtype or x.dtype

@@ -6,11 +6,12 @@ installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: ``matmul_4bit`` kernel and plain version multiply the same
-bf16 weights and differ only in f32 summation order, so they agree within
-2 bf16 ulps of max|plain|; ``matmul_int4c``, both LLM.int8 kernels and
-``quantize_blockwise`` compute exactly what their plain versions compute,
-in the same rounding order, and must agree bit for bit.
+Tolerances: ``matmul_4bit`` and ``matmul_4bit_t`` kernels and plain
+versions multiply the same bf16 weights and differ only in f32 summation
+order, so they agree within 2 bf16 ulps of max|plain|; ``matmul_int4c``,
+both LLM.int8 kernels, ``quantize_blockwise`` and ``adam8bit_update``
+compute exactly what their plain versions compute, in the same rounding
+order, and must agree bit for bit.
 """
 
 import numpy as np
@@ -20,12 +21,15 @@ import torch
 
 from quanta_tpu_torch import core as tcore
 from quanta_tpu_torch import nn as tnn
+from quanta_tpu_torch import train as ttrain
 from quanta_tpu_torch.ops import _build
+from quanta_tpu_torch.ops import adam8bit as tadam
 from quanta_tpu_torch.ops import int4c as tint4c
 from quanta_tpu_torch.ops import int8mm as tint8
 from quanta_tpu_torch.ops import matmul as tmm
 from quanta_tpu_torch.ops import quantize as tquant
 from quanta_tpu_torch.models import llama as tllama
+from quanta_tpu_torch.optim import Adam8bit
 from quanta_tpu_torch.serve import Engine, Request
 
 pytestmark = pytest.mark.cuda
@@ -215,3 +219,133 @@ def test_tiny_engine_llm_int8_kv8_kernels_match_plain(cuda):
         assert dict(_build.launches) == expected
     assert outs[None] == outs[False]
     assert all(len(o) == 10 for o in outs[None].values())
+
+
+# ------------------------------------------------------------------ QLoRA
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fmt", ["nf4a", "nf4"])
+@pytest.mark.parametrize("m,k,n", [(2048, 2048, 256), (70, 1000, 200), (1, 96, 72)])
+def test_matmul_4bit_t_kernel_matches_plain(cuda, dtype, fmt, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    tq = tcore.quantize_matmul_weight(torch.randn((k, n), generator=g, device=cuda),
+                                      fmt=fmt, block_size=64)
+    grad = torch.randn((m, n), generator=g, device=cuda).to(dtype)
+    before = _build.launches["matmul_4bit_t"]
+    out = tmm.matmul_4bit_t(grad, tq.codes, tq.scale, codebook=fmt)
+    ref = tmm.matmul_4bit_t(grad, tq.codes, tq.scale, codebook=fmt, use_kernel=False)
+    torch.cuda.synchronize()
+    assert _build.launches["matmul_4bit_t"] == before + 1
+    assert out.dtype == dtype and out.shape == (m, 2 * tq.codes.shape[0])
+    ulps = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5  # 2 bf16 ulps; f32 sums
+    assert (out.float() - ref.float()).abs().max().item() <= ulps * ref.float().abs().max().item()
+
+
+def test_matmul_4bit_t_raw_ragged(cuda):
+    """N not a multiple of 16 and packed rows off the 32-row tile: masks."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    codes = torch.randint(0, 256, (48, 72), generator=g, device=cuda, dtype=torch.uint8)
+    scales = torch.rand((96 // 32, 72), generator=g, device=cuda)
+    grad = torch.randn((5, 70), generator=g, device=cuda).to(torch.bfloat16)
+    out = tmm.matmul_4bit_t(grad, codes, scales, codebook="nf4", block=32)
+    ref = tmm.matmul_4bit_t(grad, codes, scales, codebook="nf4", block=32, use_kernel=False)
+    assert out.shape == (5, 96)
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        2.0 ** -6 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("fmt", ["nf4", "int4a"])
+def test_autograd_dx_kernel_matches_plain(cuda, fmt):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    tq = tcore.quantize_matmul_weight(torch.randn((300, 200), generator=g, device=cuda),
+                                      fmt=fmt, block_size=64)
+    x0 = torch.randn((2, 9, 300), generator=g, device=cuda).to(torch.bfloat16)
+    grads = []
+    for use_kernel in (None, False):
+        x = x0.clone().requires_grad_()
+        (tmm.matmul_quantized(x, tq, use_kernel=use_kernel).float() ** 2).sum().backward()
+        grads.append(x.grad.float())
+    assert grads[0].shape == x0.shape
+    rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+    assert rel < 1e-2  # bf16 forward outputs then bf16 dx: a few ulps apart
+
+
+@pytest.mark.parametrize("nb", [1, 8, 64, 1000])
+def test_adam8bit_kernel_bit_exact(cuda, nb):
+    """Five chained steps, kernel and plain version each feeding itself,
+    with one all-zero block: updates, codes and scales equal bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(nb)
+    zeros = torch.zeros((nb, 256), device=cuda)
+    state = {}
+    for route in (True, False):
+        state[route] = [zeros.to(torch.int8), torch.full((nb, 1), 1e-12, device=cuda),
+                        zeros.to(torch.uint8), torch.full((nb, 1), 1e-12, device=cuda)]
+    before = _build.launches["adam8bit_update"]
+    for step in range(1, 6):
+        grad = torch.randn((nb, 256), generator=g, device=cuda) * 10.0 ** (step - 3)
+        grad[0] = 0.0
+        bc1 = 1.0 - 0.9 ** torch.tensor(float(step), device=cuda)
+        bc2 = 1.0 - 0.999 ** torch.tensor(float(step), device=cuda)
+        outs = {route: tadam.adam8bit_update(grad, *state[route], 1e-3, bc1, bc2,
+                                             use_kernel=route) for route in (True, False)}
+        for a, b in zip(outs[True], outs[False]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.count_nonzero(outs[True][0][0]) == 0
+        for route in (True, False):
+            state[route] = list(outs[route][1:])
+    torch.cuda.synchronize()
+    assert _build.launches["adam8bit_update"] == before + 5
+
+
+def test_tiny_qlora_step_kernels_match_plain(cuda):
+    """Two QLoRA steps (nf4 base, bf16 adapters) through the kernels and
+    through the plain versions: step-1 loss within 1e-2 relative, step-1
+    lora_b gradients within rel-L2 3e-2, lora_a gradients zero; the
+    launches the design implies (layer 0's wq, wk, wv need no dx)."""
+    cfg = tllama.LlamaConfig.tiny(dim=256, hidden_dim=512)
+    dense = tllama.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    base = tnn.quantize_params(dense, mode="nf4", min_size=1024)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    losses, grads = {}, {}
+    for route in (None, False):
+        params = ttrain.add_lora(base, torch.Generator(device=cuda).manual_seed(2),
+                                 device=cuda)
+        opt = Adam8bit(tnn.lora_parameters(params), lr=1e-3, use_kernel=route)
+        step = ttrain.make_qlora_train_step(cfg, opt, use_kernel=route)
+        _build.reset_launches()
+        losses[route] = [step(params, batch).item()]
+        grads[route] = [(ad[n]["a"].grad.float(), ad[n]["b"].grad.float())
+                        for ad in ttrain.extract_adapters(params) for n in ("wq", "wv")]
+        counts = dict(_build.launches)
+        losses[route].append(step(params, batch).item())
+        per_forward = 7 * cfg.n_layers + 1
+        expected = dict.fromkeys(_build.launches, 0)
+        if route is None:
+            expected.update(matmul_4bit=per_forward, matmul_4bit_t=per_forward - 3,
+                            adam8bit_update=4 * cfg.n_layers)
+        assert counts == expected
+    assert abs(losses[None][0] - losses[False][0]) <= 1e-2 * abs(losses[False][0])
+    for (ak, bk), (ap, bp) in zip(grads[None], grads[False]):
+        assert torch.count_nonzero(ak) == 0 and torch.count_nonzero(ap) == 0
+        assert ((bk - bp).norm() / bp.norm()).item() < 3e-2
+
+
+def test_forward_only_kernels_refuse_autograd(cuda):
+    """LLM.int8 and int4c weights, and the raw matmul_4bit kernel, raise
+    under autograd instead of returning an output with no gradient."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    w = torch.randn((256, 128), generator=g, device=cuda)
+    x = torch.randn((4, 256), generator=g, device=cuda, requires_grad=True)
+    for leaf in (tint8.quantize_int8_weight(w), tint4c.quantize_int4c_weight(w)):
+        with pytest.raises(NotImplementedError, match="QuantizedTensor"):
+            tnn.linear(x, leaf)
+        with torch.no_grad():
+            assert tnn.linear(x, leaf).shape == (4, 128)
+    tq = tcore.quantize_matmul_weight(w, fmt="nf4")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tmm.matmul_4bit(x, tq.codes, tq.scale, codebook="nf4")
+    tnn.linear(x, tq).float().sum().backward()  # the differentiable route
+    assert x.grad is not None and torch.isfinite(x.grad).all()

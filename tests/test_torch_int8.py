@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from quanta_tpu import calib as jcalib
 from quanta_tpu import nn as jnn
 from quanta_tpu.nn import lora as jlora
 from quanta_tpu.ops import int8mm as jint8
@@ -244,9 +245,14 @@ def test_interop_converts_int8_weight():
 
 def test_interop_refuses_unknown_leaves():
     base = jint8.quantize_int8_weight(jnp.asarray(_rand((64, 64), 18)))
-    lw = jlora.init_lora(jnp.asarray(_rand((64, 64), 19)), jax.random.PRNGKey(0), rank=4)
-    with pytest.raises(TypeError, match="LoRAWeight"):
-        interop.from_jax_params({"ok": base, "layer": {"w": lw}})
+    tap = jcalib.TapWeight(w=jnp.asarray(_rand((64, 64), 19)), name="w")
+    with pytest.raises(TypeError, match="TapWeight"):
+        interop.from_jax_params({"ok": base, "layer": {"w": tap}})
+    # a LoRAWeight over an LLM.int8 base converts (its adapters trainable)
+    lw = jlora.init_lora(base, jax.random.PRNGKey(0), rank=4)
+    tl = interop.from_jax_params({"layer": {"w": lw}})["layer"]["w"]
+    assert type(tl).__name__ == "LoRAWeight" and isinstance(tl.base, tint8.Int8Weight)
+    assert tl.lora_a.requires_grad and tl.alpha == lw.alpha
     with pytest.raises(TypeError, match="object"):
         interop.from_jax_params([object()])
 

@@ -123,11 +123,19 @@ def test_linear_dispatch_and_unported_leaves():
     out = tnn.linear(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
     np.testing.assert_allclose(out.numpy(), x @ w + b, rtol=1e-5, atol=1e-5)
 
-    class LoRAWeight:  # stands in for the JAX leaf the port lacks
+    class TapWeight:  # stands in for the JAX leaf the port lacks
         pass
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tnn.linear(torch.from_numpy(x), LoRAWeight())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        tnn.linear(torch.from_numpy(x), TapWeight())
+    # a LoRAWeight is ported: linear runs its base plus the adapter
+    lw = tnn.init_lora(torch.from_numpy(w), torch.Generator().manual_seed(0), rank=4,
+                       dtype=torch.float32)
+    with torch.no_grad():
+        lw.lora_b.fill_(0.5)
+    expect = x @ w + b + (x @ lw.lora_a.detach().numpy()) @ lw.lora_b.detach().numpy() * 4.0
+    out = tnn.linear(torch.from_numpy(x), lw, torch.from_numpy(b))
+    np.testing.assert_allclose(out.detach().numpy(), expect, rtol=1e-4, atol=1e-4)
     # llm_int8 is ported: the leaf is an Int8Weight and linear takes it
     q = tnn.quantize_linear_weight(torch.from_numpy(w), mode="llm_int8")
     assert type(q).__name__ == "Int8Weight"
