@@ -59,9 +59,41 @@ and the script exits non-zero (nothing is caught):
      ``matmul_4bit``, 152 ``matmul_4bit_t`` (layer 0's wq, wk and wv read
      the frozen embedding and need no dx) and 88 ``adam8bit_update`` (one
      per adapter tensor); (d) the timed ``train_bench`` rows, nf4, nf4a
-     and the bf16-base control, and the 8-bit Adam bytes.
+     and the bf16-base control, and the 8-bit Adam bytes;
+ 10. the flash-attention kernels (``flash_fwd``, ``flash_bwd_dq``,
+     ``flash_bwd_dkv``) against their plain versions on the same inputs at
+     TinyLlama-1.1B's training shape (B=2, S=T=1024, GQA rep 8, hd 64),
+     Llama-2-7B's (B=1, MHA, hd 128), a cached prefill (1024 queries
+     into 1152 slots at q_start 0 and 64, and a row whose kv_len is 0),
+     phase 12's prefill (1024 queries into 1040 slots) and phase 13's
+     S = T = 2048, in bf16 and the cached prefill also in f32: bf16
+     output within 2 bf16 ulps of
+     max|plain| and rel-L2 1e-2, lse within 1e-4, gradients within rel-L2
+     2e-2 (f32: 1e-5 and 1e-4 of max|plain|), dead rows zero with lse
+     1e30; at the S = T shapes the times of the kernels, their plain
+     versions and SDPA (forward; backward; both);
+ 11. QLoRA at batch 2 x seq 1024 (nf4 base, as phase 9): 3 steps through
+     the flash kernels and 3 through the einsum attention from the same
+     adapters, and one step with the einsum attention in f32 (the floor
+     bf16 rounding of the attention sets): step-1 loss within 1e-2,
+     lora_b gradients within phase 9's floor rule, the loss falling on
+     both routes, and per flash step 155 / 152 / 88 launches beside 22
+     each of the three flash kernels (none on the einsum route);
+ 12. greedy decode (nf4a, B=2) from a 1024-token prompt into 1040 cache
+     slots: prefill logits flash against einsum (within 1e-2 rel-L2, or
+     1.5 times the floor of the f32-attention route plus 2e-3 where bf16
+     rounding alone sets it above that), 22 ``flash_fwd`` launches in the
+     prefill and none in the decode steps;
+ 13. ``decode_bench.long_prefill`` (dense bf16, B=2) at S in {256, 512,
+     1024, 2048}, flash against einsum (the crossover; 2048 is the
+     reference's row), and ``train_bench``'s seq-1024 and Llama-2-7B rows
+     (bases from ``nn.init_quantized_params``), the TinyLlama s1024 row
+     also through the einsum attention.
 
-Then the kernels line and, last, ``{"ok": true, "device": {...}}``.
+Then the kernels line (every kernel's launches on the main path, error,
+times, bound from the bytes and operations of the timed work, and
+library time where one PyTorch call computes the same function) and,
+last, ``{"ok": true, "device": {...}}``.
 There is no CPU path: without a CUDA device the script fails.
 """
 
@@ -83,7 +115,7 @@ from quanta_tpu_torch.benchmarks import decode_bench, serve_bench, train_bench
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.metrics import MetricsRecorder
 from quanta_tpu_torch.models import llama
-from quanta_tpu_torch.ops import _build, adam8bit, int4c, int8mm, matmul, quantize
+from quanta_tpu_torch.ops import _build, adam8bit, attention, int4c, int8mm, matmul, quantize
 from quanta_tpu_torch.optim import Adam8bit
 from quanta_tpu_torch.serve import Engine, Request
 
@@ -124,6 +156,56 @@ TRAIN_LR = 1e-3  # the reference's own QLoRA step test (tests/test_parallel.py:9
 # near-flat attention over random weights amplifies 1-ulp differences in
 # dx), so one global bound would be loose on the quiet tensors.
 GRAD_FLOOR_X, GRAD_FLOOR_ABS = 1.5, 2e-3
+# flash attention: TinyLlama-1.1B's training shape (GQA, rep 8, hd 64),
+# Llama-2-7B's (MHA, hd 128), a cached prefill of 1024 tokens into 1152
+# slots at q_start 0 and 64 beside a row whose kv_len is 0, the long-prompt
+# decode's prefill (1024 tokens into its 1040-slot cache: a ragged last key
+# tile) and long_prefill's reference row (S = T = 2048):
+# (B, Sq, T, nh, nkv, hd, q_start, kv_len); each in bf16, the prefill in f32 too
+FLASH_SHAPES = {
+    "tinyllama_s1024": (2, 1024, 1024, 32, 4, 64, [0, 0], [1024, 1024]),
+    "llama2_7b_s1024": (1, 1024, 1024, 32, 32, 128, [0], [1024]),
+    "cached_prefill": (3, 1024, 1152, 32, 4, 64, [0, 64, 0], [1024, 1088, 0]),
+    "prompt_prefill": (2, 1024, 1040, 32, 4, 64, [0, 0], [1024, 1024]),
+    "long_prefill_s2048": (2, 2048, 2048, 32, 4, 64, [0, 0], [2048, 2048]),
+}
+FLASH_CASES = [(name, torch.bfloat16) for name in FLASH_SHAPES] + [("cached_prefill",
+                                                                     torch.float32)]
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
+PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
+CROSSOVER_SEQS = (256, 512, 1024, 2048)  # long_prefill's S; 2048 is the reference's row
+
+
+# the H100 SXM's published rates: device
+# memory, and dense peaks by operand type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def add_work(work, name, n_bytes, ops, count=1):
+    """Accumulate one kernel's bytes moved (each input read once, each
+    output written once) and operations, ``count`` calls of them."""
+    w = work.setdefault(name, [0.0, 0.0])
+    w[0] += count * n_bytes
+    w[1] += count * ops
+
+
+def bound(work, kind):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work, the larger of its bytes over the memory rate and its operations
+    over the peak rate of their type."""
+    t_bytes = work[0] / HBM_BYTES_S * 1e3
+    t_ops = work[1] / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def emit(**obj):
@@ -161,7 +243,7 @@ def copies_past_l2(*tensors):
     return [tuple(t.clone() for t in tensors) for _ in range(n)]
 
 
-def kernel_checks(dev):
+def kernel_checks(dev, work):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, per_step = [], {"matmul_4bit": [0.0, 0.0], "matmul_int4c": [0.0, 0.0]}
     max_err = {"matmul_4bit": 0.0, "matmul_int4c": 0.0}
@@ -189,6 +271,8 @@ def kernel_checks(dev):
                 if m == 8 and fmt == "nf4a":
                     per_step["matmul_4bit"][0] += count * ms
                     per_step["matmul_4bit"][1] += count * plain_ms
+                    add_work(work, "matmul_4bit", nbytes(x, qt.codes, qt.scale, out),
+                             2 * m * k * n, count)
                 rows.append(dict(kernel="matmul_4bit", fmt=fmt, M=m, K=k, N=n, max_abs_err=err,
                                  tol=tol, us=ms * 1e3, plain_us=plain_ms * 1e3))
                 emit(kernel_check=rows[-1])
@@ -209,6 +293,8 @@ def kernel_checks(dev):
             if m == 8:
                 per_step["matmul_int4c"][0] += count * ms
                 per_step["matmul_int4c"][1] += count * plain_ms
+                add_work(work, "matmul_int4c", nbytes(xq, qw.codes, rs, qw.scale, out),
+                         2 * m * k * n, count)
             rows.append(dict(kernel="matmul_int4c", fmt="int4c", M=m, K=k, N=n,
                              max_abs_err=err, tol=0.0, us=ms * 1e3, plain_us=plain_ms * 1e3))
             emit(kernel_check=rows[-1])
@@ -264,7 +350,7 @@ def main_path(dev, cfg, dense):
     return results, launches
 
 
-def int8_kernel_checks(dev):
+def int8_kernel_checks(dev, work):
     """matmul_int8_fused and matmul_int8 against their plain versions at
     the serve shapes, bit for bit; times from CUDA events."""
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -288,6 +374,8 @@ def int8_kernel_checks(dev):
                 "matmul_int8": lambda uk, ws: lambda i: int8mm.matmul_int8_kernel(
                     xq, ws[i % len(ws)][0], rs, ws[i % len(ws)][1], use_kernel=uk),
             }
+            operands = {"matmul_int8_fused": (x, qw.codes, rs, qw.scale, y_out),
+                        "matmul_int8": (xq, qw.codes, rs, qw.scale)}
             iters = 50 if m == 8 else 10
             for name, run in runs.items():
                 out = run(True, [(qw.codes, qw.scale)])(0)
@@ -301,13 +389,14 @@ def int8_kernel_checks(dev):
                 if m == 8:
                     per_step[name][0] += count * ms
                     per_step[name][1] += count * plain_ms
+                    add_work(work, name, nbytes(*operands[name], out), 2 * m * k * n, count)
                 emit(kernel_check=dict(kernel=name, fmt="llm_int8", M=m, K=k, N=n,
                                        max_abs_err=err, tol=0.0, us=ms * 1e3,
                                        plain_us=plain_ms * 1e3))
     return per_step, max_err
 
 
-def quantize_checks(dev):
+def quantize_checks(dev, work):
     """quantize_blockwise (int8_sym, block 64) at the int8 KV writes,
     bit for bit; µs per call with inputs rotated past the L2."""
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -329,6 +418,8 @@ def quantize_checks(dev):
                                                          block=64, use_kernel=uk)
         ms, plain_ms = time_ms(run(True), 100), time_ms(run(False), 100)
         times[name] = (ms, plain_ms)
+        if name == "window_8x8":
+            add_work(work, "quantize_blockwise", nbytes(x, *out), 3 * x.numel())
         emit(kernel_check=dict(kernel="quantize_blockwise", fmt="int8_sym", shape=list(shape),
                                max_abs_err=err, tol=0.0, us=ms * 1e3, plain_us=plain_ms * 1e3))
     # the codebook branch, which the serve path does not take
@@ -440,7 +531,7 @@ def serve_rows(cfg, params_by_fmt):
             "window_upload_p50_s", "window_upload_p99_s", "launches", "window")})
 
 
-def transposed_checks(dev):
+def transposed_checks(dev, work):
     """matmul_4bit_t at the backward's shapes (M = 2048), bf16 g in nf4 and
     nf4a within 2 bf16 ulps of max|plain|, and one f32 shape; µs per call
     with the weights rotated past the L2. Returns one backward's calls
@@ -471,6 +562,8 @@ def transposed_checks(dev):
         if fmt == "nf4" and dtype == torch.bfloat16:
             per_step[0] += T_SHAPES[(k, n)] * ms
             per_step[1] += T_SHAPES[(k, n)] * plain_ms
+            add_work(work, "matmul_4bit_t", nbytes(g, qt.codes, qt.scale, out),
+                     2 * M_TRAIN * k * n, T_SHAPES[(k, n)])
         emit(kernel_check=dict(kernel="matmul_4bit_t", fmt=fmt, dtype=str(dtype), M=M_TRAIN,
                                K=k, N=n, max_abs_err=err, tol=tol, us=ms * 1e3,
                                plain_us=plain_ms * 1e3,
@@ -478,7 +571,7 @@ def transposed_checks(dev):
     return per_step, max_err
 
 
-def adam_checks(dev):
+def adam_checks(dev, work):
     """adam8bit_update over 5 chained steps, kernel and plain version each
     feeding itself from the same zero state and gradients, one block all
     zero: bit for bit. µs per call at each leaf size, inputs rotated past
@@ -516,6 +609,9 @@ def adam_checks(dev):
                                                       use_kernel=uk)
         ms, plain_ms = time_ms(run(True), 100), time_ms(run(False), 100)
         times[nb] = (ms, plain_ms)
+        if nb in ADAM_LEAVES:  # ~20 flops an element: bound by bytes
+            add_work(work, "adam8bit_update", nbytes(*xs[0], *outs[True]), 20 * nb * 256,
+                     ADAM_LEAVES[nb])
         max_err = max(max_err, leaf_err)
         emit(kernel_check=dict(kernel="adam8bit_update", leaf=name, blocks=nb, steps=5,
                                max_abs_err=leaf_err, tol=0.0, us=ms * 1e3,
@@ -603,14 +699,12 @@ def qlora_path(dev, cfg, base):
     loss_rel = abs(lk[0] - lp[0]) / abs(lp[0])
     check(loss_rel <= 1e-2, f"qlora step-1 loss {lk[0]} vs plain {lp[0]}")
 
-    def rel(a, b):
-        return ((a - b).norm() / b.norm()).item()
     b_rel, floor = [], []
     for (ak, bk), (ap, bp), (_, br) in zip(gk, gp, gr):
         check(torch.count_nonzero(ak).item() == 0 and torch.count_nonzero(ap).item() == 0,
               "qlora: lora_a gradients must be zero at step 1 (B starts at zero)")
-        b_rel.append(rel(bk, bp))
-        floor.append(rel(br, bp))
+        b_rel.append(rel_l2(bk, bp))
+        floor.append(rel_l2(br, bp))
     tols = [GRAD_FLOOR_X * f + GRAD_FLOOR_ABS for f in floor]
     emit(qlora_check=dict(step1_loss_rel=loss_rel, tol=1e-2, lora_b_grad_rel_l2_max=max(b_rel),
                           lora_b_grad_rel_l2=b_rel, grad_tols=tols,
@@ -620,6 +714,255 @@ def qlora_path(dev, cfg, base):
         check(b <= tol, f"qlora layer {i // 2} {('wq', 'wv')[i % 2]} lora_b gradient "
                         f"rel-L2 {b} > {tol} ({GRAD_FLOOR_X} x its floor + {GRAD_FLOOR_ABS})")
     return kernel_launches
+
+
+def live_pairs(q_start, kv_len, sq, t, causal=True):
+    """(query, key) pairs the masks leave live, summed over the batch rows."""
+    total = 0
+    for qs, kl in zip(q_start, kv_len):
+        horizon = np.full(sq, min(kl, t))
+        if causal:
+            horizon = np.minimum(horizon, qs + np.arange(sq) + 1)
+        total += int(np.maximum(horizon, 0).sum())
+    return total
+
+
+def flash_checks(dev, work):
+    """The three flash kernels against their plain versions on the same
+    inputs (the backward ones on the plain forward's lse and D), dead rows
+    included; at the S = T shapes, times of the kernels, their plain
+    versions and SDPA (forward; backward alone, dq, dk and dv in one call;
+    both). Returns the times at TinyLlama's shape and the largest errors."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    times, max_err = {}, dict.fromkeys(FLASH_KERNELS, 0.0)
+    for name, dtype in FLASH_CASES:
+        b, sq, t, nh, nkv, hd, q_start, kv_len = FLASH_SHAPES[name]
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype) for shape in
+                       ((b, sq, nh, hd), (b, t, nkv, hd), (b, t, nkv, hd), (b, sq, nh, hd)))
+        qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        out, lse = attention.flash_forward(q, k, v, qs, kl, save_lse=True, use_kernel=True)
+        ref, ref_lse = attention.flash_forward_reference(q, k, v, qs, kl)
+        delta = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, ref_lse, delta, qs, kl)
+        dq = attention.flash_bwd_dq(*bwd, use_kernel=True)
+        dk, dv = attention.flash_bwd_dkv(*bwd, use_kernel=True)
+        refs = {"dq": attention.flash_bwd_dq_reference(*bwd)}
+        refs["dk"], refs["dv"] = attention.flash_bwd_dkv_reference(*bwd)
+        grads = {"dq": dq, "dk": dk, "dv": dv}
+        live = kl > 0
+        check(all(torch.isfinite(x).all().item() for x in (out, lse, dq, dk, dv)),
+              f"flash {name} {dtype}: non-finite output")
+        check(bool((lse[~live] == attention.DEAD_LSE).all()) and not out[~live].any()
+              and not any(g[~live].any() for g in grads.values()),
+              f"flash {name}: dead rows must give zeros, lse 1e30 and zero gradients")
+        big = ref.float().abs().max().item()
+        out_err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse[live] - ref_lse[live]).abs().max().item()
+        grad_err = {n: (g - refs[n]).abs().max().item() for n, g in grads.items()}
+        grad_rel = {n: rel_l2(g, refs[n]) for n, g in grads.items()}
+        if dtype == torch.bfloat16:
+            out_tol, grad_tol = 2 * BF16_ULP * big, {n: 2e-2 for n in grads}
+            check(rel_l2(out, ref) <= 1e-2, f"flash_fwd {name}: rel-L2 {rel_l2(out, ref)}")
+            for n in grads:
+                check(grad_rel[n] <= 2e-2, f"flash {n} {name}: rel-L2 {grad_rel[n]} > 2e-2")
+        else:
+            out_tol = 1e-5 * big
+            grad_tol = {n: 1e-4 * r.abs().max().item() for n, r in refs.items()}
+            for n in grads:
+                check(grad_err[n] <= grad_tol[n], f"flash {n} {name} f32: err {grad_err[n]} "
+                                                  f"> {grad_tol[n]}")
+        check(out_err <= out_tol, f"flash_fwd {name} {dtype}: err {out_err} > {out_tol}")
+        check(lse_err <= 1e-4, f"flash_fwd {name} {dtype}: lse err {lse_err} > 1e-4")
+        max_err["flash_fwd"] = max(max_err["flash_fwd"], out_err)
+        max_err["flash_bwd_dq"] = max(max_err["flash_bwd_dq"], grad_err["dq"])
+        max_err["flash_bwd_dkv"] = max(max_err["flash_bwd_dkv"], grad_err["dk"], grad_err["dv"])
+        row = dict(kernel="flash", case=name, dtype=str(dtype), shape=[b, sq, t, nh, nkv, hd],
+                   q_start=q_start, kv_len=kv_len, out_max_abs_err=out_err,
+                   out_tol=out_tol, out_rel_l2=rel_l2(out, ref), lse_max_abs_err=lse_err,
+                   lse_tol=1e-4, grad_max_abs_err=grad_err, grad_rel_l2=grad_rel,
+                   grad_tol=grad_tol if dtype == torch.float32 else "rel-L2 2e-2",
+                   dead_rows=int((~live).sum()))
+        if sq == t and dtype == torch.bfloat16:
+            row.update(flash_times(q, k, v, do, qs, kl, ref_lse, delta))
+            times[name] = row
+            if name == "tinyllama_s1024":
+                pairs = nh * live_pairs(q_start, kv_len, sq, t)
+                add_work(work, "flash_fwd", nbytes(q, k, v, out, lse), 4 * hd * pairs)
+                add_work(work, "flash_bwd_dq", nbytes(q, k, v, do, lse, delta, dq), 6 * hd * pairs)
+                add_work(work, "flash_bwd_dkv", nbytes(q, k, v, do, lse, delta, dk, dv),
+                         8 * hd * pairs)
+        emit(kernel_check=row)
+    return times["tinyllama_s1024"], max_err
+
+
+def flash_times(q, k, v, do, qs, kl, lse, delta):
+    """ms per call: each kernel, its plain version, and SDPA on the same
+    inputs in its (B, heads, S, hd) layout (copied outside the timing)."""
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True,
+                             enable_gqa=True)
+    bwd = (q, k, v, do, lse, delta, qs, kl)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qr, kr, vr = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    o = sdpa(qr, kr, vr)
+    ms = {}
+    for route, uk, iters in (("ms", True, 20), ("plain_ms", False, 3)):
+        ms[f"flash_fwd_{route}"] = time_ms(lambda i: attention.flash_forward(
+            q, k, v, qs, kl, save_lse=True, use_kernel=uk), iters)
+        ms[f"flash_bwd_dq_{route}"] = time_ms(lambda i: attention.flash_bwd_dq(
+            *bwd, use_kernel=uk), iters)
+        ms[f"flash_bwd_dkv_{route}"] = time_ms(lambda i: attention.flash_bwd_dkv(
+            *bwd, use_kernel=uk), iters)
+    with torch.no_grad():
+        ms["sdpa_fwd_ms"] = time_ms(lambda i: sdpa(qt, kt, vt), 20)
+    ms["sdpa_bwd_ms"] = time_ms(lambda i: torch.autograd.grad(o, (qr, kr, vr), dot,
+                                                              retain_graph=True), 20)
+    ms["sdpa_fwd_bwd_ms"] = time_ms(lambda i: torch.autograd.grad(sdpa(qr, kr, vr),
+                                                                  (qr, kr, vr), dot), 20)
+    return ms
+
+
+def f32_attention(q, k, v, *args):
+    """The einsum attention in f32 throughout (the einsum route rounds its
+    scores and probabilities to bf16): another valid rounding of the same
+    function, whose spread from the einsum route is the floor that the
+    flash route is held to."""
+    return EINSUM_ATTENTION(q.float(), k.float(), v.float(), *args).to(q.dtype)
+
+
+EINSUM_ATTENTION = llama._attention  # before f32_attention patches it in
+
+
+def qlora_flash_path(dev, cfg, base):
+    """3 QLoRA steps at batch 2 x seq 1024 through the flash kernels and 3
+    through the einsum attention, from the same adapters; every other
+    kernel the same. Then one einsum step in f32 attention (the floor).
+    Returns the flash route's launches."""
+    data = train_bench.make_batch(cfg, LONG_BATCH, LONG_SEQ, dev)
+    init = train_bench.with_lora(base)
+    per_forward = 7 * cfg.n_layers + 1
+    runs = {}
+    for route in ("flash", "einsum", "f32_attention"):
+        adapters = [{k: {ab: t.detach().clone().requires_grad_() for ab, t in v.items()}
+                     for k, v in ad.items()} for ad in train.extract_adapters(init)]
+        params = train.merge_adapters(init, adapters)
+        opt = Adam8bit(qnn.lora_parameters(params), lr=TRAIN_LR)
+        step = train.make_qlora_train_step(cfg, opt, use_flash=route == "flash")
+        if route == "f32_attention":
+            with mock.patch.object(llama, "_attention", f32_attention):
+                runs[route] = ([step(params, data).item()], _adapter_grads(adapters))
+            continue
+        losses, counts, seconds = [], [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            losses.append(step(params, data).item())
+            seconds.append(time.perf_counter() - t0)
+            counts.append(dict(_build.launches))
+            if i == 0:
+                grads = _adapter_grads(adapters)
+        expected = dict.fromkeys(_build.launches, 0)
+        expected.update(matmul_4bit=per_forward, matmul_4bit_t=PER_BACKWARD,
+                        adam8bit_update=4 * cfg.n_layers)
+        if route == "flash":
+            expected.update(dict.fromkeys(FLASH_KERNELS, cfg.n_layers))
+        for i, c in enumerate(counts):
+            check(c == expected, f"qlora s1024 {route} step {i + 1}: launches {c}, "
+                                 f"expected {expected}")
+        check(all(math.isfinite(x) for x in losses), f"qlora s1024 {route}: losses {losses}")
+        check(losses[2] < losses[0], f"qlora s1024 {route}: loss did not fall: {losses}")
+        runs[route] = (losses, grads)
+        if route == "flash":
+            flash_launches = {k: sum(c[k] for c in counts) for k in expected}
+        emit(qlora_s1024=dict(route=route, batch=LONG_BATCH, seq=LONG_SEQ, losses=losses,
+                              step_seconds=seconds, launches_per_step=counts[0]))
+    (lf, gf), (le, ge), (l32, g32) = runs["flash"], runs["einsum"], runs["f32_attention"]
+    loss_rel = abs(lf[0] - le[0]) / abs(le[0])
+    check(loss_rel <= 1e-2, f"qlora s1024 step-1 loss {lf[0]} vs einsum {le[0]}")
+    b_rel = [rel_l2(bf, be) for (_, bf), (_, be) in zip(gf, ge)]
+    floor = [rel_l2(b32, be) for (_, b32), (_, be) in zip(g32, ge)]
+    tols = [GRAD_FLOOR_X * f + GRAD_FLOOR_ABS for f in floor]
+    emit(qlora_s1024_check=dict(step1_loss_rel=loss_rel, tol=1e-2,
+                                lora_b_grad_rel_l2_max=max(b_rel), lora_b_grad_rel_l2=b_rel,
+                                grad_tols=tols, f32_attention_loss_rel=abs(l32[0] - le[0]) / abs(le[0]),
+                                f32_attention_rel_l2_max=max(floor), f32_attention_rel_l2=floor))
+    for i, (b, tol) in enumerate(zip(b_rel, tols)):
+        check(b <= tol, f"qlora s1024 layer {i // 2} {('wq', 'wv')[i % 2]} lora_b gradient "
+                        f"rel-L2 {b} > {tol} ({GRAD_FLOOR_X} x its floor + {GRAD_FLOOR_ABS})")
+    return flash_launches
+
+
+def long_prompt_decode(dev, cfg, params):
+    """Greedy decode (B=2, nf4a) from a 1024-token prompt: its prefill into a
+    cache of 1040 slots takes the flash kernel (q_start 0, kv_len 1024 of
+    1040), the decode steps the einsum attention. Prefill logits flash vs
+    einsum; launches of the prefill and of the whole decode. Returns the
+    decode's launches."""
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, PROMPT_LEN), dtype=np.int32)).to(dev)
+    logits, prefill_launches = {}, {}
+    with torch.no_grad():
+        for route in ("flash", "einsum", "f32_attention"):
+            cache = llama.init_cache(cfg, 2, max_len=PROMPT_LEN + PROMPT_NEW, device=dev)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            with mock.patch.object(llama, "_attention", f32_attention
+                                   if route == "f32_attention" else EINSUM_ATTENTION):
+                logits[route], _ = llama.forward(params, prompt, cfg, cache=cache,
+                                                 use_flash=route == "flash")
+            torch.cuda.synchronize()
+            prefill_launches[route] = _build.launches["flash_fwd"]
+    check(prefill_launches == {"flash": cfg.n_layers, "einsum": 0, "f32_attention": 0},
+          f"long prefill flash launches {prefill_launches}")
+    check(torch.isfinite(logits["flash"]).all().item(), "long prefill: non-finite logits")
+    rel = rel_l2(logits["flash"], logits["einsum"])
+    # the floor: the einsum route against itself in f32 attention; the
+    # 1e-2 limit holds unless that floor, from bf16 rounding alone, is
+    # above it (PERF.md)
+    floor = rel_l2(logits["f32_attention"], logits["einsum"])
+    tol = max(1e-2, GRAD_FLOOR_X * floor + GRAD_FLOOR_ABS)
+    agree = (logits["flash"].argmax(-1) == logits["einsum"].argmax(-1)).float().mean().item()
+    check(rel <= tol, f"long prefill logits flash vs einsum rel-L2 {rel} > {tol}")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = llama.greedy_decode(params, prompt, cfg, max_new_tokens=PROMPT_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    expected = dict.fromkeys(counts, 0)
+    expected.update(flash_fwd=cfg.n_layers, matmul_4bit=PROMPT_NEW * (7 * cfg.n_layers + 1))
+    check(counts == expected, f"long-prompt decode: launches {counts}, expected {expected}")
+    check(out.shape == (2, PROMPT_LEN + PROMPT_NEW) and torch.equal(out[:, :PROMPT_LEN], prompt)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()), "long-prompt decode: bad output")
+    emit(long_prompt_decode=dict(batch=2, prompt=PROMPT_LEN, new_tokens=PROMPT_NEW,
+                                 cache_len=PROMPT_LEN + PROMPT_NEW, greedy_s=wall,
+                                 prefill_logits_rel_l2_flash_vs_einsum=rel, tol=tol,
+                                 f32_attention_rel_l2_vs_einsum=floor,
+                                 flash_vs_f32_attention_rel_l2=rel_l2(logits["flash"],
+                                                                      logits["f32_attention"]),
+                                 prefill_argmax_agreement=agree,
+                                 prefill_flash_launches=prefill_launches["flash"],
+                                 decode_launches=counts))
+    return counts
+
+
+def long_rows(cfg, dense):
+    """long_prefill (dense bf16, B=2) at each S of the crossover, the
+    reference's row at 2048; then train_bench's seq-1024 and 7B rows."""
+    for seq in CROSSOVER_SEQS:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        row = decode_bench.long_prefill(dense, cfg, seq=seq)
+        torch.cuda.synchronize()
+        # the flash route's warm-up and timed forwards, one launch a layer each
+        check(_build.launches["flash_fwd"] == 4 * cfg.n_layers,
+              f"long_prefill S={seq}: {_build.launches['flash_fwd']} flash launches")
+        emit(long_prefill=row)
+    for row in train_bench.long_rows():
+        check(math.isfinite(row["loss_step1"]), f"train row {row['name']}: {row['loss_step1']}")
+        emit(train_row=row)
 
 
 def train_rows(cfg, bases):
@@ -652,11 +995,12 @@ def main():
     emit(build={"seconds": time.perf_counter() - t0, "so": _build.build_info["so"],
                 "cached": _build.build_info["cached"], "ptxas": ptxas})
 
-    per_step, max_err = kernel_checks(dev)
-    int8_step, int8_err = int8_kernel_checks(dev)
+    work = {}
+    per_step, max_err = kernel_checks(dev, work)
+    int8_step, int8_err = int8_kernel_checks(dev, work)
     per_step.update(int8_step)
     max_err.update(int8_err)
-    q_times, max_err["quantize_blockwise"] = quantize_checks(dev)
+    q_times, max_err["quantize_blockwise"] = quantize_checks(dev, work)
 
     cfg = llama.LlamaConfig.tinyllama_1b()
     dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
@@ -673,56 +1017,67 @@ def main():
         emit(bench={"fmt": fmt, "batch": 8, "prefill_len": 128, "cache_len": 512, **r})
     emit(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
-    t_step, max_err["matmul_4bit_t"] = transposed_checks(dev)
-    adam_step, max_err["adam8bit_update"] = adam_checks(dev)
+    t_step, max_err["matmul_4bit_t"] = transposed_checks(dev, work)
+    adam_step, max_err["adam8bit_update"] = adam_checks(dev, work)
     train_launches = qlora_path(dev, cfg, params["nf4"])
     launches["matmul_4bit"] += train_launches["matmul_4bit"]
     train_rows(cfg, {"nf4": params["nf4"], "nf4a": params["nf4a"], "bf16": dense})
 
+    flash_ms, flash_err = flash_checks(dev, work)
+    max_err.update(flash_err)
+    flash_launches = qlora_flash_path(dev, cfg, params["nf4"])
+    decode_launches = long_prompt_decode(dev, cfg, params["nf4a"])
+    for k in ("matmul_4bit", "matmul_4bit_t", "adam8bit_update"):
+        train_launches[k] += flash_launches[k]
+    launches["matmul_4bit"] += decode_launches["matmul_4bit"]
+    for k in FLASH_KERNELS:
+        launches[k] = flash_launches[k] + decode_launches[k]
+    long_rows(cfg, dense)
+
+    def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None):
+        bound_ms, bound_by = bound(work[name], kind)
+        return {"name": name, "route": "cuda", "source": f"quanta_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n_launches, "max_abs_err": max_err[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "at": at}
+
     at = "one decode step's calls at M=8 (nf4a for matmul_4bit), ms"
     q_ms, q_plain_ms = q_times["window_8x8"]
+    flash_at = ("one call at TinyLlama-1.1B's QLoRA shape (B=2, S=T=1024, 32 heads, 4 KV "
+                "heads, hd 64, bf16), ms; library: ")
+    sdpa = "SDPA (is_causal, enable_gqa) "
+    bwd_pair_ms = flash_ms["flash_bwd_dq_ms"] + flash_ms["flash_bwd_dkv_ms"]
     emit(kernels=[
-        {"name": "matmul_4bit", "route": "cuda",
-         "source": "quanta_tpu_torch/csrc/matmul_4bit.cu",
-         "replaces": "quanta_tpu/ops/matmul.py:204", "launches": launches["matmul_4bit"],
-         "max_abs_err": max_err["matmul_4bit"], "ms": per_step["matmul_4bit"][0],
-         "plain_ms": per_step["matmul_4bit"][1], "at": at},
-        {"name": "matmul_int4c", "route": "cuda",
-         "source": "quanta_tpu_torch/csrc/int4c.cu",
-         "replaces": "quanta_tpu/ops/int4c.py:116", "launches": launches["matmul_int4c"],
-         "max_abs_err": max_err["matmul_int4c"], "ms": per_step["matmul_int4c"][0],
-         "plain_ms": per_step["matmul_int4c"][1], "at": at},
-        {"name": "matmul_int8_fused", "route": "cuda",
-         "source": "quanta_tpu_torch/csrc/int8mm.cu",
-         "replaces": "quanta_tpu/ops/int8mm.py:167",
-         "launches": launches["matmul_int8_fused"], "max_abs_err": max_err["matmul_int8_fused"],
-         "ms": per_step["matmul_int8_fused"][0], "plain_ms": per_step["matmul_int8_fused"][1],
-         "at": at},
-        {"name": "matmul_int8", "route": "cuda",
-         "source": "quanta_tpu_torch/csrc/int8mm.cu",
-         "replaces": "quanta_tpu/ops/int8mm.py:235", "launches": launches["matmul_int8"],
-         "max_abs_err": max_err["matmul_int8"], "ms": per_step["matmul_int8"][0],
-         "plain_ms": per_step["matmul_int8"][1], "at": at},
-        {"name": "quantize_blockwise", "route": "cuda",
-         "source": "quanta_tpu_torch/csrc/quantize.cu",
-         "replaces": "quanta_tpu/ops/quantize.py:65",
-         "launches": launches["quantize_blockwise"],
-         "max_abs_err": max_err["quantize_blockwise"], "ms": q_ms,
-         "plain_ms": q_plain_ms,
-         "at": "one call at a window's KV write (22 x 8 x 8 x 4 x 64 bf16), ms"},
-        {"name": "matmul_4bit_t", "route": "cuda",
-         "source": "quanta_tpu_torch/csrc/matmul_4bit_t.cu",
-         "replaces": "quanta_tpu/ops/matmul.py:423",
-         "launches": train_launches["matmul_4bit_t"], "max_abs_err": max_err["matmul_4bit_t"],
-         "ms": t_step[0], "plain_ms": t_step[1],
-         "at": "one QLoRA backward's 152 calls at M=2048, bf16 g, nf4, ms"},
-        {"name": "adam8bit_update", "route": "cuda",
-         "source": "quanta_tpu_torch/csrc/adam8bit.cu",
-         "replaces": "quanta_tpu/ops/adam8bit.py:72",
-         "launches": train_launches["adam8bit_update"],
-         "max_abs_err": max_err["adam8bit_update"],
-         "ms": adam_step[0], "plain_ms": adam_step[1],
-         "at": "one QLoRA step's 88 adapter calls (66 of 64 blocks, 22 of 8), ms"},
+        entry("matmul_4bit", "matmul_4bit.cu", "quanta_tpu/ops/matmul.py:204",
+              launches["matmul_4bit"], *per_step["matmul_4bit"], "bf16", at),
+        entry("matmul_int4c", "int4c.cu", "quanta_tpu/ops/int4c.py:116",
+              launches["matmul_int4c"], *per_step["matmul_int4c"], "int8", at),
+        entry("matmul_int8_fused", "int8mm.cu", "quanta_tpu/ops/int8mm.py:167",
+              launches["matmul_int8_fused"], *per_step["matmul_int8_fused"], "int8", at),
+        entry("matmul_int8", "int8mm.cu", "quanta_tpu/ops/int8mm.py:235",
+              launches["matmul_int8"], *per_step["matmul_int8"], "int8", at),
+        entry("quantize_blockwise", "quantize.cu", "quanta_tpu/ops/quantize.py:65",
+              launches["quantize_blockwise"], q_ms, q_plain_ms, "f32",
+              "one call at a window's KV write (22 x 8 x 8 x 4 x 64 bf16), ms"),
+        entry("matmul_4bit_t", "matmul_4bit_t.cu", "quanta_tpu/ops/matmul.py:423",
+              train_launches["matmul_4bit_t"], *t_step, "bf16",
+              "one QLoRA backward's 152 calls at M=2048, bf16 g, nf4, ms"),
+        entry("adam8bit_update", "adam8bit.cu", "quanta_tpu/ops/adam8bit.py:72",
+              train_launches["adam8bit_update"], *adam_step, "f32",
+              "one QLoRA step's 88 adapter calls (66 of 64 blocks, 22 of 8), ms"),
+        entry("flash_fwd", "flash_fwd.cu", "quanta_tpu/ops/attention.py:189",
+              launches["flash_fwd"], flash_ms["flash_fwd_ms"], flash_ms["flash_fwd_plain_ms"],
+              "bf16", flash_at + sdpa + "forward", flash_ms["sdpa_fwd_ms"]),
+        entry("flash_bwd_dq", "flash_bwd.cu", "quanta_tpu/ops/attention.py:465",
+              launches["flash_bwd_dq"], flash_ms["flash_bwd_dq_ms"],
+              flash_ms["flash_bwd_dq_plain_ms"], "bf16",
+              flash_at + "none: no call computes dq alone (SDPA's backward stands on "
+              "flash_bwd_dkv's line)"),
+        entry("flash_bwd_dkv", "flash_bwd.cu", "quanta_tpu/ops/attention.py:494",
+              launches["flash_bwd_dkv"], flash_ms["flash_bwd_dkv_ms"],
+              flash_ms["flash_bwd_dkv_plain_ms"], "bf16",
+              flash_at + sdpa + "backward, dq, dk and dv in one call: compare it with this "
+              f"kernel's ms plus flash_bwd_dq's, {bwd_pair_ms}", flash_ms["sdpa_bwd_ms"]),
     ])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

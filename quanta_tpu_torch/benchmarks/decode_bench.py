@@ -15,6 +15,11 @@ into device-busy time and the rest.
 
     python -m quanta_tpu_torch.benchmarks.decode_bench   # one JSON line
 
+``long_prefill`` is the reference's long-context row
+(``quanta_tpu/benchmarks/decode_bench.py:152-191``): one forward of the
+dense bf16 model over batch 2 x 2048 tokens, through the flash kernels and
+through the einsum attention.
+
 Needs a CUDA device; without one it raises.
 """
 
@@ -118,6 +123,36 @@ def profile_decode(params, cfg, *, batch=8, prefill_len=128, cache_len=512,
             "device_ops_per_step": n_kernels / steps}
 
 
+@torch.no_grad()
+def long_prefill(params, cfg, *, batch=2, seq=2048) -> dict:
+    """A forward of ``batch`` x ``seq`` tokens (no cache, the reference's
+    row) through flash and through the einsum attention: after one warm-up
+    forward, the median of 3 CUDA-event times each, tok/s, their ratio and
+    each route's peak allocation above what was allocated before it."""
+    dev = _require_cuda()
+    toks = torch.zeros((batch, seq), dtype=torch.int32, device=dev)
+    row = {"batch": batch, "seq": seq}
+    for name, use_flash in (("flash", True), ("einsum", False)):
+        llama.forward(params, toks, cfg, use_flash=use_flash)
+        torch.cuda.synchronize()
+        start_alloc = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            llama.forward(params, toks, cfg, use_flash=use_flash)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        row.update({f"{name}_ms": ms, f"{name}_ms_all": times,
+                    f"{name}_tok_s": batch * seq / (ms / 1e3),
+                    f"{name}_peak_gib": (torch.cuda.max_memory_allocated() - start_alloc) / 2**30})
+    row["flash_speedup"] = row["einsum_ms"] / row["flash_ms"]
+    return row
+
+
 def quantized(dense, fmt: str, block_size: int = 64):
     return dense if fmt == "bf16" else qnn.quantize_params(dense, mode=fmt,
                                                            block_size=block_size)
@@ -149,7 +184,8 @@ def main():
     dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
     results = {fmt: measure(quantized(dense, fmt), cfg) for fmt in FORMATS}
     print(json.dumps({"device": torch.cuda.get_device_name(0), "batch": 8,
-                      "prefill_len": 128, "cache_len": 512, "results": results}))
+                      "prefill_len": 128, "cache_len": 512, "results": results,
+                      "long_prefill": long_prefill(dense, cfg)}))
 
 
 if __name__ == "__main__":

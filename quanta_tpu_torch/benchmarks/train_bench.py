@@ -1,12 +1,17 @@
 """QLoRA training steps on one CUDA device.
 
-Port of the TinyLlama rows of ``quanta_tpu/benchmarks/train_bench.py``
-(``bench_qlora`` and ``bench_adam_bytes``, :97-261): the TinyLlama-1.1B
-geometry with random weights from seed 0, its linears (``lm_head``
-included) as nf4 or nf4a blocks of 64, or dense bf16 (the control);
-rank-8 bf16 LoRA on ``wq`` and ``wv`` (alpha 16, seed 1); blockwise 8-bit
-Adam at lr 1e-4; batch 4 x seq 512 of random tokens (numpy seed 0),
-next-token cross-entropy.
+Port of the rows of ``quanta_tpu/benchmarks/train_bench.py``
+(``bench_qlora`` and ``bench_adam_bytes``, :97-261, the rows at :278-303):
+``ROWS``, the TinyLlama-1.1B geometry with random weights from seed 0, its
+linears (``lm_head`` included) as nf4 or nf4a blocks of 64, or dense bf16
+(the control), at batch 4 x seq 512; ``LONG_ROWS``, nf4 bases drawn by
+``nn.init_quantized_params`` (seed 0): TinyLlama-1.1B at batch 2 x seq
+1024 (through the flash kernels, and through the einsum attention as the
+control that shows what flash does to step memory) and Llama-2-7B (the
+north star, ``max_seq_len`` 1024) at batch 2 x seq 512 and batch 1 x seq
+1024. Every row: rank-8 bf16 LoRA on ``wq`` and ``wv`` (alpha 16, seed 1);
+blockwise 8-bit Adam at lr 1e-4; random tokens (numpy seed 0), next-token
+cross-entropy.
 
 Each row reports:
   - ``step_ms``: the median of CUDA-event times around each of ``steps``
@@ -22,8 +27,7 @@ Each row reports:
 
 ``adam_bytes`` gives the 8-bit Adam bytes per parameter for the adapters
 (allocated) and for every parameter of the tree (counted from shapes),
-against fp32 Adam's 8. The seq-1024 row waits for the flash-attention
-kernels; the 7B and 13B rows wait for ``init_quantized_params``.
+against fp32 Adam's 8. The 13B rows are not ported.
 
     python -m quanta_tpu_torch.benchmarks.train_bench   # one JSON line
 
@@ -33,6 +37,7 @@ Needs a CUDA device; without one it raises.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import statistics
@@ -49,6 +54,14 @@ from quanta_tpu_torch.optim import Adam8bit, state_nbytes
 from quanta_tpu_torch.optim.adam8bit import BLOCK
 
 ROWS = (("tinyllama nf4", "nf4"), ("tinyllama nf4a", "nf4a"), ("tinyllama bf16-base", "bf16"))
+# name, model, batch, seq, use_flash (None: the kernels, as S >= 1024), and
+# warm-up and timed steps (the reference's L0, L1)
+LONG_ROWS = (
+    ("tinyllama nf4 s1024", "tinyllama", 2, 1024, None, 2, 5),
+    ("tinyllama nf4 s1024 einsum", "tinyllama", 2, 1024, False, 2, 5),
+    ("llama2-7b nf4", "llama2-7b", 2, 512, None, 1, 3),
+    ("llama2-7b nf4 s1024", "llama2-7b", 1, 1024, None, 1, 3),
+)
 FP32_ADAM_BYTES = 8  # m and v in f32
 TOP_OPS = 8
 
@@ -116,13 +129,24 @@ def profile_step(step, params, batch) -> dict:
             "top_device_ms": {k: v / 1e3 for k, v in by_name.most_common(TOP_OPS)}}
 
 
+def model_config(model: str) -> llama.LlamaConfig:
+    """The configuration of a ``LONG_ROWS`` model: the 7B with the
+    reference's ``max_seq_len=1024`` (``train_bench.py:293-297``)."""
+    if model == "tinyllama":
+        return llama.LlamaConfig.tinyllama_1b()
+    if model == "llama2-7b":
+        return dataclasses.replace(llama.LlamaConfig.llama2_7b(), max_seq_len=1024)
+    raise ValueError(f"unknown model {model!r}")
+
+
 def bench_qlora(base: dict, cfg, *, batch: int = 4, seq: int = 512, rank: int = 8,
-                lr: float = 1e-4, warmup: int = 2, steps: int = 5) -> dict:
-    """One row: QLoRA steps over ``base`` (a quantized or dense tree)."""
+                lr: float = 1e-4, warmup: int = 2, steps: int = 5, use_flash=None) -> dict:
+    """One row: QLoRA steps over ``base`` (a quantized or dense tree);
+    ``use_flash`` goes to ``llama.forward``."""
     dev = _require_cuda()
     params = with_lora(base, rank=rank)
     opt = Adam8bit(qnn.lora_parameters(params), lr=lr)
-    step = train.make_qlora_train_step(cfg, opt)
+    step = train.make_qlora_train_step(cfg, opt, use_flash=use_flash)
     data = make_batch(cfg, batch, seq, dev)
     torch.cuda.synchronize()
     start_alloc = torch.cuda.memory_allocated()
@@ -142,7 +166,7 @@ def bench_qlora(base: dict, cfg, *, batch: int = 4, seq: int = 512, rank: int = 
     prof = profile_step(step, params, data)
     step_ms = statistics.median(times)
     return {
-        "batch": batch, "seq": seq, "rank": rank, "lr": lr,
+        "batch": batch, "seq": seq, "rank": rank, "lr": lr, "use_flash": use_flash,
         "loss_step1": loss1,
         "step_ms": step_ms, "step_ms_all": times,
         "tok_s": batch * seq / (step_ms / 1e3),
@@ -179,12 +203,31 @@ def adam_bytes(cfg, rank: int = 8) -> dict:
     }
 
 
+def long_rows() -> list[dict]:
+    """The ``LONG_ROWS``, one base per model, freed before the next."""
+    dev = _require_cuda()
+    rows, bases = [], {}
+    for name, model, batch, seq, use_flash, warmup, steps in LONG_ROWS:
+        cfg = model_config(model)
+        if model not in bases:
+            bases.clear()
+            torch.cuda.empty_cache()
+            bases[model] = qnn.init_quantized_params(torch.Generator(device=dev).manual_seed(0),
+                                                     cfg, mode="nf4", device=dev)
+        rows.append({"name": name, "model": model, "fmt": "nf4",
+                     **bench_qlora(bases[model], cfg, batch=batch, seq=seq, use_flash=use_flash,
+                                   warmup=warmup, steps=steps)})
+    return rows
+
+
 def main():
     dev = _require_cuda()
     cfg = llama.LlamaConfig.tinyllama_1b()
     dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
     rows = [{"name": name, "fmt": fmt, **bench_qlora(quantized(dense, fmt), cfg)}
             for name, fmt in ROWS]
+    del dense
+    rows += long_rows()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "train": rows,
                       "adam_bytes": adam_bytes(cfg)}))
 

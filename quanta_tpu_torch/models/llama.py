@@ -22,6 +22,11 @@ import torch
 import torch.nn.functional as F
 
 from quanta_tpu_torch.nn.linear import linear
+from quanta_tpu_torch.ops.attention import flash_attention
+
+# use_flash=None takes the flash kernels from this many tokens on (the
+# reference's own threshold, quanta_tpu/models/llama.py:199-201)
+FLASH_MIN_SEQ = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,17 +186,20 @@ def forward(
     into ``cache['k']``/``cache['v']`` — and the returned cache shares
     those tensors with a new ``pos`` (prefill when S>1, decode when S==1).
 
-    use_flash: the flash-attention kernel is not ported yet (ROADMAP
-    Queue 2 item 5); ``True`` raises, and the default ``None`` resolves to
-    the einsum attention, as it does off the TPU.
+    use_flash routes multi-token attention through ``ops.flash_attention``
+    (scores never reach device memory): ``None`` means the flash kernels
+    when S >= ``FLASH_MIN_SEQ`` and the tokens are on CUDA, the einsum
+    attention otherwise; single-token decode (S == 1) always takes the
+    einsum attention. ``use_kernel`` governs the flash route as it governs
+    the linears: ``False`` runs its plain version.
 
     Returns (logits (B, S, V) f32, new_cache | None).
     """
-    if use_flash:
-        raise NotImplementedError(
-            "flash attention is not ported yet (ROADMAP Queue 2 item 5)")
     b, s = tokens.shape
     dev = tokens.device
+    if use_flash is None:
+        use_flash = s >= FLASH_MIN_SEQ and tokens.is_cuda
+    use_flash = use_flash and s > 1
     lin = partial(linear, use_kernel=use_kernel)
     h = params["tok_emb"][tokens].to(cfg.dtype)
     steps = torch.arange(s, device=dev, dtype=torch.int32)
@@ -203,9 +211,17 @@ def forward(
         kv_len_mask = torch.arange(t, device=dev)[None, :] < (start[:, None] + s)
         rows = torch.arange(b, device=dev)[:, None]
         slots = q_positions.long()  # (B, S) cache slots of the new tokens
+        q_start, kv_len = start, start + s
     else:
         q_positions = steps[None, :].expand(b, s)
         kv_len_mask = torch.ones((b, s), dtype=torch.bool, device=dev)
+        q_start = torch.zeros((b,), dtype=torch.int32, device=dev)
+        kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
+
+    def attend(q, k_all, v_all):
+        if use_flash:
+            return flash_attention(q, k_all, v_all, q_start, kv_len, use_kernel=use_kernel)
+        return _attention(q, k_all, v_all, q_positions, kv_len_mask, cfg)
 
     for i, lp in enumerate(params["layers"]):
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
@@ -220,9 +236,9 @@ def forward(
             k_all, v_all = cache["k"][i], cache["v"][i]
             k_all[rows, slots] = k
             v_all[rows, slots] = v
-            attn = _attention(q, k_all, v_all, q_positions, kv_len_mask, cfg)
+            attn = attend(q, k_all, v_all)
         else:
-            attn = _attention(q, k, v, q_positions, kv_len_mask, cfg)
+            attn = attend(q, k, v)
 
         h = h + lin(attn.reshape(b, s, -1), lp["wo"])
         x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)

@@ -4,6 +4,7 @@ from quanta_tpu_torch.nn.linear import (
     Linear4bit,
     Linear8bitLt,
     dequantize_params,
+    init_quantized_params,
     linear,
     quantize_linear_weight,
     quantize_params,
@@ -17,6 +18,7 @@ __all__ = [
     "quantize_linear_weight",
     "quantize_params",
     "dequantize_params",
+    "init_quantized_params",
     "LoRAWeight",
     "init_lora",
     "lora_linear",

@@ -13,6 +13,7 @@ Weights are (in_features, out_features): ``y = x @ W``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Optional
 
@@ -138,6 +139,63 @@ def quantize_params(
         return leaf
 
     return _map_with_path(maybe_quant, params)
+
+
+def init_quantized_params(generator: torch.Generator, cfg, *, mode: str = "nf4a",
+                          block_size: int = 64, device=None) -> dict:
+    """Random-init a Llama parameter tree directly in quantized form (port
+    of ``quanta_tpu.nn.linear.init_quantized_params``): every linear's codes
+    and scales are drawn at the layout ``quantize_matmul_weight`` would give
+    (K padded to 16 * block, N to 128), uniform codes and scales
+    ``uniform / sqrt(K) + 1e-4``, so the dense tree never exists (a dense
+    Llama-2-7B is 13.5 GB of bf16). Speed depends on shapes and formats,
+    not on weight values. The embedding is dense, ``randn * 0.02``; the
+    norms are ones. ``mode`` is a matmul-layout format without a zero point
+    (the affine int8a/int4a would need one drawn per block).
+    """
+    template = codecs.quantize_matmul_weight(
+        torch.zeros((16 * block_size, 128)), fmt=mode, block_size=block_size)
+    if template.zero_point is not None:
+        raise ValueError(f"init_quantized_params: {mode!r} is affine; its zero points are "
+                         "not drawn")
+
+    def quantized(k, n):
+        k_pad = -(-k // (16 * block_size)) * (16 * block_size)
+        n_pad = -(-n // 128) * 128
+        if template.packed == "split_k":
+            shape, low, high = (k_pad // 2, n_pad), 0, 256
+        elif template.codes.dtype == torch.int8:
+            shape, low, high = (k_pad, n_pad), -127, 128
+        else:
+            shape, low, high = (k_pad, n_pad), 0, 256
+        codes = torch.randint(low, high, shape, generator=generator, device=device,
+                              dtype=template.codes.dtype)
+        scale = torch.rand((k_pad // block_size, n_pad), generator=generator, device=device)
+        scale = scale * (1.0 / math.sqrt(k)) + 1e-4
+        return dataclasses.replace(template, codes=codes, scale=scale, shape=(k, n),
+                                   dtype=torch.bfloat16)
+
+    def ones():
+        return torch.ones((cfg.dim,), dtype=cfg.dtype, device=device)
+
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    emb = torch.randn((cfg.vocab_size, cfg.dim), generator=generator, device=device)
+    params = {"tok_emb": (emb * 0.02).to(cfg.dtype), "norm_f": ones(), "layers": []}
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": ones(),
+            "wq": quantized(cfg.dim, nh * hd),
+            "wk": quantized(cfg.dim, nkv * hd),
+            "wv": quantized(cfg.dim, nkv * hd),
+            "wo": quantized(nh * hd, cfg.dim),
+            "ffn_norm": ones(),
+            "w_gate": quantized(cfg.dim, cfg.hidden_dim),
+            "w_up": quantized(cfg.dim, cfg.hidden_dim),
+            "w_down": quantized(cfg.hidden_dim, cfg.dim),
+        })
+    if not cfg.tie_embeddings:
+        params["lm_head"] = quantized(cfg.dim, cfg.vocab_size)
+    return params
 
 
 def dequantize_params(params):

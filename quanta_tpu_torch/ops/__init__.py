@@ -7,6 +7,7 @@ for CPU tensors.
 """
 
 from quanta_tpu_torch.ops.adam8bit import adam8bit_update
+from quanta_tpu_torch.ops.attention import flash_attention
 from quanta_tpu_torch.ops.int4c import Int4cWeight, matmul_int4c, quantize_int4c_weight
 from quanta_tpu_torch.ops.int8mm import (
     Int8Weight,
@@ -24,6 +25,7 @@ __all__ = [
     "matmul_4bit",
     "matmul_4bit_t",
     "adam8bit_update",
+    "flash_attention",
     "Int4cWeight",
     "matmul_int4c",
     "quantize_int4c_weight",

@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels of ``csrc/``.
 
 At first CUDA use, every ``quanta_tpu_torch/csrc/*.cu`` is compiled by
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, and loaded with ``ctypes``. Nothing includes PyTorch's headers,
-so the build takes seconds. The library lands in
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``. Nothing includes PyTorch's headers, so
+the build takes seconds. The library lands in
 ``quanta_tpu_torch/_build/<hash of the sources>/``, so an edited source
 builds anew and an unchanged one is reused.
 
@@ -31,8 +32,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argtypes (pointers and the stream as void*, sizes as int)
@@ -55,11 +56,21 @@ _SIGNATURES = {
     # g, m_codes, m_scale, v_codes, v_scale, (lr, bc1, bc2), upd, m_codes', m_scale',
     # v_codes', v_scale', n_blocks, b1, b2, 1 - b1, 1 - b2, eps, stream
     "qt_adam8bit_update": [_P] * 11 + [_I, _F, _F, _F, _F, _F, _P],
+    # q, k, v, q_start, kv_len, out, lse (or null), B, Sq, T, nh, nkv, hd, causal, scale, stream
+    "qt_flash_fwd_bf16": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "qt_flash_fwd_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # q, k, v, dO, lse, D, q_start, kv_len, dq, B, Sq, T, nh, nkv, hd, causal, scale, stream
+    "qt_flash_bwd_dq_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "qt_flash_bwd_dq_f32": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # ... dk, dv, B, Sq, T, nh, nkv, hd, causal, scale, stream
+    "qt_flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "qt_flash_bwd_dkv_f32": [_P] * 10 + [_I] * 7 + [_F, _P],
 }
 
 launches: dict[str, int] = {"matmul_4bit": 0, "matmul_4bit_t": 0, "matmul_int4c": 0,
                             "matmul_int8_fused": 0, "matmul_int8": 0, "quantize_blockwise": 0,
-                            "adam8bit_update": 0}
+                            "adam8bit_update": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -99,19 +110,33 @@ def _build() -> pathlib.Path:
         build_info.update(so=str(so), cached=True)
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    cus = [str(p) for p in srcs if p.suffix == ".cu"]
-    # build to a temporary name, then rename: a reader never sees half a file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    # one nvcc per source, all at once; then one link. Temporary names,
+    # renamed at the end: a reader never sees half a file.
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
+    cus = [p for p in srcs if p.suffix == ".cu"]
+    objs = [tmp / (p.stem + ".o") for p in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for p, o in zip(cus, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(p.name, proc.returncode, log) for p, proc, log in zip(cus, procs, logs)
+              if proc.returncode != 0]
+    if failed:
+        shutil.rmtree(tmp)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp / so.name), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
                            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, so)
-    (out_dir / "build.log").write_text(proc.stderr + proc.stdout)
-    build_info.update(so=str(so), cached=False, ptxas=proc.stderr + proc.stdout)
+    os.replace(tmp / so.name, so)
+    shutil.rmtree(tmp)
+    log = "".join(logs) + proc.stderr + proc.stdout
+    (out_dir / "build.log").write_text(log)
+    build_info.update(so=str(so), cached=False, ptxas=log)
     return so
 
 

@@ -85,15 +85,17 @@ def causal_lm_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def make_train_step(cfg, optimizer: torch.optim.Optimizer, *,
-                    use_kernel: Optional[bool] = None):
+                    use_kernel: Optional[bool] = None, use_flash: Optional[bool] = None):
     """A training step of the Llama forward over whatever tensors
-    ``optimizer`` holds.
+    ``optimizer`` holds. ``use_kernel`` and ``use_flash`` go to
+    ``llama.forward`` (``use_flash=None``: the flash kernels from
+    ``llama.FLASH_MIN_SEQ`` tokens on CUDA).
 
     Returns ``step(params, batch) -> loss`` (a 0-dim tensor, left on the
     device); batch is ``{"inputs": (B,S) int, "targets": (B,S) int,
     "mask": optional}``.
     """
-    fwd = partial(llama.forward, cfg=cfg, use_kernel=use_kernel)
+    fwd = partial(llama.forward, cfg=cfg, use_kernel=use_kernel, use_flash=use_flash)
 
     def step(params, batch):
         optimizer.zero_grad(set_to_none=True)
@@ -107,8 +109,8 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, *,
 
 
 def make_qlora_train_step(cfg: llama.LlamaConfig, optimizer: torch.optim.Optimizer, *,
-                          use_kernel: Optional[bool] = None):
+                          use_kernel: Optional[bool] = None, use_flash: Optional[bool] = None):
     """The QLoRA step: the Llama forward over a tree whose only tensors
     that require a gradient are the adapters ``optimizer`` holds
     (``Adam8bit(nn.lora_parameters(params))``)."""
-    return make_train_step(cfg, optimizer, use_kernel=use_kernel)
+    return make_train_step(cfg, optimizer, use_kernel=use_kernel, use_flash=use_flash)

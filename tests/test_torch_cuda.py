@@ -11,7 +11,12 @@ versions multiply the same bf16 weights and differ only in f32 summation
 order, so they agree within 2 bf16 ulps of max|plain|; ``matmul_int4c``,
 both LLM.int8 kernels, ``quantize_blockwise`` and ``adam8bit_update``
 compute exactly what their plain versions compute, in the same rounding
-order, and must agree bit for bit.
+order, and must agree bit for bit. The flash-attention kernels sum in
+another order than their plain versions and round p to bf16 against the
+running maximum rather than the final one: bf16 outputs within 2 bf16 ulps
+of max|plain| and rel-L2 1e-2, lse within 1e-4 (1e30 exactly on rows with
+no live key), gradients within rel-L2 2e-2; in f32, 1e-5 of max|plain| for
+the output and 1e-4 for gradients.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ from quanta_tpu_torch import nn as tnn
 from quanta_tpu_torch import train as ttrain
 from quanta_tpu_torch.ops import _build
 from quanta_tpu_torch.ops import adam8bit as tadam
+from quanta_tpu_torch.ops import attention as tattn
 from quanta_tpu_torch.ops import int4c as tint4c
 from quanta_tpu_torch.ops import int8mm as tint8
 from quanta_tpu_torch.ops import matmul as tmm
@@ -349,3 +355,112 @@ def test_forward_only_kernels_refuse_autograd(cuda):
         tmm.matmul_4bit(x, tq.codes, tq.scale, codebook="nf4")
     tnn.linear(x, tq).float().sum().backward()  # the differentiable route
     assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+# b, sq, t, nh, nkv, q_start, kv_len, causal: GQA self-attention; ragged S
+# and T with a cached offset; a dead row (kv_len 0) beside MHA rows; the
+# ragged case without the causal mask
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, [0, 0], [64, 64], True),
+    (2, 50, 77, 4, 1, [0, 27], [50, 77], True),
+    (3, 70, 130, 2, 2, [0, 60, 0], [70, 130, 0], True),
+    (2, 50, 77, 4, 1, [0, 27], [50, 77], False),
+]
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _flash_inputs(cuda, b, sq, t, nh, nkv, hd, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for shape in ((b, sq, nh, hd), (b, t, nkv, hd), (b, t, nkv, hd), (b, sq, nh, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("b,sq,t,nh,nkv,q_start,kv_len,causal", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, dtype, hd, b, sq, t, nh, nkv, q_start, kv_len, causal):
+    """Each of the three flash kernels against its plain version on the same
+    inputs; dead rows give zeros, the 1e30 lse and zero gradients."""
+    q, k, v, do = _flash_inputs(cuda, b, sq, t, nh, nkv, hd, dtype)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=cuda)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    before = {n: _build.launches[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    out, lse = tattn.flash_forward(q, k, v, qs, kl, causal=causal, save_lse=True)
+    ref, ref_lse = tattn.flash_forward_reference(q, k, v, qs, kl, causal=causal)
+    delta = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, ref_lse, delta, qs, kl)
+    dq = tattn.flash_bwd_dq(*args, causal=causal)
+    dk, dv = tattn.flash_bwd_dkv(*args, causal=causal)
+    dq_ref = tattn.flash_bwd_dq_reference(*args, causal=causal)
+    dk_ref, dv_ref = tattn.flash_bwd_dkv_reference(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert {n: _build.launches[n] - c for n, c in before.items()} == dict.fromkeys(before, 1)
+    assert out.dtype == dtype and dq.dtype == dk.dtype == dv.dtype == torch.float32
+    live = kl > 0
+    assert bool((lse[~live] == tattn.DEAD_LSE).all()) and not bool(out[~live].any())
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-4
+    for d in (dq[~live], dk[~live], dv[~live]):
+        assert not bool(d.any())
+    big = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        assert err <= 2 * 2.0 ** -7 * big and _rel(out, ref) <= 1e-2
+        for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+            assert _rel(got, want) <= 2e-2
+    else:
+        assert err <= 1e-5 * big
+        for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+            assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_autograd_kernel_matches_plain(cuda, dtype):
+    """Autograd through flash_attention: the kernel route's dq, dk, dv
+    against the plain route's (GQA, ragged, offset)."""
+    b, sq, t, nh, nkv, hd = 2, 90, 150, 8, 2, 64
+    q0, k0, v0, w = _flash_inputs(cuda, b, sq, t, nh, nkv, hd, dtype, seed=1)
+    qs = torch.tensor([0, 60], dtype=torch.int32, device=cuda)
+    kl = qs + sq
+    grads = []
+    for use_kernel in (None, False):
+        q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+        out = tattn.flash_attention(q, k, v, qs, kl, use_kernel=use_kernel)
+        (out.float() * w.float()).sum().backward()
+        grads.append((out.detach(), q.grad, k.grad, v.grad))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(*grads):
+        assert got.dtype == dtype and _rel(got, want) <= tol
+
+
+def test_flash_in_tiny_model_matches_plain(cuda):
+    """llama.forward(use_flash=True) through the kernel and through the
+    plain versions, prefill into a cache larger than the prompt."""
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=8, n_kv_heads=2)
+    params = tllama.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    logits = {}
+    for use_kernel in (None, False):
+        cache = tllama.init_cache(cfg, 2, max_len=128, device=cuda)
+        before = _build.launches["flash_fwd"]
+        logits[use_kernel], _ = tllama.forward(params, toks, cfg, cache=cache,
+                                               use_kernel=use_kernel, use_flash=True)
+        assert _build.launches["flash_fwd"] - before == (cfg.n_layers if use_kernel is None else 0)
+    assert _rel(logits[None], logits[False]) <= 1e-2
+
+
+def test_flash_refuses_what_the_kernels_do_not_take(cuda):
+    q, k, v, _ = _flash_inputs(cuda, 1, 16, 16, 2, 2, 80, torch.bfloat16)
+    pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.flash_attention(q, k, v, pos, pos + 16)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tattn.flash_attention(*(x[..., :64].half() for x in (q, k, v)), pos, pos + 16)
+    q, k, v, do = (x[..., :64].contiguous() for x in _flash_inputs(cuda, 1, 16, 16, 2, 2, 80,
+                                                                  torch.bfloat16))
+    stats = torch.zeros((1, 2, 15), device=cuda)  # one query row short
+    with pytest.raises(ValueError, match="lse"):
+        tattn.flash_bwd_dq(q, k, v, do, stats, stats, pos, pos + 16)

@@ -136,9 +136,12 @@ def test_greedy_decode_tokens_identical(jparams, mode):
 
 
 def test_use_flash_raises(jparams):
-    with pytest.raises(NotImplementedError, match="flash"):
+    """The flash route has no CPU kernel: use_kernel=True on CPU tokens
+    raises there rather than fall back (tests/test_torch_attention.py holds
+    the route's plain version against JAX)."""
+    with pytest.raises(ValueError, match="CUDA"):
         tllama.forward(interop.from_jax_params(jparams), torch.zeros((1, 4), dtype=torch.int32),
-                       TCFG, use_flash=True)
+                       TCFG, use_flash=True, use_kernel=True)
 
 
 def test_from_jax_params_bf16_tree():

@@ -37,6 +37,7 @@ from quanta_tpu_torch import train as ttrain
 from quanta_tpu_torch.models import llama as tllama
 from quanta_tpu_torch.ops import _build
 from quanta_tpu_torch.ops import adam8bit as tadam
+from quanta_tpu_torch.ops import attention as tattn
 from quanta_tpu_torch.ops import int4c as tint4c
 from quanta_tpu_torch.ops import int8mm as tint8
 from quanta_tpu_torch.ops import matmul as tmm
@@ -390,8 +391,43 @@ class FakeKernels:
         _view(out, (m, 2 * k2), dtype).copy_((gv.float() @ w.float().T).to(dtype))
         return 0
 
+    @staticmethod
+    def _attn(dtype, q, k, v, q_start, kv_len, b, sq, t, nh, nkv, hd, causal, scale):
+        assert scale == pytest.approx(1.0 / math.sqrt(hd))
+        return (_view(q, (b, sq, nh, hd), dtype), _view(k, (b, t, nkv, hd), dtype),
+                _view(v, (b, t, nkv, hd), dtype), _view(q_start, (b,), torch.int32),
+                _view(kv_len, (b,), torch.int32), bool(causal))
+
+    def _flash_fwd(self, dtype, q, k, v, q_start, kv_len, out, lse, *sizes_stream):
+        *sizes, _stream = sizes_stream
+        b, sq, _, nh, _, hd, _, _ = sizes
+        qv, kv, vv, qs, kl, causal = self._attn(dtype, q, k, v, q_start, kv_len, *sizes)
+        o, l = tattn.flash_forward_reference(qv, kv, vv, qs, kl, causal=causal)
+        _view(out, (b, sq, nh, hd), dtype).copy_(o)
+        if lse is not None:
+            _view(lse, (b, nh, sq), torch.float32).copy_(l)
+        return 0
+
+    def _flash_bwd(self, dtype, q, k, v, do, lse, delta, q_start, kv_len, *outs_sizes_stream):
+        *outs, b, sq, t, nh, nkv, hd, causal, scale, _stream = outs_sizes_stream
+        sizes = (b, sq, t, nh, nkv, hd, causal, scale)
+        qv, kv, vv, qs, kl, causal = self._attn(dtype, q, k, v, q_start, kv_len, *sizes)
+        stats = (_view(lse, (b, nh, sq), torch.float32), _view(delta, (b, nh, sq), torch.float32))
+        args = (qv, kv, vv, _view(do, (b, sq, nh, hd), dtype), *stats, qs, kl)
+        if len(outs) == 1:
+            res = [tattn.flash_bwd_dq_reference(*args, causal=causal)]
+            shapes = [(b, sq, nh, hd)]
+        else:
+            res = tattn.flash_bwd_dkv_reference(*args, causal=causal)
+            shapes = [(b, t, nkv, hd)] * 2
+        for ptr, shape, r in zip(outs, shapes, res):
+            _view(ptr, shape, torch.float32).copy_(r)
+        return 0
+
     def __getattr__(self, name):
-        kinds = {"qt_matmul_4bit_": self._mm, "qt_matmul_4bit_t_": self._mmt}
+        kinds = {"qt_matmul_4bit_": self._mm, "qt_matmul_4bit_t_": self._mmt,
+                 "qt_flash_fwd_": self._flash_fwd, "qt_flash_bwd_dq_": self._flash_bwd,
+                 "qt_flash_bwd_dkv_": self._flash_bwd}
         for prefix, fn in sorted(kinds.items(), key=lambda kv: -len(kv[0])):
             if name.startswith(prefix):
                 dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
@@ -458,6 +494,32 @@ def test_kernel_routes_refuse_autograd(fake_kernels):
     np.testing.assert_allclose(x.grad.numpy(), xp.grad.numpy(), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_flash_kernel_route_refuses_autograd(fake_kernels, needs_grad):
+    """The raw flash forward raises before its launch when any of q, k and
+    v needs a gradient; ``flash_attention`` takes that input through its
+    autograd Function and hands it the plain route's gradient."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               for s in ((2, 8, 4, 32), (2, 8, 2, 32), (2, 8, 2, 32)))
+    q_start, kv_len = torch.tensor([0, 0]), torch.tensor([8, 5])
+    grads = {}
+    for route in (None, False):
+        ins = {"q": q.clone(), "k": k.clone(), "v": v.clone()}
+        ins[needs_grad].requires_grad_()
+        _build.reset_launches()
+        if route is None:
+            with pytest.raises(NotImplementedError, match="no backward"):
+                tattn.flash_forward(*ins.values(), q_start, kv_len)
+            assert _build.launches["flash_fwd"] == 0
+        out = tattn.flash_attention(*ins.values(), q_start, kv_len, use_kernel=route)
+        (out ** 2).sum().backward()
+        flash = [_build.launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+        assert flash == [1 if route is None else 0] * 3
+        grads[route] = ins[needs_grad].grad
+    np.testing.assert_allclose(grads[None].numpy(), grads[False].numpy(), rtol=1e-5, atol=1e-6)
+
+
 def test_qlora_kernel_route_launches(fake_kernels):
     """One QLoRA step on the kernel routes: every quantized linear launches
     ``matmul_4bit`` once; ``matmul_4bit_t`` runs for each whose input needs
@@ -489,3 +551,31 @@ def test_qlora_kernel_route_launches(fake_kernels):
         for name in ("wq", "wv"):
             # the kernel route's bias correction is -(lr/bc1)·m, the plain route's -lr·(m/bc1)
             assert _rel_l2(a[name]["b"].detach().numpy(), b[name]["b"].detach().numpy()) < 1e-5
+
+
+def test_qlora_flash_kernel_route_launches(fake_kernels):
+    """One QLoRA step with use_flash=True on the kernel routes: every layer
+    launches the flash forward once and, through the autograd Function's
+    backward, the dQ and the dK/dV kernels once each; losses and lora_b
+    gradients are the plain route's."""
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
+    dense = tllama.init_params(torch.Generator().manual_seed(0), cfg)
+    base = tnn.quantize_params(dense, mode="nf4", min_size=1024)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 17)))
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    losses, grads = {}, {}
+    for route in (None, False):
+        params = ttrain.add_lora(base, torch.Generator().manual_seed(1), rank=4,
+                                 dtype=torch.float32)
+        opt = toptim.Adam8bit(tnn.lora_parameters(params), lr=1e-2, use_kernel=route)
+        step = ttrain.make_qlora_train_step(cfg, opt, use_kernel=route, use_flash=True)
+        _build.reset_launches()
+        losses[route] = step(params, batch).item()
+        flash = {k: _build.launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        n = cfg.n_layers if route is None else 0
+        assert flash == dict.fromkeys(flash, n)
+        grads[route] = [ad[name]["b"].grad.clone() for ad in ttrain.extract_adapters(params)
+                        for name in ("wq", "wv")]
+    np.testing.assert_allclose(losses[None], losses[False], rtol=1e-6)
+    for a, b in zip(grads[None], grads[False]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-7)
