@@ -30,17 +30,18 @@ and the script exits non-zero (nothing is caught):
      reference's own A/B reaches it, ``quanta_tpu/benchmarks/
      llmint8_model_ab.py``: by changing ``matmul_int8``'s default under
      ``nn.linear``); tokens identical, each route's launches counted;
-  7. the serve path at the full TinyLlama-1.1B width and depth: (a) a
+  7. the serve path at the full TinyLlama-1.1B width: (a) at full depth, a
      closed trace of 8 requests (llm_int8 weights, int8 KV cache, 8
      slots, multi_step 8, greedy), all submitted before ``Engine.run``,
      through the kernels and through ``use_kernel=False``: tokens
      identical request by request, launch counts as the design implies;
-     (b) timed Poisson rows (``serve_bench.run_one``: 16 requests at 24
+     (b) at ``TIMED_DEPTH`` layers, timed Poisson rows (``serve_bench.run_one``: 16 requests at 24
      req/s, 48 new tokens, 8 slots, multi_step 8) for nf4a, int4c,
      llm_int8 and llm_int8 + int8 KV, each with the device-idle share of
      one steady decode window;
   8. decode tok/s, prefill tok/s and TTFT at batch 8 / prompt 128 /
-     cache 512 for every format, and the device-busy share of a step;
+     cache 512 for every format at ``TIMED_DEPTH`` layers, and the
+     device-busy share of a step;
   9. QLoRA training at the full TinyLlama-1.1B width and depth: (a)
      ``matmul_4bit_t`` against its plain version at the five (K, N) with
      M = 2048 (batch 4 x seq 512), bf16 gradients, nf4 and nf4a, plus one
@@ -88,36 +89,76 @@ and the script exits non-zero (nothing is caught):
      1024, 2048}, flash against einsum (the crossover; 2048 is the
      reference's row), and ``train_bench``'s seq-1024 and Llama-2-7B rows
      (bases from ``nn.init_quantized_params``), the TinyLlama s1024 row
-     also through the einsum attention.
+     also through the einsum attention;
+ 14. the 8-bit kernels (``matmul_8bit``, ``matmul_8bit_t``) against their
+     plain versions at the five TinyLlama (K, N), M in {8, 2048}, in int8,
+     nf8, fp8 and int8a with bf16 operands (within 2 bf16 ulps of
+     max|plain|) and at one shape in f32 (within 1e-5 of it, TF32 off);
+     kernel times for every format, and for int8 the plain versions' and
+     a dense control's (cuBLAS ``torch.matmul`` of the dequantized bf16
+     weight: no single PyTorch call dequantizes blockwise 8-bit codes
+     inside a GEMM), weights rotated past the L2 as in phase 3;
+ 15. post-training quantization at the full TinyLlama-1.1B geometry
+     (``ptq.quantize_model`` with an int8 default, nf8 on ``layers/0/``, fp8
+     on ``lm_head`` and W8A8 int8a with entropy calibration on ``w_down``,
+     calibrated on 8 corpus batches), and int8, nf8, fp8 and int8a trees
+     from ``nn.quantize_params``: for each, greedy decode (8 prompts of 128
+     tokens, 32 new) with 155 ``matmul_8bit`` launches a forward and no
+     4-bit one, prefill logits against ``use_kernel=False`` within phase
+     5's rel-L2 (or, where the plain route summed in another order sets a
+     higher floor, as the W8A8 fake-quant does, phase 9's floor rule),
+     and the perplexity of 32,768 held-out corpus tokens
+     through the kernels within 1e-2 relative of the plain route's;
+ 16. QLoRA on int8 and nf8 bases under phase 9's rules (step-1 loss,
+     lora_b gradients within 1.5 times their floor plus 2e-3, the loss
+     falling; 155 ``matmul_8bit``, 152 ``matmul_8bit_t`` and 88
+     ``adam8bit_update`` a step), then ``train_bench.bench_qlora`` on both
+     bases;
+ 17. the CLI, in subprocesses from a temporary directory: ``quantize
+     --toy tinyllama --fmt int8 --calib-text`` a corpus file, ``eval
+     --ckpt``, ``generate --ckpt``, ``finetune --toy tinyllama --fmt nf8
+     --steps 3``, each exiting 0;
+ 18. ``benchmarks.accuracy_bench`` at its model size with pretraining cut
+     to ``ACC_STEPS`` and no cache: the unquantized model learned (final
+     loss below 2.5), the int8 and nf8 perplexities through the kernels
+     within 1e-4 relative of ``use_kernel=False`` on the same trees, and
+     the gates of the 8-bit rows (int8, nf8, llm_int8, w8a8-*) hold at
+     <= 0.1; the other rows are printed.
 
-Then the kernels line (every kernel's launches on the main path, error,
+Then the seconds each phase took, the kernels line (every kernel's launches on the main path, error,
 times, bound from the bytes and operations of the timed work, and
 library time where one PyTorch call computes the same function) and,
 last, ``{"ok": true, "device": {...}}``.
 There is no CPU path: without a CUDA device the script fails.
 """
 
+import contextlib
+import dataclasses
 import functools
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
 import numpy as np
 import torch
 
+from quanta_tpu_torch import eval as qeval
 from quanta_tpu_torch import nn as qnn
-from quanta_tpu_torch import train
-from quanta_tpu_torch.benchmarks import decode_bench, serve_bench, train_bench
+from quanta_tpu_torch import ptq, train
+from quanta_tpu_torch.benchmarks import accuracy_bench, decode_bench, serve_bench, train_bench
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.metrics import MetricsRecorder
 from quanta_tpu_torch.models import llama
 from quanta_tpu_torch.ops import _build, adam8bit, attention, int4c, int8mm, matmul, quantize
 from quanta_tpu_torch.optim import Adam8bit
 from quanta_tpu_torch.serve import Engine, Request
+from quanta_tpu_torch.state.config import ConfigTree, QuantConfig
 
 # the module: the package attribute ``quanta_tpu_torch.nn.linear`` is the function
 linear_mod = importlib.import_module("quanta_tpu_torch.nn.linear")
@@ -175,6 +216,26 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
 CROSSOVER_SEQS = (256, 512, 1024, 2048)  # long_prefill's S; 2048 is the reference's row
+# 8-bit weights: the four formats, the f32 shape of the kernel checks,
+# the PTQ path's calibration batches (of 256 corpus tokens) and perplexity
+# stream, and the accuracy bench's pretraining steps here (the bench's own
+# default, 3000, is the run PERF.md records). The W8A8 entropy row swings
+# with the step count, because the KL clip it picks does: its delta
+# measured 0.188, 0.014, 0.831, -0.005 and 0.034 at 600, 900, 1200, 1500
+# and 3000 steps (PERF.md); 900 is the shortest count measured to pass.
+EIGHT_BIT = ("int8", "nf8", "fp8", "int8a")
+# the timed serve rows (phase 7b) and decode bench (phase 8) run the first
+# TIMED_DEPTH of the 22 layers: timing rows only, whose host-bound loops
+# took 420 s of a 785 s run at full depth (PERF.md); phases 5, 6 and 7a
+# check the same paths at full depth
+TIMED_DEPTH = 11
+F32_SHAPE = (2048, 5632, M_TRAIN)
+CALIB_BATCHES, CALIB_SEQ = 8, 256
+PPL_TOKENS, PPL_SEQ, PPL_BATCH = 32768, 256, 8
+PTQ_PPL_REL = 1e-2
+ACC_STEPS = 900
+ACC_PPL_REL = 1e-4
+ACC_GATED = ("int8", "nf8", "llm_int8", "w8a8-minmax", "w8a8-percentile", "w8a8-entropy")
 
 
 # the H100 SXM's published rates: device
@@ -525,10 +586,10 @@ def serve_rows(cfg, params_by_fmt):
               f"{m['output_tokens']} tokens")
         m["window"] = serve_bench.window_profile(params_by_fmt[fmt], cfg, kv_quant=kv,
                                                  multi_step=8)
-        emit(serve_row={k: m[k] for k in (
+        emit(serve_row={"n_layers": cfg.n_layers, **{k: m[k] for k in (
             "fmt", "throughput_tok_s", "ttft_p50_ms", "ttft_p99_ms", "decode_steps",
             "preemptions", "kv_pool_mib", "serve_seconds", "output_tokens", "admissions",
-            "window_upload_p50_s", "window_upload_p99_s", "launches", "window")})
+            "window_upload_p50_s", "window_upload_p99_s", "launches", "window")}})
 
 
 def transposed_checks(dev, work):
@@ -620,28 +681,45 @@ def adam_checks(dev, work):
     return per_step, max_err
 
 
+def _split_sum(a, w):
+    """a @ w with the reduction split in two halves, each an f32 GEMM, the
+    halves added in f32."""
+    h = w.shape[0] // 2
+    return a[:, :h].float() @ w[:h] + a[:, h:].float() @ w[h:]
+
+
+@contextlib.contextmanager
 def reordered_plain():
-    """Patches that make the plain versions of matmul_4bit and
-    matmul_4bit_t sum in another order (the reduction split in two
-    halves, each an f32 GEMM, the halves added in f32): the spread
+    """The plain versions of the 4-bit and 8-bit matmuls and their
+    transposes, summing in another order (``_split_sum``): the spread
     between the plain route and this one is the floor that bf16 rounding
     sets for any two valid orders."""
-    def fwd(x, codes, scales, *, codebook="nf4a", block=64, out_dtype=None):
-        x = matmul._pad_k(x, 2 * codes.shape[0])
-        w = matmul._dequant_4bit(codes, scales, codebook, block, x.dtype).float()
-        h = w.shape[0] // 2
-        out = x[:, :h].float() @ w[:h] + x[:, h:].float() @ w[h:]
-        return out.to(out_dtype or x.dtype)
+    dequant = {4: (matmul._dequant_4bit, lambda codes: 2 * codes.shape[0]),
+               8: (matmul._dequant_8bit, lambda codes: codes.shape[0])}
 
-    def bwd(g, codes, scales, *, codebook="nf4a", block=64, out_dtype=None):
-        g = matmul._pad_n(g, codes.shape[1])
-        w = matmul._dequant_4bit(codes, scales, codebook, block, g.dtype).float()
-        h = w.shape[1] // 2
-        out = g[:, :h].float() @ w[:, :h].T + g[:, h:].float() @ w[:, h:].T
-        return out.to(out_dtype or g.dtype)
+    def fwd(bits):
+        deq, k_of = dequant[bits]
 
-    return (mock.patch.object(matmul, "matmul_4bit_reference", fwd),
-            mock.patch.object(matmul, "matmul_4bit_t_reference", bwd))
+        def f(x, codes, scales, *, codebook, block=64, out_dtype=None):
+            x = matmul._pad_k(x, k_of(codes))
+            return _split_sum(x, deq(codes, scales, codebook, block, x.dtype).float()).to(
+                out_dtype or x.dtype)
+        return f
+
+    def bwd(bits):
+        deq, _ = dequant[bits]
+
+        def f(g, codes, scales, *, codebook, block=64, out_dtype=None):
+            g = matmul._pad_n(g, codes.shape[1])
+            return _split_sum(g, deq(codes, scales, codebook, block, g.dtype).float().T).to(
+                out_dtype or g.dtype)
+        return f
+
+    with mock.patch.object(matmul, "matmul_4bit_reference", fwd(4)), \
+            mock.patch.object(matmul, "matmul_4bit_t_reference", bwd(4)), \
+            mock.patch.object(matmul, "matmul_8bit_reference", fwd(8)), \
+            mock.patch.object(matmul, "matmul_8bit_t_reference", bwd(8)):
+        yield
 
 
 def _adapter_grads(adapters):
@@ -650,10 +728,11 @@ def _adapter_grads(adapters):
             for ad in adapters for n in ("wq", "wv")]
 
 
-def qlora_path(dev, cfg, base):
+def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t")):
     """3 QLoRA steps through the kernels and 3 through the plain versions,
     from the same adapters on one fixed batch, launches counted per step;
     then one step through the reordered plain versions (the noise floor).
+    ``kernels``: the forward and transposed kernels of the base's layout.
     Returns the kernel route's launches."""
     data = train_bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
     init = train_bench.with_lora(base)
@@ -667,8 +746,7 @@ def qlora_path(dev, cfg, base):
         opt = Adam8bit(qnn.lora_parameters(params), lr=TRAIN_LR, use_kernel=use_kernel)
         step = train.make_qlora_train_step(cfg, opt, use_kernel=use_kernel)
         if route == "reordered":
-            fwd_patch, bwd_patch = reordered_plain()
-            with fwd_patch, bwd_patch:
+            with reordered_plain():
                 runs[route] = ([step(params, data).item()], _adapter_grads(adapters))
             continue
         losses, counts, seconds = [], [], []
@@ -683,21 +761,21 @@ def qlora_path(dev, cfg, base):
                 grads = _adapter_grads(adapters)
         expected = dict.fromkeys(_build.launches, 0)
         if route is None:
-            expected.update(matmul_4bit=per_forward, matmul_4bit_t=PER_BACKWARD,
-                            adam8bit_update=4 * cfg.n_layers)
+            expected.update({kernels[0]: per_forward, kernels[1]: PER_BACKWARD,
+                             "adam8bit_update": 4 * cfg.n_layers})
         for i, c in enumerate(counts):
-            check(c == expected, f"qlora route {route} step {i + 1}: launches {c}, "
+            check(c == expected, f"qlora {fmt} route {route} step {i + 1}: launches {c}, "
                                  f"expected {expected}")
-        check(all(math.isfinite(v) for v in losses), f"qlora route {route}: losses {losses}")
-        check(losses[2] < losses[0], f"qlora route {route}: loss did not fall: {losses}")
+        check(all(math.isfinite(v) for v in losses), f"qlora {fmt} route {route}: {losses}")
+        check(losses[2] < losses[0], f"qlora {fmt} route {route}: loss did not fall: {losses}")
         runs[route] = (losses, grads)
         if route is None:
             kernel_launches = {k: sum(c[k] for c in counts) for k in expected}
-        emit(qlora_path=dict(route="kernels" if route is None else "plain", lr=TRAIN_LR,
+        emit(qlora_path=dict(base=fmt, route="kernels" if route is None else "plain", lr=TRAIN_LR,
                              losses=losses, step_seconds=seconds, launches_per_step=counts[0]))
     (lk, gk), (lp, gp), (lr_, gr) = runs[None], runs[False], runs["reordered"]
     loss_rel = abs(lk[0] - lp[0]) / abs(lp[0])
-    check(loss_rel <= 1e-2, f"qlora step-1 loss {lk[0]} vs plain {lp[0]}")
+    check(loss_rel <= 1e-2, f"qlora {fmt} step-1 loss {lk[0]} vs plain {lp[0]}")
 
     b_rel, floor = [], []
     for (ak, bk), (ap, bp), (_, br) in zip(gk, gp, gr):
@@ -706,12 +784,12 @@ def qlora_path(dev, cfg, base):
         b_rel.append(rel_l2(bk, bp))
         floor.append(rel_l2(br, bp))
     tols = [GRAD_FLOOR_X * f + GRAD_FLOOR_ABS for f in floor]
-    emit(qlora_check=dict(step1_loss_rel=loss_rel, tol=1e-2, lora_b_grad_rel_l2_max=max(b_rel),
+    emit(qlora_check=dict(base=fmt, step1_loss_rel=loss_rel, tol=1e-2, lora_b_grad_rel_l2_max=max(b_rel),
                           lora_b_grad_rel_l2=b_rel, grad_tols=tols,
                           reordered_plain_loss_rel=abs(lr_[0] - lp[0]) / abs(lp[0]),
                           reordered_plain_rel_l2_max=max(floor), reordered_plain_rel_l2=floor))
     for i, (b, tol) in enumerate(zip(b_rel, tols)):
-        check(b <= tol, f"qlora layer {i // 2} {('wq', 'wv')[i % 2]} lora_b gradient "
+        check(b <= tol, f"qlora {fmt} layer {i // 2} {('wq', 'wv')[i % 2]} lora_b gradient "
                         f"rel-L2 {b} > {tol} ({GRAD_FLOOR_X} x its floor + {GRAD_FLOOR_ABS})")
     return kernel_launches
 
@@ -973,6 +1051,236 @@ def train_rows(cfg, bases):
     emit(adam_bytes=train_bench.adam_bytes(cfg))
 
 
+def eight_bit_checks(dev, work):
+    """matmul_8bit and matmul_8bit_t against their plain versions at the
+    five TinyLlama (K, N), M in {8, 2048}, every 8-bit format, bf16
+    operands within 2 bf16 ulps of max|plain|, and at ``F32_SHAPE`` in f32
+    within 1e-5 of it; µs per call with the weights rotated past the L2,
+    for int8 also the plain versions' and the dense control's (cuBLAS
+    ``torch.matmul`` of the dequantized bf16 weight). Returns ms of the
+    calls of one decode step (matmul_8bit, M=8) and of one QLoRA step's
+    forward (matmul_8bit, M=2048) and backward (matmul_8bit_t, M=2048),
+    int8, as [kernel, plain, dense], and the largest errors."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    step = {("matmul_8bit", 8): [0.0] * 3, ("matmul_8bit", M_TRAIN): [0.0] * 3,
+            ("matmul_8bit_t", M_TRAIN): [0.0] * 3}
+    count = {"matmul_8bit": SHAPES, "matmul_8bit_t": T_SHAPES}
+    max_err = {"matmul_8bit": 0.0, "matmul_8bit_t": 0.0}
+    cases = [(k, n, m, torch.bfloat16) for (k, n) in SHAPES for m in (8, M_TRAIN)]
+    cases.append((*F32_SHAPE, torch.float32))
+    for k, n, m, dtype in cases:
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        g = torch.randn((m, n), generator=gen, device=dev).to(dtype)
+        for fmt in EIGHT_BIT:
+            qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+            for name, fn, a in (("matmul_8bit", matmul.matmul_8bit, x),
+                                ("matmul_8bit_t", matmul.matmul_8bit_t, g)):
+                if name == "matmul_8bit_t" and m == 8:
+                    continue  # the backward runs at the training M only
+
+                def run(use_kernel, ws, fn=fn, a=a, cb=qt.codebook):
+                    return lambda i: fn(a, *ws[i % len(ws)], codebook=cb, block=64,
+                                        use_kernel=use_kernel)
+                out = run(True, [(qt.codes, qt.scale)])(0)
+                ref = run(False, [(qt.codes, qt.scale)])(0)
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-5
+                tol = rel * ref.float().abs().max().item()
+                check(out.shape == ref.shape and torch.isfinite(out).all().item(),
+                      f"{name} {fmt} {dtype} M={m} K={k} N={n}: bad output")
+                check(err <= tol, f"{name} {fmt} {dtype} M={m} K={k} N={n}: err {err} > {tol}")
+                max_err[name] = max(max_err[name], err)
+                ws = copies_past_l2(qt.codes, qt.scale)
+                iters = 50 if m == 8 else 10
+                row = dict(kernel=name, fmt=fmt, dtype=str(dtype), M=m, K=k, N=n,
+                           max_abs_err=err, tol=tol, us=time_ms(run(True, ws), iters) * 1e3)
+                if fmt == "int8" and dtype == torch.bfloat16:
+                    wd = matmul._dequant_8bit(qt.codes, qt.scale, None, 64, torch.bfloat16)[:k]
+                    dense = [d.T.contiguous() if name == "matmul_8bit_t" else d
+                             for (d,) in copies_past_l2(wd)]
+                    row["plain_us"] = time_ms(run(False, ws), iters) * 1e3
+                    row["dense_us"] = time_ms(lambda i: a @ dense[i % len(dense)], iters) * 1e3
+                    n_calls = count[name][(k, n)]
+                    acc = step[(name, m)]
+                    for j, key in enumerate(("us", "plain_us", "dense_us")):
+                        acc[j] += n_calls * row[key] / 1e3
+                    if m == 8 or name == "matmul_8bit_t":
+                        add_work(work, name, nbytes(a, qt.codes, qt.scale, out),
+                                 2 * m * k * n, n_calls)
+                if m == M_TRAIN:
+                    row["tflops"] = 2 * m * k * n / (row["us"] * 1e-6) / 1e12
+                emit(kernel_check=row)
+    return step, max_err
+
+
+def _ptq_tree():
+    """int8 by default; nf8 on layer 0, fp8 on the head, and W8A8 on every
+    w_down: int8a weights, activations fake-quantized over the entropy
+    range."""
+    return (ConfigTree(QuantConfig.from_mode("int8"))
+            .config_layer("layers/0/", scheme="codebook", codebook="nf8")
+            .config_layer("lm_head", scheme="codebook", codebook="fp8")
+            .config_layer("w_down", scheme="affine", weights_only=False, calibration="entropy"))
+
+
+def ptq_path(dev, cfg, dense, train_ids, eval_ids):
+    """PTQ with calibration at the full geometry, then greedy decode, prefill
+    logits and perplexity of that tree and of the int8, nf8, fp8 and int8a
+    trees, each through the kernels and through ``use_kernel=False``.
+    Returns the decode runs' launches and the trees (int8 and nf8 feed the
+    QLoRA phase)."""
+    calib = [torch.from_numpy(train_ids[i * CALIB_SEQ:(i + 1) * CALIB_SEQ][None].astype(np.int64))
+             .to(dev) for i in range(CALIB_BATCHES)]
+    t0 = time.perf_counter()
+    trees = {"ptq_mixed": ptq.quantize_model(
+        dense, _ptq_tree(), forward=lambda p, b: llama.forward(p, b, cfg)[0],
+        calib_batches=calib, strict_rules=True)}
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    mixed = trees["ptq_mixed"]
+    check(mixed["layers"][0]["wq"].codebook == "nf8" and mixed["lm_head"].codebook == "fp8"
+          and mixed["layers"][1]["wq"].codes.dtype == torch.int8
+          and all(type(lp["w_down"]).__name__ == "ActQuantWeight"
+                  and lp["w_down"].w.scheme == "affine" for lp in mixed["layers"]),
+          "ptq: the tree does not hold the formats its rules ask for")
+    ranges = [(lp["w_down"].lo.item(), lp["w_down"].hi.item()) for lp in mixed["layers"]]
+    for fmt in EIGHT_BIT:
+        trees[fmt] = qnn.quantize_params(dense, mode=fmt)
+    prompt = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 128), dtype=np.int32)).to(dev)
+    tokens = eval_ids[:PPL_TOKENS + 1]
+    n_windows = -(-(len(tokens) - 1) // PPL_SEQ)
+    n_batches = -(-n_windows // PPL_BATCH)
+    per_forward = 7 * cfg.n_layers + 1
+    launches = dict.fromkeys(_build.launches, 0)
+    for name, params in trees.items():
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = llama.greedy_decode(params, prompt, cfg, max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        expected = dict.fromkeys(counts, 0)
+        expected["matmul_8bit"] = 32 * per_forward
+        check(counts == expected, f"ptq {name} decode: launches {counts}, expected {expected}")
+        check(out.shape == (8, 160) and torch.equal(out[:, :128], prompt)
+              and bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"ptq {name}: bad output")
+        for k, v in counts.items():
+            launches[k] += v
+        with torch.no_grad():
+            lk, _ = llama.forward(params, prompt, cfg)
+            lp, _ = llama.forward(params, prompt, cfg, use_kernel=False)
+            with reordered_plain():
+                lr, _ = llama.forward(params, prompt, cfg, use_kernel=False)
+        check(torch.isfinite(lk).all().item(), f"ptq {name}: non-finite logits")
+        rel = rel_l2(lk, lp)
+        # phase 5's limit, unless the plain route summed in another order
+        # sets a higher floor: the W8A8 fake-quant rounds an activation
+        # that moved by one bf16 ulp to the neighbouring level
+        floor = rel_l2(lr, lp)
+        tol = max(NF4_REL_L2, GRAD_FLOOR_X * floor + GRAD_FLOOR_ABS)
+        check(rel <= tol, f"ptq {name}: prefill logits rel-L2 {rel} > {tol} (floor {floor})")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ppl_k = qeval.perplexity(params, tokens, cfg, seq_len=PPL_SEQ, batch=PPL_BATCH)
+        ppl_s = time.perf_counter() - t0
+        ppl_launches = _build.launches["matmul_8bit"]
+        check(ppl_launches == n_batches * per_forward,
+              f"ptq {name} perplexity: {ppl_launches} matmul_8bit launches, expected "
+              f"{n_batches * per_forward}")
+        ppl_p = qeval.perplexity(params, tokens, cfg, seq_len=PPL_SEQ, batch=PPL_BATCH,
+                                 use_kernel=False)
+        ppl_rel = abs(ppl_k - ppl_p) / ppl_p
+        check(math.isfinite(ppl_k) and ppl_rel <= PTQ_PPL_REL,
+              f"ptq {name}: perplexity {ppl_k} vs plain {ppl_p} (rel {ppl_rel})")
+        row = dict(tree=name, greedy_s=wall, launches=counts, prefill_logits_rel_l2=rel,
+                   tol=tol, reordered_plain_rel_l2=floor, perplexity=ppl_k, perplexity_plain=ppl_p,
+                   perplexity_rel=ppl_rel, ppl_tol=PTQ_PPL_REL, ppl_tokens=len(tokens) - 1,
+                   ppl_seconds=ppl_s, ppl_launches=ppl_launches)
+        if name == "ptq_mixed":
+            row.update(quantize_model_s=ptq_s, w_down_ranges=ranges)
+        emit(ptq_path=row)
+    return launches, trees
+
+
+def qlora_8bit(dev, cfg, trees):
+    """Phase 9's QLoRA checks on the int8 and nf8 bases, then their timed
+    ``train_bench`` rows. Returns the kernel routes' launches."""
+    launches = {}
+    for fmt in ("int8", "nf8"):
+        got = qlora_path(dev, cfg, trees[fmt], fmt=fmt, kernels=("matmul_8bit", "matmul_8bit_t"))
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    for fmt in ("int8", "nf8"):
+        row = train_bench.bench_qlora(trees[fmt], cfg)
+        check(math.isfinite(row["loss_step1"]), f"train row {fmt}: loss {row['loss_step1']}")
+        emit(train_row={"name": f"tinyllama {fmt}", "fmt": fmt, **row})
+    return launches
+
+
+def cli_round_trip(text: str):
+    """The CLI on the TinyLlama geometry, one subprocess per command, in a
+    temporary directory that is removed at the end. Returns seconds per
+    command."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus.txt")
+        with open(corpus, "w") as f:
+            f.write(text)
+        ckpt = os.path.join(tmp, "tinyllama_int8")
+        commands = {
+            "quantize": ["quantize", "--toy", "tinyllama", "--fmt", "int8", "--calib-text",
+                         corpus, "--out", ckpt],
+            "eval": ["eval", "--ckpt", ckpt + ".npz", "--text", corpus],
+            "generate": ["generate", "--ckpt", ckpt + ".npz", "--prompt",
+                         "The quantized model says", "--max-new-tokens", "16"],
+            "finetune": ["finetune", "--toy", "tinyllama", "--fmt", "nf8", "--steps", "3",
+                         "--text", corpus, "--out", os.path.join(tmp, "adapters")],
+        }
+        for name, argv in commands.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "quanta_tpu_torch", *argv], cwd=root,
+                                  capture_output=True, text=True, timeout=600)
+            seconds[name] = time.perf_counter() - t0
+            check(proc.returncode == 0, f"cli {name}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+            emit(cli=dict(command=name, rc=proc.returncode, seconds=seconds[name],
+                          stdout=proc.stdout.strip()[-300:],
+                          stderr_tail=proc.stderr.strip().splitlines()[-3:]))
+            if name == "eval":
+                ppl = json.loads(proc.stdout.strip().splitlines()[-1])["perplexity"]
+                check(math.isfinite(ppl) and ppl > 1.0, f"cli eval: perplexity {ppl}")
+        check(os.path.exists(os.path.join(tmp, "adapters.npz")), "cli finetune: no adapters")
+    return seconds
+
+
+def accuracy_phase(dev):
+    """accuracy_bench at its model size, pretraining cut to ACC_STEPS, no
+    cache; the gates of the 8-bit rows, and the int8 and nf8 perplexities
+    through the kernels against use_kernel=False on the same trees."""
+    _build.reset_launches()
+    result, variants, eval_ids, acfg = accuracy_bench.run(steps=ACC_STEPS, device=dev)
+    eight_launches = _build.launches["matmul_8bit"]
+    rows = {r["format"]: r for r in result["rows"]}
+    check(result["final_loss"] < 2.5, f"accuracy: final loss {result['final_loss']} >= 2.5")
+    plain = {}
+    for fmt in ("int8", "nf8"):
+        plain[fmt] = qeval.perplexity(variants[fmt], eval_ids, acfg, seq_len=result["seq"],
+                                      batch=result["batch"], use_kernel=False)
+    kernel_vs_plain = {f: abs(rows[f]["ppl"] - p) / p for f, p in plain.items()}
+    emit(accuracy=dict(result, plain_ppl=plain, kernel_vs_plain_rel=kernel_vs_plain,
+                       tol=ACC_PPL_REL, matmul_8bit_launches=eight_launches))
+    for f, rel in kernel_vs_plain.items():
+        check(rel <= ACC_PPL_REL, f"accuracy {f}: kernel ppl {rows[f]['ppl']} vs plain "
+                                  f"{plain[f]} (rel {rel} > {ACC_PPL_REL})")
+    check(eight_launches > 0, "accuracy: the 8-bit rows launched no matmul_8bit")
+    for name in ACC_GATED:
+        check(rows[name]["pass"], f"accuracy gate {name}: delta {rows[name]['delta']} > "
+                                  f"{rows[name]['gate']}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -988,6 +1296,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_s = {}
+
+    @contextlib.contextmanager
+    def timed(name):
+        t = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        phase_s[name] = time.perf_counter() - t
+        emit(phase_done={name: phase_s[name]})
+
     t0 = time.perf_counter()
     _build.library()
     ptxas = [ln.strip() for ln in _build.build_info.get("ptxas", "").splitlines()
@@ -996,50 +1314,79 @@ def main():
                 "cached": _build.build_info["cached"], "ptxas": ptxas})
 
     work = {}
-    per_step, max_err = kernel_checks(dev, work)
-    int8_step, int8_err = int8_kernel_checks(dev, work)
-    per_step.update(int8_step)
-    max_err.update(int8_err)
-    q_times, max_err["quantize_blockwise"] = quantize_checks(dev, work)
+    with timed("3-4 kernel checks"):
+        per_step, max_err = kernel_checks(dev, work)
+        int8_step, int8_err = int8_kernel_checks(dev, work)
+        per_step.update(int8_step)
+        max_err.update(int8_err)
+        q_times, max_err["quantize_blockwise"] = quantize_checks(dev, work)
 
     cfg = llama.LlamaConfig.tinyllama_1b()
     dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
-    params, launches = main_path(dev, cfg, dense)
-    params["llm_int8"] = qnn.quantize_params(dense, mode="llm_int8")
-    launches.update(int8_decode_routes(dev, cfg, params["llm_int8"]))
-    serve_counts = serve_closed_trace(dev, cfg, params["llm_int8"])
-    launches["matmul_int8_fused"] = serve_counts["matmul_int8_fused"]
-    launches["quantize_blockwise"] = serve_counts["quantize_blockwise"]
-    serve_rows(cfg, params)
+    with timed("5 decode path"):
+        params, launches = main_path(dev, cfg, dense)
+    with timed("6-7 llm_int8 and serve"):
+        params["llm_int8"] = qnn.quantize_params(dense, mode="llm_int8")
+        launches.update(int8_decode_routes(dev, cfg, params["llm_int8"]))
+        serve_counts = serve_closed_trace(dev, cfg, params["llm_int8"])
+        launches["matmul_int8_fused"] = serve_counts["matmul_int8_fused"]
+        launches["quantize_blockwise"] = serve_counts["quantize_blockwise"]
+        cut_cfg = dataclasses.replace(cfg, n_layers=TIMED_DEPTH)
+        cut = {fmt: {**p, "layers": p["layers"][:TIMED_DEPTH]} for fmt, p in params.items()}
+        serve_rows(cut_cfg, cut)
 
-    for fmt, p in params.items():
-        r = decode_bench.measure(p, cfg)
-        emit(bench={"fmt": fmt, "batch": 8, "prefill_len": 128, "cache_len": 512, **r})
-    emit(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with timed("8 decode bench"):
+        for fmt, p in cut.items():
+            r = decode_bench.measure(p, cut_cfg)
+            emit(bench={"fmt": fmt, "batch": 8, "prefill_len": 128, "cache_len": 512,
+                        "n_layers": TIMED_DEPTH, **r})
+        emit(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
-    t_step, max_err["matmul_4bit_t"] = transposed_checks(dev, work)
-    adam_step, max_err["adam8bit_update"] = adam_checks(dev, work)
-    train_launches = qlora_path(dev, cfg, params["nf4"])
-    launches["matmul_4bit"] += train_launches["matmul_4bit"]
-    train_rows(cfg, {"nf4": params["nf4"], "nf4a": params["nf4a"], "bf16": dense})
+    with timed("9 qlora nf4"):
+        t_step, max_err["matmul_4bit_t"] = transposed_checks(dev, work)
+        adam_step, max_err["adam8bit_update"] = adam_checks(dev, work)
+        train_launches = qlora_path(dev, cfg, params["nf4"])
+        launches["matmul_4bit"] += train_launches["matmul_4bit"]
+        train_rows(cfg, {"nf4": params["nf4"], "nf4a": params["nf4a"], "bf16": dense})
 
-    flash_ms, flash_err = flash_checks(dev, work)
-    max_err.update(flash_err)
-    flash_launches = qlora_flash_path(dev, cfg, params["nf4"])
-    decode_launches = long_prompt_decode(dev, cfg, params["nf4a"])
-    for k in ("matmul_4bit", "matmul_4bit_t", "adam8bit_update"):
-        train_launches[k] += flash_launches[k]
-    launches["matmul_4bit"] += decode_launches["matmul_4bit"]
-    for k in FLASH_KERNELS:
-        launches[k] = flash_launches[k] + decode_launches[k]
-    long_rows(cfg, dense)
+    with timed("10-13 flash"):
+        flash_ms, flash_err = flash_checks(dev, work)
+        max_err.update(flash_err)
+        flash_launches = qlora_flash_path(dev, cfg, params["nf4"])
+        decode_launches = long_prompt_decode(dev, cfg, params["nf4a"])
+        for k in ("matmul_4bit", "matmul_4bit_t", "adam8bit_update"):
+            train_launches[k] += flash_launches[k]
+        launches["matmul_4bit"] += decode_launches["matmul_4bit"]
+        for k in FLASH_KERNELS:
+            launches[k] = flash_launches[k] + decode_launches[k]
+        long_rows(cfg, dense)
 
-    def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None):
+    with timed("14 8-bit kernel checks"):
+        eight_step, eight_err = eight_bit_checks(dev, work)
+        max_err.update(eight_err)
+    train_ids, eval_ids = accuracy_bench.corpus_ids()
+    with timed("15 ptq path"):
+        ptq_launches, trees = ptq_path(dev, cfg, dense, train_ids, eval_ids)
+    with timed("16 qlora 8-bit"):
+        q8_launches = qlora_8bit(dev, cfg, trees)
+    launches["matmul_8bit"] = ptq_launches["matmul_8bit"] + q8_launches["matmul_8bit"]
+    launches["matmul_8bit_t"] = q8_launches["matmul_8bit_t"]
+    train_launches["adam8bit_update"] += q8_launches["adam8bit_update"]
+    del trees, params, dense
+    torch.cuda.empty_cache()
+    with timed("17 cli"):
+        cli_round_trip(qeval.ByteTokenizer().decode(eval_ids[:40_000]))
+    with timed("18 accuracy bench"):
+        accuracy_phase(dev)
+    emit(phase_seconds=phase_s)
+
+    def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,
+              **extra):
         bound_ms, bound_by = bound(work[name], kind)
         return {"name": name, "route": "cuda", "source": f"quanta_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches, "max_abs_err": max_err[name],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "at": at}
+                "library_ms": library_ms, "at": at, **extra}
 
     at = "one decode step's calls at M=8 (nf4a for matmul_4bit), ms"
     q_ms, q_plain_ms = q_times["window_8x8"]
@@ -1078,6 +1425,18 @@ def main():
               flash_ms["flash_bwd_dkv_plain_ms"], "bf16",
               flash_at + sdpa + "backward, dq, dk and dv in one call: compare it with this "
               f"kernel's ms plus flash_bwd_dq's, {bwd_pair_ms}", flash_ms["sdpa_bwd_ms"]),
+        entry("matmul_8bit", "matmul_8bit.cu", "quanta_tpu/ops/matmul.py:306",
+              launches["matmul_8bit"], *eight_step[("matmul_8bit", 8)][:2], "bf16",
+              "one decode step's 155 calls at M=8, int8, bf16 x, ms; library: none, no "
+              "PyTorch call dequantizes blockwise 8-bit codes inside a GEMM (dense_control_ms: "
+              "cuBLAS torch.matmul of the dequantized bf16 weights)",
+              dense_control_ms=eight_step[("matmul_8bit", 8)][2],
+              qlora_forward_ms=eight_step[("matmul_8bit", M_TRAIN)]),
+        entry("matmul_8bit_t", "matmul_8bit_t.cu", "quanta_tpu/ops/matmul.py:529",
+              launches["matmul_8bit_t"], *eight_step[("matmul_8bit_t", M_TRAIN)][:2], "bf16",
+              "one QLoRA backward's 152 calls at M=2048, int8, bf16 g, ms; library: none "
+              "(dense_control_ms as for matmul_8bit)",
+              dense_control_ms=eight_step[("matmul_8bit_t", M_TRAIN)][2]),
     ])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -11,8 +11,14 @@ Layers (bottom-up):
   nn        ``linear`` dispatch over weight leaves, ``quantize_params``, LoRA
   optim     blockwise 8-bit Adam(W)
   models    Llama decoder, KV-cached greedy decode
-  train     QLoRA fine-tuning steps (frozen 4-bit base, LoRA, 8-bit Adam)
+  train     QLoRA fine-tuning steps (frozen 4-bit or 8-bit base, LoRA, 8-bit Adam)
   serve     continuous-batching engine over a paged (optionally int8) KV cache
+  state     QuantConfig / ConfigTree: three-tier quantization configuration
+  calib     activation statistics, range reduction, activation fake-quant
+  ptq       whole-model post-training quantization under a ConfigTree
+  eval      perplexity over a token stream
+  utils     tree checkpoints in the JAX package's .npz format
+  cli       ``python -m quanta_tpu_torch`` (quantize / eval / generate / ...)
   metrics   counters, gauges and timers the engine records into
   interop   JAX parameter trees -> torch parameter trees (duck-typed)
 """

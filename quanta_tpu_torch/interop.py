@@ -2,13 +2,15 @@
 
 ``from_jax_params(tree, device)`` turns a ``quanta_tpu`` parameter tree
 (dicts and lists of arrays, ``QuantizedTensor``, ``Int8Weight``,
-``Int4cWeight`` and ``LoRAWeight`` leaves) into the port's tree with the
-same keys. It never imports jax: leaves are recognised by their
-attributes, and arrays go through ``np.asarray``. LoRA adapters arrive as
+``Int4cWeight``, ``LoRAWeight`` and ``ActQuantWeight`` leaves) into the
+port's tree with the same keys, so a PTQ tree made by JAX runs in the
+port. It never imports jax: leaves are recognised by their attributes,
+and arrays go through ``np.asarray``. LoRA adapters arrive as
 trainable tensors (``requires_grad=True``), as ``nn.init_lora`` makes
-them. A leaf that is neither an array nor one of those weights
-(``TapWeight``, ...) raises a ``TypeError`` that names its type:
-converting it as something else would compute garbage.
+them. A leaf that is neither an array nor one of those weights raises a
+``TypeError`` that names its type: converting it as something else would
+compute garbage. A ``TapWeight`` raises too: it is calibration-time
+instrumentation, not state.
 
 bf16 arrays arrive from ``np.asarray`` as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` does not take; they go through f32, which is exact.
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from quanta_tpu_torch.calib import ActQuantWeight
 from quanta_tpu_torch.core.qtensor import QuantizedTensor
 from quanta_tpu_torch.nn.lora import LoRAWeight
 from quanta_tpu_torch.ops.int4c import Int4cWeight
@@ -32,7 +35,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def to_torch_dtype(dtype) -> torch.dtype:
     """A numpy / jax dtype (or its name) -> the torch dtype."""
-    name = getattr(dtype, "name", None) or np.dtype(dtype).name
+    name = dtype if isinstance(dtype, str) else (getattr(dtype, "name", None)
+                                                 or np.dtype(dtype).name)
     if name not in _DTYPES:
         raise TypeError(f"no torch counterpart for dtype {name}")
     return _DTYPES[name]
@@ -52,6 +56,11 @@ def from_jax_params(tree, device=None):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax_params(v, device) for v in tree)
+    if all(hasattr(tree, f) for f in ("w", "lo", "hi", "bits")):
+        return ActQuantWeight(w=from_jax_params(tree.w, device),
+                              lo=to_tensor(tree.lo, device).to(torch.float32),
+                              hi=to_tensor(tree.hi, device).to(torch.float32),
+                              bits=int(tree.bits))
     if all(hasattr(tree, f) for f in ("base", "lora_a", "lora_b", "alpha")):
         return LoRAWeight(base=from_jax_params(tree.base, device),
                           lora_a=to_tensor(tree.lora_a, device).requires_grad_(),

@@ -3,7 +3,9 @@
 The functional entry point is :func:`linear`, which dispatches on the
 weight leaf: a dense tensor, a ``QuantizedTensor`` (matmul layout), an
 ``Int8Weight`` (LLM.int8), an ``Int4cWeight`` or a ``LoRAWeight`` (a base
-leaf plus adapters, ``nn/lora.py``). Whole-model quantization
+leaf plus adapters, ``nn/lora.py``), each possibly wrapped by the
+calibration leaves of ``calib.py``: a ``TapWeight`` records its input's
+statistics, an ``ActQuantWeight`` fake-quantizes it. Whole-model quantization
 is a transformation of the parameter tree (:func:`quantize_params`), not
 module surgery; the ``Linear8bitLt`` and ``Linear4bit`` modules wrap
 ``linear`` for callers who want a module.
@@ -20,6 +22,8 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from quanta_tpu_torch import calib
+from quanta_tpu_torch.calib import _map_with_path
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.core.qtensor import QuantizedTensor
 from quanta_tpu_torch.nn.lora import LoRAWeight, lora_linear
@@ -28,13 +32,6 @@ from quanta_tpu_torch.ops.int8mm import Int8Weight, matmul_int8, quantize_int8_w
 from quanta_tpu_torch.ops.matmul import matmul_quantized
 
 WeightLike = Any  # torch.Tensor | QuantizedTensor | Int8Weight | Int4cWeight | LoRAWeight
-
-# Weight leaves of the JAX package that the port does not have yet, and the
-# ROADMAP item that ports each.
-_NOT_PORTED = {
-    "TapWeight": "ROADMAP Queue 1 item 12 (calib.py)",
-    "ActQuantWeight": "ROADMAP Queue 1 item 12 (calib.py)",
-}
 
 
 def linear(
@@ -50,11 +47,16 @@ def linear(
     version for a CPU one; ``False`` forces the plain version. Under
     autograd, gradients reach x through dense, ``QuantizedTensor`` and
     ``LoRAWeight`` leaves (and the adapters); the LLM.int8 and int4c
-    kernels have no backward and raise rather than drop it.
+    kernels have no backward and raise rather than drop it. A ``TapWeight``
+    records x's statistics (under ``calib.taping``) and an
+    ``ActQuantWeight`` fake-quantizes x, each before its wrapped leaf runs.
     """
-    name = type(w).__name__
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"{name} leaves are not ported yet: {_NOT_PORTED[name]}")
+    if isinstance(w, calib.TapWeight):  # calibration stats hook
+        calib.tap_record(w.name, x)
+        w = w.w
+    if isinstance(w, calib.ActQuantWeight):  # calibrated activation quant
+        x = calib.fake_quant(x, w.lo, w.hi, w.bits)
+        w = w.w
     if isinstance(w, LoRAWeight):
         return lora_linear(x, w, b, use_kernel=use_kernel)
     if isinstance(w, QuantizedTensor):
@@ -91,15 +93,6 @@ def quantize_linear_weight(
     return codecs.quantize_matmul_weight(w, fmt=mode, block_size=block_size)
 
 
-def _map_with_path(fn, tree, path=()):
-    """Map ``fn(path, leaf)`` over a tree of dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
-    return fn(path, tree)
-
-
 def quantize_params(
     params,
     *,
@@ -108,14 +101,18 @@ def quantize_params(
     threshold: float = 6.0,
     predicate=None,
     min_size: int = 4096,
+    stats=None,
 ):
     """Tree transformation: replace 2-D weight leaves with quantized ones.
 
     ``predicate(path, leaf) -> bool`` selects the leaves; ``path`` is the
     tuple of dict keys and list indices. Default: 2-D float tensors with at
     least ``min_size`` elements, except embeddings (``emb``, ``wte``,
-    ``wpe`` in the path), which are gathered, not multiplied. Calibration
-    ``stats`` for llm_int8 wait for ``calib.py`` (ROADMAP Queue 1 item 12).
+    ``wpe`` in the path), which are gathered, not multiplied.
+
+    ``stats``: optional {tree path: calib.ActivationStats} from
+    ``calib.collect_stats``; with mode="llm_int8" the per-feature activation
+    colmax selects the outlier set instead of the weight-norm proxy.
     """
 
     def default_pred(path, leaf):
@@ -134,8 +131,12 @@ def quantize_params(
 
     def maybe_quant(path, leaf):
         if pred(path, leaf):
+            colmax = None
+            st = None if stats is None else stats.get(calib._path_name(path))
+            if st is not None:
+                colmax = torch.as_tensor(st.colmax, device=leaf.device)
             return quantize_linear_weight(leaf, mode=mode, block_size=block_size,
-                                          threshold=threshold)
+                                          threshold=threshold, calib_colmax=colmax)
         return leaf
 
     return _map_with_path(maybe_quant, params)

@@ -17,13 +17,21 @@ from quanta_tpu_torch.ops.int8mm import (
     outlier_coverage,
     quantize_int8_weight,
 )
-from quanta_tpu_torch.ops.matmul import matmul_4bit, matmul_4bit_t, matmul_quantized
+from quanta_tpu_torch.ops.matmul import (
+    matmul_4bit,
+    matmul_4bit_t,
+    matmul_8bit,
+    matmul_8bit_t,
+    matmul_quantized,
+)
 from quanta_tpu_torch.ops.quantize import dequantize_blockwise, quantize_blockwise
 
 __all__ = [
     "matmul_quantized",
     "matmul_4bit",
     "matmul_4bit_t",
+    "matmul_8bit",
+    "matmul_8bit_t",
     "adam8bit_update",
     "flash_attention",
     "Int4cWeight",

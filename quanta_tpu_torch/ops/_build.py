@@ -44,6 +44,12 @@ _SIGNATURES = {
     # g, codes, scales, levels, out, M, N, K2, block, stream
     "qt_matmul_4bit_t_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "qt_matmul_4bit_t_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, codes, scales, levels, out, M, N, K, block, stream
+    "qt_matmul_8bit_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qt_matmul_8bit_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # g, codes, scales, levels, out, M, N, K, block, stream
+    "qt_matmul_8bit_t_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qt_matmul_8bit_t_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xq, codes, row_scale, col_scale, out, M, N, K2, stream
     "qt_matmul_int4c": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x (f32), codes, row_scale, col_scale, y_out, out, M, N, K, stream
@@ -67,7 +73,8 @@ _SIGNATURES = {
     "qt_flash_bwd_dkv_f32": [_P] * 10 + [_I] * 7 + [_F, _P],
 }
 
-launches: dict[str, int] = {"matmul_4bit": 0, "matmul_4bit_t": 0, "matmul_int4c": 0,
+launches: dict[str, int] = {"matmul_4bit": 0, "matmul_4bit_t": 0, "matmul_8bit": 0,
+                            "matmul_8bit_t": 0, "matmul_int4c": 0,
                             "matmul_int8_fused": 0, "matmul_int8": 0, "quantize_blockwise": 0,
                             "adam8bit_update": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}

@@ -16,7 +16,10 @@ another order than their plain versions and round p to bf16 against the
 running maximum rather than the final one: bf16 outputs within 2 bf16 ulps
 of max|plain| and rel-L2 1e-2, lse within 1e-4 (1e30 exactly on rows with
 no live key), gradients within rel-L2 2e-2; in f32, 1e-5 of max|plain| for
-the output and 1e-4 for gradients.
+the output and 1e-4 for gradients. ``matmul_8bit`` and ``matmul_8bit_t``
+read the same 256-entry level table as their plain versions and differ
+only in f32 summation order: bf16 within 2 bf16 ulps of max|plain|, f32
+within 1e-5 of it.
 """
 
 import numpy as np
@@ -464,3 +467,126 @@ def test_flash_refuses_what_the_kernels_do_not_take(cuda):
     stats = torch.zeros((1, 2, 15), device=cuda)  # one query row short
     with pytest.raises(ValueError, match="lse"):
         tattn.flash_bwd_dq(q, k, v, do, stats, stats, pos, pos + 16)
+
+
+# ------------------------------------------------------------------ 8-bit
+
+
+EIGHT_BIT = ["int8", "nf8", "fp8", "int8a"]
+
+
+def _tol(ref, dtype):
+    """2 bf16 ulps of max|plain| in bf16; 1e-5 of it in f32."""
+    return (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("fmt", EIGHT_BIT)
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 256), (70, 1000, 200), (1, 96, 64)])
+def test_matmul_8bit_kernels_match_plain(cuda, fmt, dtype, m, k, n):
+    """Forward and transposed kernels at ragged (K, N) (the quantizer pads
+    them to 16 x block and 128; M is not a multiple of the 64-row tile)."""
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    tq = tcore.quantize_matmul_weight(torch.randn((k, n), generator=g, device=cuda), fmt=fmt,
+                                      block_size=32)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    gr = torch.randn((m, n), generator=g, device=cuda).to(dtype)
+    before = dict(_build.launches)
+    out = tmm.matmul_8bit(x, tq.codes, tq.scale, codebook=tq.codebook, block=32)
+    out_t = tmm.matmul_8bit_t(gr, tq.codes, tq.scale, codebook=tq.codebook, block=32)
+    ref = tmm.matmul_8bit(x, tq.codes, tq.scale, codebook=tq.codebook, block=32,
+                          use_kernel=False)
+    ref_t = tmm.matmul_8bit_t(gr, tq.codes, tq.scale, codebook=tq.codebook, block=32,
+                              use_kernel=False)
+    torch.cuda.synchronize()
+    assert (_build.launches["matmul_8bit"], _build.launches["matmul_8bit_t"]) == (
+        before["matmul_8bit"] + 1, before["matmul_8bit_t"] + 1)
+    assert out.dtype == dtype and out.shape == ref.shape == (m, tq.codes.shape[1])
+    assert out_t.shape == ref_t.shape == (m, tq.codes.shape[0])
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, dtype)
+    assert (out_t.float() - ref_t.float()).abs().max().item() <= _tol(ref_t, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_matmul_8bit_raw_ragged_and_signedness(cuda, dtype):
+    """Unpadded codes (K = 192, N = 72: no 16-byte code loads at the edge),
+    and the same bytes read as int8a's unsigned codes and as int8's signed
+    ones: two different weights, each matched by the kernels."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    raw = torch.randint(0, 256, (192, 72), generator=g, device=cuda, dtype=torch.uint8)
+    scales = torch.rand((192 // 64, 72), generator=g, device=cuda) * 0.01
+    x = torch.randn((5, 192), generator=g, device=cuda).to(dtype)
+    gr = torch.randn((5, 72), generator=g, device=cuda).to(dtype)
+    outs = {}
+    for codes in (raw, raw.view(torch.int8)):
+        out = tmm.matmul_8bit(x, codes, scales)
+        ref = tmm.matmul_8bit(x, codes, scales, use_kernel=False)
+        out_t = tmm.matmul_8bit_t(gr, codes, scales)
+        ref_t = tmm.matmul_8bit_t(gr, codes, scales, use_kernel=False)
+        assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, dtype)
+        assert (out_t.float() - ref_t.float()).abs().max().item() <= _tol(ref_t, dtype)
+        outs[codes.dtype] = out.float()
+    assert (outs[torch.uint8] - outs[torch.int8]).abs().max().item() > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("fmt", ["int8", "nf8", "int8a"])
+def test_autograd_8bit_kernels_match_plain(cuda, fmt, dtype):
+    """dx through matmul_quantized: matmul_8bit forward, matmul_8bit_t
+    backward (int8a's zero-point terms outside both)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    tq = tcore.quantize_matmul_weight(torch.randn((300, 200), generator=g, device=cuda),
+                                      fmt=fmt)
+    x = torch.randn((3, 40, 300), generator=g, device=cuda).to(dtype)
+    c = torch.randn((3, 40, 200), generator=g, device=cuda).to(dtype)
+    res = {}
+    for uk in (None, False):
+        xr = x.clone().requires_grad_()
+        before = dict(_build.launches)
+        y = tmm.matmul_quantized(xr, tq, use_kernel=uk)
+        (y.float() * c.float()).sum().backward()
+        launched = (_build.launches["matmul_8bit"] - before["matmul_8bit"],
+                    _build.launches["matmul_8bit_t"] - before["matmul_8bit_t"])
+        assert launched == ((1, 1) if uk is None else (0, 0))
+        res[uk] = (y.detach(), xr.grad)
+    for a, b in zip(res[None], res[False]):
+        assert a.dtype == dtype and (a.float() - b.float()).abs().max().item() <= 2 * _tol(b, dtype)
+
+
+def test_tiny_model_ptq_tree_kernel_path_matches_plain(cuda):
+    """A PTQ tree with every 8-bit format and an ActQuantWeight: every
+    quantized linear launches matmul_8bit, and the logits and perplexity
+    match the plain route. f32 with TF32 off, so without the W8A8 leaves
+    kernel and plain differ in the last bits only (logits within 1e-5
+    rel-L2). With them, the fake-quant rounds an activation whose last
+    bits differ to the neighbouring level now and then, one quantization
+    step of (hi - lo)/255: logits within 5e-3 rel-L2 (1.6e-3 measured on
+    one draw of tokens), perplexity within 1e-3."""
+    from quanta_tpu_torch import eval as teval, ptq
+    from quanta_tpu_torch.calib import ActQuantWeight
+    from quanta_tpu_torch.state.config import ConfigTree, QuantConfig
+
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    dense = tllama.init_params(gen, cfg, device=cuda)
+    tree = (ConfigTree(QuantConfig.from_mode("int8"))
+            .config_layer("layers/0/", scheme="codebook", codebook="nf8")
+            .config_layer("lm_head", scheme="codebook", codebook="fp8")
+            .config_layer("w_down", scheme="affine", weights_only=False, calibration="entropy"))
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    params = ptq.quantize_model(dense, tree, forward=lambda p, b: tllama.forward(p, b, cfg)[0],
+                                calib_batches=[toks[:2], toks[2:]], min_size=1024)
+    weights_only = {**params, "layers": [
+        {k: v.w if isinstance(v, ActQuantWeight) else v for k, v in lp.items()}
+        for lp in params["layers"]]}
+    for tree_, tol in ((weights_only, 1e-5), (params, 5e-3)):
+        _build.reset_launches()
+        lk, _ = tllama.forward(tree_, toks, cfg)
+        assert _build.launches["matmul_8bit"] == 7 * cfg.n_layers + 1
+        lp, _ = tllama.forward(tree_, toks, cfg, use_kernel=False)
+        assert ((lk - lp).norm() / lp.norm()).item() < tol
+    flat = toks.reshape(-1).cpu().numpy()
+    pk = teval.perplexity(params, flat, cfg, seq_len=32, batch=2)
+    pp = teval.perplexity(params, flat, cfg, seq_len=32, batch=2, use_kernel=False)
+    assert abs(pk - pp) <= 1e-3 * pp

@@ -15,6 +15,7 @@ from quanta_tpu import core as jcore
 from quanta_tpu import nn as jnn
 from quanta_tpu.ops import int4c as jint4c
 from quanta_tpu.ops import matmul as jmm
+from quanta_tpu_torch import calib as tcalib
 from quanta_tpu_torch import core as tcore
 from quanta_tpu_torch import nn as tnn
 from quanta_tpu_torch.ops import int4c as tint4c
@@ -123,11 +124,17 @@ def test_linear_dispatch_and_unported_leaves():
     out = tnn.linear(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
     np.testing.assert_allclose(out.numpy(), x @ w + b, rtol=1e-5, atol=1e-5)
 
-    class TapWeight:  # stands in for the JAX leaf the port lacks
-        pass
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tnn.linear(torch.from_numpy(x), TapWeight())
+    # a TapWeight is ported: under calib.taping, linear records its input's
+    # statistics and then runs the wrapped weight; outside it, it only runs
+    tap = tcalib.TapWeight(w=torch.from_numpy(w), name="layers/0/wq")
+    with tcalib.taping() as buf:
+        out = tnn.linear(torch.from_numpy(x), tap, torch.from_numpy(b))
+    np.testing.assert_allclose(out.numpy(), x @ w + b, rtol=1e-5, atol=1e-5)
+    rec = buf["layers/0/wq"]
+    assert (rec["amin"].item(), rec["amax"].item()) == (x.min(), x.max())
+    np.testing.assert_array_equal(rec["colmax"].numpy(), np.abs(x).max(axis=0))
+    tnn.linear(torch.from_numpy(x), tap)
+    assert buf == {"layers/0/wq": rec}
     # a LoRAWeight is ported: linear runs its base plus the adapter
     lw = tnn.init_lora(torch.from_numpy(w), torch.Generator().manual_seed(0), rank=4,
                        dtype=torch.float32)

@@ -392,6 +392,23 @@ class FakeKernels:
         return 0
 
     @staticmethod
+    def _weight8(codes, scales, levels, n, k, block, dtype):
+        """The 8-bit layout: the level table read by each code's byte."""
+        c = _view(codes, (k, n), torch.uint8)
+        s = torch.repeat_interleave(_view(scales, (k // block, n), torch.float32), block, 0)
+        return (_view(levels, (256,), torch.float32)[c.long()] * s).to(dtype)
+
+    def _mm8(self, dtype, x, codes, scales, levels, out, m, n, k, block, _stream):
+        w = self._weight8(codes, scales, levels, n, k, block, dtype)
+        _view(out, (m, n), dtype).copy_((_view(x, (m, k), dtype).float() @ w.float()).to(dtype))
+        return 0
+
+    def _mm8t(self, dtype, g, codes, scales, levels, out, m, n, k, block, _stream):
+        w = self._weight8(codes, scales, levels, n, k, block, dtype)
+        _view(out, (m, k), dtype).copy_((_view(g, (m, n), dtype).float() @ w.float().T).to(dtype))
+        return 0
+
+    @staticmethod
     def _attn(dtype, q, k, v, q_start, kv_len, b, sq, t, nh, nkv, hd, causal, scale):
         assert scale == pytest.approx(1.0 / math.sqrt(hd))
         return (_view(q, (b, sq, nh, hd), dtype), _view(k, (b, t, nkv, hd), dtype),
@@ -426,6 +443,7 @@ class FakeKernels:
 
     def __getattr__(self, name):
         kinds = {"qt_matmul_4bit_": self._mm, "qt_matmul_4bit_t_": self._mmt,
+                 "qt_matmul_8bit_": self._mm8, "qt_matmul_8bit_t_": self._mm8t,
                  "qt_flash_fwd_": self._flash_fwd, "qt_flash_bwd_dq_": self._flash_bwd,
                  "qt_flash_bwd_dkv_": self._flash_bwd}
         for prefix, fn in sorted(kinds.items(), key=lambda kv: -len(kv[0])):
@@ -551,6 +569,39 @@ def test_qlora_kernel_route_launches(fake_kernels):
         for name in ("wq", "wv"):
             # the kernel route's bias correction is -(lr/bc1)·m, the plain route's -lr·(m/bc1)
             assert _rel_l2(a[name]["b"].detach().numpy(), b[name]["b"].detach().numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("fmt", ["nf8", "int8a"])
+def test_qlora_8bit_kernel_route_launches(fake_kernels, fmt):
+    """One QLoRA step on an 8-bit base through the kernel routes: every
+    quantized linear launches ``matmul_8bit`` once, ``matmul_8bit_t`` runs
+    for each whose input needs a gradient (all but layer 0's wq, wk and
+    wv), no 4-bit kernel runs; losses and lora_b gradients are the plain
+    route's (int8a's zero-point terms stay outside the kernels on both)."""
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
+    dense = tllama.init_params(torch.Generator().manual_seed(0), cfg)
+    base = tnn.quantize_params(dense, mode=fmt, min_size=1024)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (2, 9)))
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    losses, grads = {}, {}
+    for route in (None, False):
+        params = ttrain.add_lora(base, torch.Generator().manual_seed(1), rank=4,
+                                 dtype=torch.float32)
+        opt = toptim.Adam8bit(tnn.lora_parameters(params), lr=1e-2, use_kernel=route)
+        step = ttrain.make_qlora_train_step(cfg, opt, use_kernel=route)
+        _build.reset_launches()
+        losses[route] = step(params, batch).item()
+        per_forward = 7 * cfg.n_layers + 1
+        expected = dict.fromkeys(_build.launches, 0)
+        if route is None:
+            expected.update(matmul_8bit=per_forward, matmul_8bit_t=per_forward - 3,
+                            adam8bit_update=4 * cfg.n_layers)
+        assert dict(_build.launches) == expected
+        grads[route] = [ad[name]["b"].grad.clone() for ad in ttrain.extract_adapters(params)
+                        for name in ("wq", "wv")]
+    np.testing.assert_allclose(losses[None], losses[False], rtol=1e-6)
+    for a, b in zip(grads[None], grads[False]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-7)
 
 
 def test_qlora_flash_kernel_route_launches(fake_kernels):
