@@ -71,8 +71,12 @@ and the script exits non-zero (nothing is caught):
      output within 2 bf16 ulps of
      max|plain| and rel-L2 1e-2, lse within 1e-4, gradients within rel-L2
      2e-2 (f32: 1e-5 and 1e-4 of max|plain|), dead rows zero with lse
-     1e30; at the S = T shapes the times of the kernels, their plain
-     versions and SDPA (forward; backward; both);
+     1e30, and dq, dk, dv bit-identical over two calls; at the S = T
+     shapes the times of the kernels, their plain versions and SDPA
+     (forward; backward; both); then one ``flash_bwd_design`` line per
+     head_dim (the bf16 backward kernels' grid, cluster size, blocks
+     resident per SM, registers and shared bytes, from
+     ``cudaFuncGetAttributes``);
  11. QLoRA at batch 2 x seq 1024 (nf4 base, as phase 9): 3 steps through
      the flash kernels and 3 through the einsum attention from the same
      adapters, and one step with the einsum attention in f32 (the floor
@@ -125,7 +129,9 @@ and the script exits non-zero (nothing is caught):
      the gates of the 8-bit rows (int8, nf8, llm_int8, w8a8-*) hold at
      <= 0.1; the other rows are printed.
 
-Then the seconds each phase took, the kernels line (every kernel's launches on the main path, error,
+Then the seconds each phase took, the flash backward pair's earlier times
+as PERF.md records them (``flash_bwd_earlier``, beside this run's), the
+kernels line (every kernel's launches on the main path, error,
 times, bound from the bytes and operations of the timed work, and
 library time where one PyTorch call computes the same function) and,
 last, ``{"ok": true, "device": {...}}``.
@@ -213,6 +219,10 @@ FLASH_SHAPES = {
 FLASH_CASES = [(name, torch.bfloat16) for name in FLASH_SHAPES] + [("cached_prefill",
                                                                      torch.float32)]
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the backward pair's time at TinyLlama's shape before its Hopper redesign
+# (wmma through shared memory, no cp.async), as PERF.md records it; printed
+# on a line of its own, apart from the kernels line's measured times
+EARLIER_MS = {"flash_bwd_dq": 0.2697, "flash_bwd_dkv": 0.7539}
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
 CROSSOVER_SEQS = (256, 512, 1024, 2048)  # long_prefill's S; 2048 is the reference's row
@@ -825,6 +835,10 @@ def flash_checks(dev, work):
         bwd = (q, k, v, do, ref_lse, delta, qs, kl)
         dq = attention.flash_bwd_dq(*bwd, use_kernel=True)
         dk, dv = attention.flash_bwd_dkv(*bwd, use_kernel=True)
+        again = (attention.flash_bwd_dq(*bwd, use_kernel=True),
+                 *attention.flash_bwd_dkv(*bwd, use_kernel=True))
+        check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
+              f"flash backward {name} {dtype}: two calls differ")
         refs = {"dq": attention.flash_bwd_dq_reference(*bwd)}
         refs["dk"], refs["dv"] = attention.flash_bwd_dkv_reference(*bwd)
         grads = {"dq": dq, "dk": dk, "dv": dv}
@@ -860,7 +874,7 @@ def flash_checks(dev, work):
                    out_tol=out_tol, out_rel_l2=rel_l2(out, ref), lse_max_abs_err=lse_err,
                    lse_tol=1e-4, grad_max_abs_err=grad_err, grad_rel_l2=grad_rel,
                    grad_tol=grad_tol if dtype == torch.float32 else "rel-L2 2e-2",
-                   dead_rows=int((~live).sum()))
+                   dead_rows=int((~live).sum()), bwd_bit_identical_over_two_calls=True)
         if sq == t and dtype == torch.bfloat16:
             row.update(flash_times(q, k, v, do, qs, kl, ref_lse, delta))
             times[name] = row
@@ -871,6 +885,12 @@ def flash_checks(dev, work):
                 add_work(work, "flash_bwd_dkv", nbytes(q, k, v, do, lse, delta, dk, dv),
                          8 * hd * pairs)
         emit(kernel_check=row)
+    for hd, shape in ((32, "tinyllama_s1024"), (64, "tinyllama_s1024"),
+                      (128, "llama2_7b_s1024")):
+        b, sq, t, nh, nkv = FLASH_SHAPES[shape][:5]
+        emit(flash_bwd_design=dict(head_dim=hd, shape=[b, sq, t, nh, nkv, hd], **{
+            name: attention.flash_bwd_design(name, b, sq, t, nh, nkv, hd)
+            for name in ("flash_bwd_dq", "flash_bwd_dkv")}))
     return times["tinyllama_s1024"], max_err
 
 
@@ -1394,6 +1414,10 @@ def main():
                 "heads, hd 64, bf16), ms; library: ")
     sdpa = "SDPA (is_causal, enable_gqa) "
     bwd_pair_ms = flash_ms["flash_bwd_dq_ms"] + flash_ms["flash_bwd_dkv_ms"]
+    emit(flash_bwd_earlier=dict(
+        note="PERF.md's times of the earlier wmma design at the same shape, not measured in "
+             "this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},
+        measured_ms={name: flash_ms[f"{name}_ms"] for name in EARLIER_MS}))
     emit(kernels=[
         entry("matmul_4bit", "matmul_4bit.cu", "quanta_tpu/ops/matmul.py:204",
               launches["matmul_4bit"], *per_step["matmul_4bit"], "bf16", at),

@@ -114,13 +114,45 @@ def default_tap_predicate(path, leaf) -> bool:
     )
 
 
-def _map_with_path(fn, tree, path=()):
-    """Map ``fn(path, leaf)`` over a tree of dicts, lists and tuples
-    (weight dataclasses are leaves)."""
+def _walked_fields(tree) -> Tuple[str, ...]:
+    """The fields of a weight wrapper that the tree map walks into: those
+    JAX registers as pytree children, except a LoRAWeight's adapters."""
+    from quanta_tpu_torch.nn.lora import LoRAWeight  # nn imports this module
+
+    if isinstance(tree, TapWeight):
+        return ("w",)
+    if isinstance(tree, ActQuantWeight):
+        return ("w", "lo", "hi")
+    if isinstance(tree, LoRAWeight):
+        return ("base",)
+    return ()
+
+
+def _map_with_path(fn, tree, path=(), is_leaf: Optional[Callable] = None):
+    """Map ``fn(path, leaf)`` over a tree, as JAX's ``tree_map_with_path``
+    does over the JAX package's trees: dicts, lists and tuples, and the
+    weight wrappers JAX registers as pytrees, ``TapWeight`` (``w``),
+    ``ActQuantWeight`` (``w``, ``lo``, ``hi``) and ``LoRAWeight``
+    (``base``), whose fields extend the path (the base of the LoRAWeight at
+    ``layers/0/wq`` is ``layers/0/wq/base``). A node for which ``is_leaf``
+    holds, and any other dataclass (``QuantizedTensor``, ``Int8Weight``,
+    ``Int4cWeight``), goes to ``fn`` whole.
+
+    One deliberate divergence: a LoRAWeight's adapters ``lora_a`` and
+    ``lora_b`` never go to ``fn``. They are the trainable leaves; JAX's
+    ``quantize_params`` and ``ptq.quantize_model`` quantize them once they
+    reach ``min_size``, which is a fault of the reference."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree)
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+        return {k: _map_with_path(fn, v, path + (k,), is_leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
+        return type(tree)(_map_with_path(fn, v, path + (i,), is_leaf)
+                          for i, v in enumerate(tree))
+    fields = _walked_fields(tree)
+    if fields:
+        return dataclasses.replace(tree, **{
+            f: _map_with_path(fn, getattr(tree, f), path + (f,), is_leaf) for f in fields})
     return fn(path, tree)
 
 
@@ -375,7 +407,9 @@ def apply_activation_quant(
     *,
     bits: int = 8,
 ):
-    """Wrap weight leaves named in ``ranges`` with ActQuantWeight."""
+    """Wrap weight leaves named in ``ranges`` with ActQuantWeight (a
+    LoRAWeight is wrapped whole, as JAX does)."""
+    from quanta_tpu_torch.nn.lora import LoRAWeight
 
     def wrap(path, leaf):
         name = _path_name(path)
@@ -390,4 +424,4 @@ def apply_activation_quant(
             )
         return leaf
 
-    return _map_with_path(wrap, params)
+    return _map_with_path(wrap, params, is_leaf=lambda x: isinstance(x, LoRAWeight))

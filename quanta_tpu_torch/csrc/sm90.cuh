@@ -1,0 +1,191 @@
+// Hopper (sm_90a) building blocks for the hand-written kernels: warpgroup
+// matrix multiplies (wgmma) as inline PTX, shared-memory matrix descriptors
+// for swizzled 64-row bf16 tiles, and cp.async copies into those tiles.
+//
+// A warpgroup is 4 warps (128 threads) that issue one asynchronous product
+// of a 64-row tile together. The f32 accumulator of an m64nN product is
+// spread over the warpgroup as mma.sync's m16n8 C fragments: warp w owns
+// rows 16w..16w+15; lane l holds, for every 8-column chunk j, the elements
+// (row 16w + l/4 + 8i, column 8j + 2(l%4) + c) in d[4j + 2i + c]. The same
+// lanes hold a register A operand (m64k16) as 4 words of two bf16
+// (pack_a): a k16 slice of an accumulator becomes the A operand of the
+// next product without leaving the registers.
+//
+// Tiles. A tile is 64 rows of HD bf16 (HD = 32, 64 or 128), one row per
+// query or key, laid out as the wgmma swizzle wants it:
+//   - HD 64: one 128-byte row per 128-byte line, the 16-byte chunk c of row
+//     r at chunk c ^ (r % 8) (the 128-byte swizzle, 8 rows per 1024 bytes);
+//   - HD 128: two such 64-column halves, one after the other (8 KB each);
+//   - HD 32: 64-byte rows, chunk c at c ^ ((r / 2) % 4) (the 64-byte swizzle).
+// The swizzle acts on the address bits, so every tile starts 1024-byte
+// aligned. One tile serves two ways: as a K-major operand, where its rows
+// are M or N and head_dim is K (scores q . k), and as an MN-major B
+// operand, where its rows are K and head_dim is N (p^T dO, ds q, ds k).
+// Each has its own descriptor over the same bytes.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+// ------------------------------------------------------------ wgmma sync
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it.
+template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Make this thread's generic-proxy writes to shared memory (cp.async, st.shared)
+// visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------- cp.async
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; zeros where `src_bytes` is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared; zero where `src_bytes` is 0
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ----------------------------------------------------------- descriptors
+
+// layout type of the descriptor's bits 62-63
+constexpr uint64_t kSwizzle128 = 1, kSwizzle64 = 2;
+
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+template <int HD> struct Tile {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim 32, 64 or 128");
+  static constexpr int ROWS = 64;
+  static constexpr uint32_t BYTES = ROWS * HD * 2;
+  static constexpr uint32_t ROW_BYTES = HD == 32 ? 64 : 128;  // bytes of a row in one half
+  static constexpr uint32_t HALF = ROWS * 128;                 // HD 128: second half's offset
+  static constexpr uint64_t LAYOUT = HD == 32 ? kSwizzle64 : kSwizzle128;
+  static constexpr int CHUNKS = HD / 8;                        // 16-byte chunks of a row
+
+  // byte offset of the 16-byte chunk `c` of row `r`
+  static __device__ __forceinline__ uint32_t offset(int r, int c) {
+    if constexpr (HD == 32) return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+    return (c >> 3) * HALF + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  }
+  // K-major: rows are M (or N), head_dim is K; the k16 slice `kk`
+  static __device__ __forceinline__ uint64_t k_major(uint32_t base, int kk) {
+    const uint32_t off = HD == 32 ? kk * 32 : (kk >> 2) * HALF + (kk & 3) * 32;
+    return smem_desc(base + off, 16, 8 * ROW_BYTES, LAYOUT);
+  }
+  // MN-major B: rows are K, head_dim is N; the k16 slice `kk` (rows 16kk..)
+  static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int kk) {
+    return smem_desc(base + kk * 16 * ROW_BYTES, HALF, 8 * ROW_BYTES, LAYOUT);
+  }
+  // rows [r0, r0 + 64) of one head of a (B, S, heads, HD) bf16 tensor, by
+  // cp.async; `src` is row 0 of that batch row and head, `row_stride` is
+  // heads * HD; rows at or past `rows` read as zeros
+  static __device__ __forceinline__ void load(uint32_t dst, const __nv_bfloat16* src,
+                                              int64_t row_stride, int r0, int rows) {
+    for (int i = threadIdx.x; i < ROWS * CHUNKS; i += 128) {
+      const int r = i / CHUNKS, c = i % CHUNKS;
+      const bool in = r0 + r < rows;
+      cp_async16(dst + offset(r, c), in ? src + (int64_t)(r0 + r) * row_stride + c * 8 : src,
+                 in ? 16 : 0);
+    }
+  }
+};
+
+// A k16 slice of an m64 accumulator as the register A operand of the next
+// product: columns 16kk..16kk+15, rounded to bf16
+template <int R>
+__device__ __forceinline__ void pack_a(const float (&d)[R], int kk, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+    a[i] = *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// ------------------------------------------------------------- products
+
+// d (m64 x N, f32) (+)= A (smem, K-major) * B (smem, K-major), k16, bf16
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int accumulate);
+// d (m64 x N, f32) += A (registers) * B (smem, MN-major), k16, bf16
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+}  // namespace

@@ -108,7 +108,11 @@ def quantize_params(
     ``predicate(path, leaf) -> bool`` selects the leaves; ``path`` is the
     tuple of dict keys and list indices. Default: 2-D float tensors with at
     least ``min_size`` elements, except embeddings (``emb``, ``wte``,
-    ``wpe`` in the path), which are gathered, not multiplied.
+    ``wpe`` in the path), which are gathered, not multiplied. The map walks
+    into ``LoRAWeight`` (its base, at ``<path>/base``), ``TapWeight`` and
+    ``ActQuantWeight`` (``<path>/w``) as JAX's does, but leaves a
+    LoRAWeight's adapters as they are, where JAX quantizes them too
+    (``calib._map_with_path``).
 
     ``stats``: optional {tree path: calib.ActivationStats} from
     ``calib.collect_stats``; with mode="llm_int8" the per-feature activation
@@ -200,9 +204,15 @@ def init_quantized_params(generator: torch.Generator, cfg, *, mode: str = "nf4a"
 
 
 def dequantize_params(params):
-    """Inverse transformation: materialize dense weights from quantized."""
+    """Inverse transformation: materialize dense weights from quantized.
+
+    As JAX's: a ``TapWeight`` or ``ActQuantWeight`` gives its dense weight
+    (the wrapper goes), a ``LoRAWeight`` keeps its adapters over a dense
+    base."""
 
     def deq(_path, leaf):
+        if isinstance(leaf, (calib.TapWeight, calib.ActQuantWeight)):
+            leaf = leaf.w
         if isinstance(leaf, QuantizedTensor):
             return codecs.dequantize_matmul_weight(leaf)
         if isinstance(leaf, Int8Weight):
@@ -214,7 +224,8 @@ def dequantize_params(params):
             return dequantize_int4c(leaf)
         return leaf
 
-    return _map_with_path(deq, params)
+    return _map_with_path(deq, params, is_leaf=lambda x: isinstance(
+        x, (calib.TapWeight, calib.ActQuantWeight)))
 
 
 class Linear4bit(nn.Module):

@@ -71,6 +71,8 @@ _SIGNATURES = {
     # ... dk, dv, B, Sq, T, nh, nkv, hd, causal, scale, stream
     "qt_flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 7 + [_F, _P],
     "qt_flash_bwd_dkv_f32": [_P] * 10 + [_I] * 7 + [_F, _P],
+    # dkv (0: dQ, 1: dK/dV), hd, B, Sq, T, nh, nkv, out (int[10])
+    "qt_flash_bwd_design": [_I] * 7 + [_P],
 }
 
 launches: dict[str, int] = {"matmul_4bit": 0, "matmul_4bit_t": 0, "matmul_8bit": 0,

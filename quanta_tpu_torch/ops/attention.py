@@ -5,7 +5,10 @@ Port of ``quanta_tpu/ops/attention.py``. The kernels are
 ``csrc/flash_fwd.cu`` (the Pallas ``_flash_kernel``) and
 ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel``); each source says what bounds it on the H100
-and how it is laid out.
+and how it is laid out. The bf16 backward kernels are built for Hopper
+(warpgroup products, cp.async tile rings, dK/dV split over thread-block
+clusters; ``csrc/sm90.cuh``) and are deterministic: two calls give the
+same bits. :func:`flash_bwd_design` reports how they launch.
 
 Layouts are the JAX package's: q ``(B, Sq, nh, hd)``, k and v ``(B, T,
 nkv, hd)`` with ``nh % nkv == 0`` (query head h reads KV head ``h // (nh /
@@ -30,6 +33,7 @@ plain torch and then runs the dQ and the dK/dV kernels.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -206,6 +210,24 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_start, kv_len, *, causal=True, use_
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, q_start, kv_len, causal, [dk, dv])
     return dk, dv
+
+
+_DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "cluster", "blocks_per_sm", "registers",
+                "shared_bytes", "spill_bytes", "sms", "stages")
+
+
+def flash_bwd_design(name, b, sq, t, nh, nkv, hd):
+    """How the bf16 kernel ``name`` (``"flash_bwd_dq"`` or
+    ``"flash_bwd_dkv"``) launches at this shape on this card: its grid,
+    cluster size (dK/dV), blocks resident per SM, registers a thread,
+    dynamic shared bytes a block and spill bytes a thread (from
+    ``cudaFuncGetAttributes``), the SMs, and the stages of its cp.async
+    ring."""
+    out = (ctypes.c_int * len(_DESIGN_KEYS))()
+    rc = _build.library().qt_flash_bwd_design(int(name == "flash_bwd_dkv"), hd, b, sq, t, nh,
+                                              nkv, out)
+    _build.check(rc, name)
+    return dict(zip(_DESIGN_KEYS, out))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -67,7 +67,10 @@ def quantize_model(
     - layer rules that match zero quantizable tensors are reported: a
       warning by default, ValueError with ``strict_rules=True`` (tree
       paths are '/'-joined, ``layers/0/wq``, so a dotted regex like
-      ``layers\\.0\\.`` silently matches nothing otherwise).
+      ``layers\\.0\\.`` silently matches nothing otherwise);
+    - the map walks into a ``LoRAWeight`` and quantizes its dense base under
+      the path ``<path>/base``, as JAX's does; unlike JAX's, it leaves the
+      adapters ``lora_a``/``lora_b`` as they are (``calib._map_with_path``).
     """
     tree = tree or ConfigTree()
     if calib_batches is not None:

@@ -16,7 +16,8 @@ another order than their plain versions and round p to bf16 against the
 running maximum rather than the final one: bf16 outputs within 2 bf16 ulps
 of max|plain| and rel-L2 1e-2, lse within 1e-4 (1e30 exactly on rows with
 no live key), gradients within rel-L2 2e-2; in f32, 1e-5 of max|plain| for
-the output and 1e-4 for gradients. ``matmul_8bit`` and ``matmul_8bit_t``
+the output and 1e-4 for gradients; the backward kernels are deterministic,
+two calls give the same bits. ``matmul_8bit`` and ``matmul_8bit_t``
 read the same 256-entry level table as their plain versions and differ
 only in f32 summation order: bf16 within 2 bf16 ulps of max|plain|, f32
 within 1e-5 of it.
@@ -362,12 +363,16 @@ def test_forward_only_kernels_refuse_autograd(cuda):
 
 # b, sq, t, nh, nkv, q_start, kv_len, causal: GQA self-attention; ragged S
 # and T with a cached offset; a dead row (kv_len 0) beside MHA rows; the
-# ragged case without the causal mask
+# ragged case without the causal mask; rep 8 with a cached offset, and rep
+# 4 and rep 8 with a dead row (each at every head_dim)
 FLASH_CASES = [
     (2, 64, 64, 4, 2, [0, 0], [64, 64], True),
     (2, 50, 77, 4, 1, [0, 27], [50, 77], True),
     (3, 70, 130, 2, 2, [0, 60, 0], [70, 130, 0], True),
     (2, 50, 77, 4, 1, [0, 27], [50, 77], False),
+    (2, 100, 150, 8, 1, [0, 50], [100, 150], True),
+    (2, 90, 100, 4, 1, [10, 0], [100, 0], True),
+    (3, 70, 130, 8, 1, [0, 60, 0], [70, 130, 0], True),
 ]
 
 
@@ -417,6 +422,53 @@ def test_flash_kernels_match_plain(cuda, dtype, hd, b, sq, t, nh, nkv, q_start, 
         assert err <= 1e-5 * big
         for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
             assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def _bwd_args(cuda, b, sq, t, nh, nkv, hd, q_start, kv_len, dtype=torch.bfloat16, seed=2):
+    q, k, v, do = _flash_inputs(cuda, b, sq, t, nh, nkv, hd, dtype, seed=seed)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=cuda)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    ref, lse = tattn.flash_forward_reference(q, k, v, qs, kl)
+    delta = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, qs, kl
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_bwd_deterministic(cuda, dtype, hd):
+    """Two calls on the same inputs give the same bits: dK/dV's blocks sum
+    their partials in a fixed order, and nothing uses atomics."""
+    args = _bwd_args(cuda, 2, 300, 330, 8, 2, hd, [0, 30], [300, 330], dtype)
+    first = (tattn.flash_bwd_dq(*args), *tattn.flash_bwd_dkv(*args))
+    second = (tattn.flash_bwd_dq(*args), *tattn.flash_bwd_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# (nkv, cluster) for B=2 x T=1024 (16 key tiles) at rep 2: base grids of
+# 32, 96, 160 and 288 blocks, which on a 132-SM H100 take clusters of 8, 4,
+# 2 and 1
+SPLIT_CASES = [(1, 8), (3, 4), (5, 2), (9, 1)]
+
+
+@pytest.mark.parametrize("nkv,cluster", SPLIT_CASES)
+def test_flash_dkv_cluster_split_covers_every_pair(cuda, nkv, cluster):
+    """dK/dV splits each key tile's (rep head, live query tile) pairs over a
+    cluster's blocks: at Sq = 1000 (a ragged last query tile), q_start 0
+    and 24, the causal triangle gives every key tile another count of pairs,
+    which no cluster size divides evenly. A pair missed or summed twice
+    would move dK and dV by far more than the 1e-3 rel-L2 allowed here: the
+    kernel and the plain version round p and ds alike and differ only in
+    f32 summation order and exp2 against exp (~3e-5 measured)."""
+    nh, hd = 2 * nkv, 64
+    args = _bwd_args(cuda, 2, 1000, 1024, nh, nkv, hd, [0, 24], [1000, 1024])
+    design = tattn.flash_bwd_design("flash_bwd_dkv", 2, 1000, 1024, nh, nkv, hd)
+    if design["sms"] != 132:
+        pytest.skip(f"the cluster sizes are worked out for 132 SMs, not {design['sms']}")
+    assert design["cluster"] == cluster and design["grid_x"] == cluster
+    dk, dv = tattn.flash_bwd_dkv(*args)
+    dk_ref, dv_ref = tattn.flash_bwd_dkv_reference(*args)
+    assert _rel(dk, dk_ref) <= 1e-3 and _rel(dv, dv_ref) <= 1e-3
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
