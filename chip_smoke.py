@@ -73,10 +73,10 @@ and the script exits non-zero (nothing is caught):
      2e-2 (f32: 1e-5 and 1e-4 of max|plain|), dead rows zero with lse
      1e30, and dq, dk, dv bit-identical over two calls; at the S = T
      shapes the times of the kernels, their plain versions and SDPA
-     (forward; backward; both); then one ``flash_bwd_design`` line per
-     head_dim (the bf16 backward kernels' grid, cluster size, blocks
-     resident per SM, registers and shared bytes, from
-     ``cudaFuncGetAttributes``);
+     (forward; backward; both); then one ``flash_bwd_design`` and one
+     ``flash_fwd_design`` line per head_dim (the bf16 kernels' grid,
+     cluster size or warpgroups, blocks resident per SM, registers and
+     shared bytes, from ``cudaFuncGetAttributes``);
  11. QLoRA at batch 2 x seq 1024 (nf4 base, as phase 9): 3 steps through
      the flash kernels and 3 through the einsum attention from the same
      adapters, and one step with the einsum attention in f32 (the floor
@@ -98,6 +98,10 @@ and the script exits non-zero (nothing is caught):
      plain versions at the five TinyLlama (K, N), M in {8, 2048}, in int8,
      nf8, fp8 and int8a with bf16 operands (within 2 bf16 ulps of
      max|plain|) and at one shape in f32 (within 1e-5 of it, TF32 off);
+     ``matmul_8bit`` also at M in {64, 256, 1024} on two shapes (both
+     sides of its decode/prefill split) and at a ragged M = 77, N = 200,
+     its bf16 output bit-identical over two calls, with its design
+     (``matmul_8bit_design``) on each row;
      kernel times for every format, and for int8 the plain versions' and
      a dense control's (cuBLAS ``torch.matmul`` of the dequantized bf16
      weight: no single PyTorch call dequantizes blockwise 8-bit codes
@@ -129,8 +133,8 @@ and the script exits non-zero (nothing is caught):
      the gates of the 8-bit rows (int8, nf8, llm_int8, w8a8-*) hold at
      <= 0.1; the other rows are printed.
 
-Then the seconds each phase took, the flash backward pair's earlier times
-as PERF.md records them (``flash_bwd_earlier``, beside this run's), the
+Then the seconds each phase took, the redesigned kernels' earlier times
+as PERF.md records them (``earlier_times``, beside this run's), the
 kernels line (every kernel's launches on the main path, error,
 times, bound from the bytes and operations of the timed work, and
 library time where one PyTorch call computes the same function) and,
@@ -219,10 +223,17 @@ FLASH_SHAPES = {
 FLASH_CASES = [(name, torch.bfloat16) for name in FLASH_SHAPES] + [("cached_prefill",
                                                                      torch.float32)]
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# the backward pair's time at TinyLlama's shape before its Hopper redesign
-# (wmma through shared memory, no cp.async), as PERF.md records it; printed
-# on a line of its own, apart from the kernels line's measured times
-EARLIER_MS = {"flash_bwd_dq": 0.2697, "flash_bwd_dkv": 0.7539}
+# the times of the redesigned kernels before their Hopper redesigns, as
+# PERF.md's kernel table records them: the first port's flash kernels at
+# TinyLlama's shape (wmma through shared memory, no cp.async), its
+# matmul_8bit (64x64 wmma tiles, no split-K, no pipeline) a decode step's
+# 155 int8 calls at M=8, and per call at M=8
+# on (2048, 5632) and w_down (5632, 2048) and at M=2048 on (2048, 5632).
+# Printed on a line of their own, apart from the kernels line's measured
+# times.
+EARLIER_MS = {"flash_bwd_dq": 0.2697, "flash_bwd_dkv": 0.7539, "flash_fwd": 0.1999,
+              "matmul_8bit": 23.588}
+EARLIER_MM8_US = {"M8_2048x5632": 120.4, "M8_5632x2048": 361.4, "M2048_2048x5632": 784.4}
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
 CROSSOVER_SEQS = (256, 512, 1024, 2048)  # long_prefill's S; 2048 is the reference's row
@@ -240,6 +251,11 @@ EIGHT_BIT = ("int8", "nf8", "fp8", "int8a")
 # check the same paths at full depth
 TIMED_DEPTH = 11
 F32_SHAPE = (2048, 5632, M_TRAIN)
+# matmul_8bit's middle M, on either side of its decode/prefill split (16
+# and 32 take the decode kernels of 16 and 32 rows), at the attention and
+# w_down shapes; and a ragged case (M and N off the tiles)
+MM8_MID_MS, MM8_MID_SHAPES = (16, 32, 64, 256, 1024), ((2048, 2048), (5632, 2048))
+MM8_RAGGED = (2048, 200, 77)
 CALIB_BATCHES, CALIB_SEQ = 8, 256
 PPL_TOKENS, PPL_SEQ, PPL_BATCH = 32768, 256, 8
 PTQ_PPL_REL = 1e-2
@@ -891,6 +907,8 @@ def flash_checks(dev, work):
         emit(flash_bwd_design=dict(head_dim=hd, shape=[b, sq, t, nh, nkv, hd], **{
             name: attention.flash_bwd_design(name, b, sq, t, nh, nkv, hd)
             for name in ("flash_bwd_dq", "flash_bwd_dkv")}))
+        emit(flash_fwd_design=dict(head_dim=hd, shape=[b, sq, t, nh, nkv, hd],
+                                   **attention.flash_fwd_design(b, sq, nh, hd)))
     return times["tinyllama_s1024"], max_err
 
 
@@ -1075,35 +1093,44 @@ def eight_bit_checks(dev, work):
     """matmul_8bit and matmul_8bit_t against their plain versions at the
     five TinyLlama (K, N), M in {8, 2048}, every 8-bit format, bf16
     operands within 2 bf16 ulps of max|plain|, and at ``F32_SHAPE`` in f32
-    within 1e-5 of it; µs per call with the weights rotated past the L2,
-    for int8 also the plain versions' and the dense control's (cuBLAS
-    ``torch.matmul`` of the dequantized bf16 weight). Returns ms of the
-    calls of one decode step (matmul_8bit, M=8) and of one QLoRA step's
-    forward (matmul_8bit, M=2048) and backward (matmul_8bit_t, M=2048),
-    int8, as [kernel, plain, dense], and the largest errors."""
+    within 1e-5 of it; matmul_8bit also at ``MM8_MID_MS`` on two of the
+    shapes (both sides of its decode/prefill split) and at ``MM8_RAGGED``,
+    its bf16 output bit-identical over two calls, its design per shape.
+    µs per call with the weights rotated past the L2, for int8 also the
+    plain versions' and the dense control's (cuBLAS ``torch.matmul`` of the
+    dequantized bf16 weight). Returns ms of the calls of one decode step
+    (matmul_8bit, M=8) and of one QLoRA step's forward (matmul_8bit,
+    M=2048) and backward (matmul_8bit_t, M=2048), int8, as [kernel, plain,
+    dense]; µs of the int8 matmul_8bit calls that ``EARLIER_MM8_US`` names;
+    and the largest errors."""
     gen = torch.Generator(device=dev).manual_seed(7)
     step = {("matmul_8bit", 8): [0.0] * 3, ("matmul_8bit", M_TRAIN): [0.0] * 3,
             ("matmul_8bit_t", M_TRAIN): [0.0] * 3}
     count = {"matmul_8bit": SHAPES, "matmul_8bit_t": T_SHAPES}
     max_err = {"matmul_8bit": 0.0, "matmul_8bit_t": 0.0}
+    per_call = {}
     cases = [(k, n, m, torch.bfloat16) for (k, n) in SHAPES for m in (8, M_TRAIN)]
-    cases.append((*F32_SHAPE, torch.float32))
+    cases += [(k, n, m, torch.bfloat16) for (k, n) in MM8_MID_SHAPES for m in MM8_MID_MS]
+    cases += [(*MM8_RAGGED, torch.bfloat16), (*F32_SHAPE, torch.float32)]
     for k, n, m, dtype in cases:
-        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        n_codes = -(-n // 128) * 128  # the quantizer pads N to 128; a ragged case cuts it back
+        w = (torch.randn((k, n_codes), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         g = torch.randn((m, n), generator=gen, device=dev).to(dtype)
+        design = matmul.matmul_8bit_design(m, n, k) if dtype == torch.bfloat16 else None
         for fmt in EIGHT_BIT:
             qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+            codes, scales = qt.codes[:, :n].contiguous(), qt.scale[:, :n].contiguous()
             for name, fn, a in (("matmul_8bit", matmul.matmul_8bit, x),
                                 ("matmul_8bit_t", matmul.matmul_8bit_t, g)):
-                if name == "matmul_8bit_t" and m == 8:
+                if name == "matmul_8bit_t" and m != M_TRAIN:
                     continue  # the backward runs at the training M only
 
                 def run(use_kernel, ws, fn=fn, a=a, cb=qt.codebook):
                     return lambda i: fn(a, *ws[i % len(ws)], codebook=cb, block=64,
                                         use_kernel=use_kernel)
-                out = run(True, [(qt.codes, qt.scale)])(0)
-                ref = run(False, [(qt.codes, qt.scale)])(0)
+                out = run(True, [(codes, scales)])(0)
+                ref = run(False, [(codes, scales)])(0)
                 err = (out.float() - ref.float()).abs().max().item()
                 rel = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-5
                 tol = rel * ref.float().abs().max().item()
@@ -1111,11 +1138,17 @@ def eight_bit_checks(dev, work):
                       f"{name} {fmt} {dtype} M={m} K={k} N={n}: bad output")
                 check(err <= tol, f"{name} {fmt} {dtype} M={m} K={k} N={n}: err {err} > {tol}")
                 max_err[name] = max(max_err[name], err)
-                ws = copies_past_l2(qt.codes, qt.scale)
-                iters = 50 if m == 8 else 10
+                ws = copies_past_l2(codes, scales)
+                iters = 50 if m <= 64 else 10
                 row = dict(kernel=name, fmt=fmt, dtype=str(dtype), M=m, K=k, N=n,
                            max_abs_err=err, tol=tol, us=time_ms(run(True, ws), iters) * 1e3)
-                if fmt == "int8" and dtype == torch.bfloat16:
+                if name == "matmul_8bit" and design is not None:
+                    same = torch.equal(out, run(True, [(codes, scales)])(0))
+                    check(same, f"matmul_8bit {fmt} M={m} K={k} N={n}: two calls differ")
+                    row.update(bit_identical_over_two_calls=same, design=design)
+                    if fmt == "int8":
+                        per_call[f"M{m}_{k}x{n}"] = row["us"]
+                if fmt == "int8" and dtype == torch.bfloat16 and (name, m) in step:
                     wd = matmul._dequant_8bit(qt.codes, qt.scale, None, 64, torch.bfloat16)[:k]
                     dense = [d.T.contiguous() if name == "matmul_8bit_t" else d
                              for (d,) in copies_past_l2(wd)]
@@ -1128,10 +1161,10 @@ def eight_bit_checks(dev, work):
                     if m == 8 or name == "matmul_8bit_t":
                         add_work(work, name, nbytes(a, qt.codes, qt.scale, out),
                                  2 * m * k * n, n_calls)
-                if m == M_TRAIN:
+                if m >= 256:
                     row["tflops"] = 2 * m * k * n / (row["us"] * 1e-6) / 1e12
                 emit(kernel_check=row)
-    return step, max_err
+    return step, {key: per_call[key] for key in EARLIER_MM8_US}, max_err
 
 
 def _ptq_tree():
@@ -1382,7 +1415,7 @@ def main():
         long_rows(cfg, dense)
 
     with timed("14 8-bit kernel checks"):
-        eight_step, eight_err = eight_bit_checks(dev, work)
+        eight_step, eight_per_call, eight_err = eight_bit_checks(dev, work)
         max_err.update(eight_err)
     train_ids, eval_ids = accuracy_bench.corpus_ids()
     with timed("15 ptq path"):
@@ -1414,10 +1447,13 @@ def main():
                 "heads, hd 64, bf16), ms; library: ")
     sdpa = "SDPA (is_causal, enable_gqa) "
     bwd_pair_ms = flash_ms["flash_bwd_dq_ms"] + flash_ms["flash_bwd_dkv_ms"]
-    emit(flash_bwd_earlier=dict(
-        note="PERF.md's times of the earlier wmma design at the same shape, not measured in "
-             "this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},
-        measured_ms={name: flash_ms[f"{name}_ms"] for name in EARLIER_MS}))
+    measured = {name: flash_ms[f"{name}_ms"] for name in FLASH_KERNELS}
+    measured["matmul_8bit"] = eight_step[("matmul_8bit", 8)][0]
+    emit(earlier_times=dict(
+        note="PERF.md's times of the designs before the Hopper redesigns, at the same work, "
+             "not measured in this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},
+        matmul_8bit_per_call_us=EARLIER_MM8_US, measured_ms=measured,
+        measured_matmul_8bit_per_call_us=eight_per_call))
     emit(kernels=[
         entry("matmul_4bit", "matmul_4bit.cu", "quanta_tpu/ops/matmul.py:204",
               launches["matmul_4bit"], *per_step["matmul_4bit"], "bf16", at),

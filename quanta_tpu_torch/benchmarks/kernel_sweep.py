@@ -1,0 +1,118 @@
+"""Time the bf16 ``flash_fwd`` and ``matmul_8bit`` kernels across shapes.
+
+    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8]
+
+To try a design choice of ``csrc/flash_fwd.cu`` or ``csrc/matmul_8bit.cu``
+(warpgroups, ring stages, the decode/prefill split, the prefill tile), edit
+its constant, which rebuilds the library, and run this again. One JSON
+object per line:
+
+- ``flash``: the forward (``save_lse=True``, the training call) at
+  TinyLlama-1.1B's (B=2, S=T=1024, 32/4 heads, hd 64) and Llama-2-7B's
+  (B=1, S=T=1024, 32 heads, hd 128) shapes, beside SDPA's forward on the
+  same inputs;
+- ``mm8``: ``matmul_8bit`` (int8 codes, bf16 x) at the five TinyLlama
+  (K, N) for M in {8, 16, 32, 64, 256, 1024, 2048}, with the design each
+  takes; weights rotated past the 50 MB L2 as ``chip_smoke.py`` times them.
+
+Times are CUDA events around back-to-back calls while the device first
+spins, so the host's Python between calls is not timed. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import math
+import subprocess
+
+import torch
+
+from quanta_tpu_torch.core import codecs
+from quanta_tpu_torch.ops import attention, matmul
+
+FLASH_SHAPES = {"tinyllama_s1024": (2, 1024, 32, 4, 64), "llama2_7b_s1024": (1, 1024, 32, 32, 128)}
+MM8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
+MM8_MS = (8, 16, 32, 64, 256, 1024, 2048)
+L2_BYTES = 50 * 2**20
+
+
+def time_ms(fn, iters):
+    """Mean device ms of one call of ``fn(i)`` over ``iters`` calls."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10**8)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def emit(**obj):
+    print(json.dumps(obj), flush=True)
+
+
+def flash_rows(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True,
+                             enable_gqa=True)
+    for name, (b, s, nh, nkv, hd) in FLASH_SHAPES.items():
+        q = torch.randn((b, s, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, s, nkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        ref, _ = attention.flash_forward_reference(q, k, v, pos, pos + s)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        with torch.no_grad():
+            sdpa_ms = time_ms(lambda i: sdpa(qt, kt, vt), 50)
+        out, _ = attention.flash_forward(q, k, v, pos, pos + s, save_lse=True)
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = time_ms(lambda i: attention.flash_forward(q, k, v, pos, pos + s, save_lse=True), 50)
+        emit(sweep="flash_fwd", shape=name, ms=ms, sdpa_ms=sdpa_ms, max_abs_err=err,
+             design=attention.flash_fwd_design(b, s, nh, hd))
+
+
+def mm8_rows(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for k, n in MM8_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        qt = codecs.quantize_matmul_weight(w, fmt="int8", block_size=64)
+        copies = max(1, min(64, math.ceil(2 * L2_BYTES / (qt.codes.numel() + 4 * qt.scale.numel()))))
+        ws = [(qt.codes.clone(), qt.scale.clone()) for _ in range(copies)]
+        for m in MM8_MS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            ref = matmul.matmul_8bit(x, qt.codes, qt.scale, codebook=None, use_kernel=False)
+            out = matmul.matmul_8bit(x, qt.codes, qt.scale, codebook=None)
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = time_ms(lambda i: matmul.matmul_8bit(x, *ws[i % len(ws)], codebook=None),
+                         50 if m <= 64 else 10)
+            tol = 2 * 2.0 ** -7 * ref.float().abs().max().item()
+            emit(sweep="matmul_8bit", M=m, K=k, N=n, us=ms * 1e3,
+                 tflops=2 * m * k * n / (ms * 1e-3) / 1e12, max_abs_err=err, tol=tol,
+                 ok=err <= tol, design=matmul.matmul_8bit_design(m, n, k))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--what", nargs="+", choices=("flash", "mm8"), default=["flash", "mm8"])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_sweep: needs a CUDA device")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(card=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip())
+    if "flash" in args.what:
+        flash_rows(dev)
+    if "mm8" in args.what:
+        mm8_rows(dev)
+
+
+if __name__ == "__main__":
+    main()

@@ -273,13 +273,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 using bf16 = __nv_bfloat16;
 constexpr int STAGES = 2;  // the cp.async ring of streamed tiles (3 measured no faster)
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Dynamic shared memory: the tiles start at the first 1024-byte boundary
-// (the swizzle acts on address bits), so each kernel asks for 1 KB more.
-__device__ __forceinline__ uint32_t aligned_base(unsigned char* smem) {
-  return (smem_addr(smem) + 1023u) & ~1023u;
-}
 
 template <int HD> struct DqSmem {  // Q, dO, then STAGES x (K, V)
   static constexpr size_t bytes = (2 + 2 * STAGES) * Tile<HD>::BYTES + 1024;
@@ -581,26 +574,6 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
-// Blocks of one kernel resident on an SM (registers, shared memory).
-template <typename Kernel> int blocks_per_sm(Kernel kernel, size_t smem) {
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-      cudaSuccess)
-    return 1;
-  int n = 1;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS, smem);
-  return n > 0 ? n : 1;
-}
-
 // The dK/dV launch: grid (C, nkv * B, key tiles), clusters of C blocks.
 struct DkvGrid {
   dim3 grid;
@@ -613,29 +586,6 @@ DkvGrid dkv_grid(int B, int Sq, int Tk, int nh, int nkv) {
   int c = 1;
   while (c < 8 && c < max_pairs && (int64_t)base * c < 2LL * sm_count()) c *= 2;
   return {dim3(c, nkv * B, key_tiles), c};
-}
-
-template <typename Kernel, typename... Args>
-int launch_cluster(Kernel kernel, dim3 grid, int cluster, size_t smem, void* stream,
-                   Args... args) {
-  cudaError_t rc =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc != cudaSuccess) return (int)rc;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  rc = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (rc != cudaSuccess) return (int)rc;
-  return (int)cudaGetLastError();
 }
 
 template <int HD>
@@ -654,9 +604,9 @@ int launch_bwd_sm90(bool dkv, const void* q, const void* k, const void* v, const
   auto* o0 = static_cast<float*>(d0);
   if (dkv) {
     const DkvGrid lg = dkv_grid(B, Sq, Tk, nh, nkv);
-    return launch_cluster(flash_bwd_dkv_sm90<HD>, lg.grid, lg.cluster, DkvSmem<HD>::bytes,
-                          stream, qp, kp, vp, dop, lp, dp, qsp, klp, o0, static_cast<float*>(d1),
-                          Sq, Tk, nh, nkv, causal, scale);
+    return launch_cluster(flash_bwd_dkv_sm90<HD>, lg.grid, lg.cluster, THREADS,
+                          DkvSmem<HD>::bytes, stream, qp, kp, vp, dop, lp, dp, qsp, klp, o0,
+                          static_cast<float*>(d1), Sq, Tk, nh, nkv, causal, scale);
   }
   return launch(flash_bwd_dq_sm90<HD>, dim3(nh, B, (Sq + TILE - 1) / TILE), DqSmem<HD>::bytes,
                 stream, qp, kp, vp, dop, lp, dp, qsp, klp, o0, Sq, Tk, nh, nkv, causal, scale);
@@ -725,12 +675,12 @@ template <int HD> int design(bool dkv, int B, int Sq, int Tk, int nh, int nkv, i
     grid = lg.grid;
     cluster = lg.cluster;
     smem = DkvSmem<HD>::bytes;
-    resident = blocks_per_sm(flash_bwd_dkv_sm90<HD>, smem);
+    resident = blocks_per_sm(flash_bwd_dkv_sm90<HD>, smem, THREADS);
     rc = cudaFuncGetAttributes(&attr, flash_bwd_dkv_sm90<HD>);
   } else {
     grid = dim3(nh, B, (Sq + TILE - 1) / TILE);
     smem = DqSmem<HD>::bytes;
-    resident = blocks_per_sm(flash_bwd_dq_sm90<HD>, smem);
+    resident = blocks_per_sm(flash_bwd_dq_sm90<HD>, smem, THREADS);
     rc = cudaFuncGetAttributes(&attr, flash_bwd_dq_sm90<HD>);
   }
   const int vals[10] = {(int)grid.x, (int)grid.y, (int)grid.z, cluster, resident,

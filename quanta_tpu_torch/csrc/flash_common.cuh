@@ -6,40 +6,38 @@
 // shared memory (rows past the end read as zeros) and each of its 4 warps
 // owns 16 rows of every product it computes.
 //
-// WarpAcc<T, N> is one warp's 16 x N f32 accumulator with the one product
-// the kernels need, acc += A (16 x K) * B (K x N), A and B in shared memory
-// in either layout. For bf16 operands it is wmma 16x16x16 fragments (tensor
-// cores, f32 sums); for f32 operands plain FMAs on the CUDA cores (no TF32),
-// lane l holding row l / 2 at columns 2c + l % 2. The elementwise work of a
-// kernel (masks, softmax, ds) goes through shared memory, where both
-// variants lay rows out alike.
+// WarpAcc<float, N> is one warp's 16 x N f32 accumulator for the f32
+// kernels, with the one product they need, acc += A (16 x K) * B (K x N), A
+// and B in shared memory in either layout: plain FMAs on the CUDA cores (no
+// TF32), lane l holding row l / 2 at columns 2c + l % 2. Their elementwise
+// work (masks, softmax, ds) goes through shared memory. The bf16 kernels are
+// built from sm90.cuh.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int TILE = 64;             // query rows and keys per tile
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int WROWS = TILE / WARPS;  // rows each warp owns
 constexpr float kDeadLse = 1e30f;    // lse of a row with no live key: exp(s - lse) == 0
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float v) {
-  return __float2bfloat16_rn(v);
+// 2^x on the SFU (ex2.approx.ftz: ~2 ulp, denormals flushed; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
-template <> __device__ __forceinline__ float from_f32(float v) { return v; }
 
 // Row padding of the shared tiles: 16 bytes keeps rows 16-byte aligned
-// (wmma wants ld a multiple of 16 bytes) and spreads rows over the banks.
+// (16-byte loads) and spreads rows over the banks.
 template <typename T> constexpr int kPad = 16 / sizeof(T);
 constexpr int kAccLd(int n) { return n + 4; }  // f32 tiles
 
@@ -50,45 +48,7 @@ template <typename L> __device__ __forceinline__ int at(int r, int c, int ld);
 template <> __device__ __forceinline__ int at<RowMajor>(int r, int c, int ld) { return r * ld + c; }
 template <> __device__ __forceinline__ int at<ColMajor>(int r, int c, int ld) { return c * ld + r; }
 
-template <typename L> struct WmmaLayout;
-template <> struct WmmaLayout<RowMajor> { using type = wmma::row_major; };
-template <> struct WmmaLayout<ColMajor> { using type = wmma::col_major; };
-
 template <typename T, int N> struct WarpAcc;
-
-template <int N> struct WarpAcc<__nv_bfloat16, N> {
-  using T = __nv_bfloat16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[N / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j) wmma::fill_fragment(f[j], 0.0f);
-  }
-  __device__ __forceinline__ void store(float* dst, int ld) const {
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j)
-      wmma::store_matrix_sync(dst + 16 * j, f[j], ld, wmma::mem_row_major);
-  }
-  __device__ __forceinline__ void load(const float* src, int ld) {
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j)
-      wmma::load_matrix_sync(f[j], src + 16 * j, ld, wmma::mem_row_major);
-  }
-  template <typename LA, typename LB, int K>
-  __device__ __forceinline__ void mma(const T* A, int lda, const T* B, int ldb) {
-#pragma unroll
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, typename WmmaLayout<LA>::type> a;
-      wmma::load_matrix_sync(a, A + at<LA>(0, k, lda), lda);
-#pragma unroll
-      for (int j = 0; j < N / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, typename WmmaLayout<LB>::type> b;
-        wmma::load_matrix_sync(b, B + at<LB>(k, 16 * j, ldb), ldb);
-        wmma::mma_sync(f[j], a, b, f[j]);
-      }
-    }
-  }
-};
 
 template <int N> struct WarpAcc<float, N> {
   float v[N / 2];  // row lane / 2, columns 2c + lane % 2
@@ -150,14 +110,19 @@ __device__ __forceinline__ int live_kv_end(int q_start, int q0, int Sq, int kv_l
   return causal ? min(kv_len, q_start + min(q0 + TILE, Sq)) : kv_len;
 }
 
-// Set the dynamic shared memory a kernel may take, then launch it.
+// Set the dynamic shared memory a kernel may take, then launch it (blocks
+// of THREADS, or of `threads`).
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+int launch_n(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream, Args... args) {
   cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return (int)rc;
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return (int)cudaGetLastError();
+}
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+  return launch_n(kernel, grid, THREADS, smem, stream, args...);
 }
 
 }  // namespace

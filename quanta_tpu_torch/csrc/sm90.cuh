@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: warpgroup
 // matrix multiplies (wgmma) as inline PTX, shared-memory matrix descriptors
-// for swizzled 64-row bf16 tiles, and cp.async copies into those tiles.
+// for swizzled 64-row bf16 tiles, cp.async copies into those tiles, and the
+// host side of a launch (SMs, blocks resident, clusters).
 //
 // A warpgroup is 4 warps (128 threads) that issue one asynchronous product
 // of a 64-row tile together. The f32 accumulator of an m64nN product is
@@ -21,14 +22,68 @@
 // aligned. One tile serves two ways: as a K-major operand, where its rows
 // are M or N and head_dim is K (scores q . k), and as an MN-major B
 // operand, where its rows are K and head_dim is N (p^T dO, ds q, ds k).
-// Each has its own descriptor over the same bytes.
+// Each has its own descriptor over the same bytes. The 8-bit matmul
+// (dequant8_sm90.cuh) writes dequantized weights into a Tile<128> with rows
+// = K and columns = N, its MN-major B, and stages x as a K-major Tile<64>.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ------------------------------------------------------------ launches
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// Blocks of one kernel resident on an SM (registers, shared memory).
+template <typename Kernel> int blocks_per_sm(Kernel kernel, size_t smem, int threads) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+      cudaSuccess)
+    return 1;
+  int n = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return n > 0 ? n : 1;
+}
+
+// Launch with clusters of `cluster` blocks along x (1: no split), after
+// setting the dynamic shared memory the kernel may take.
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, dim3 grid, int cluster, int threads, size_t smem, void* stream,
+                   Args... args) {
+  cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (rc != cudaSuccess) return (int)rc;
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory: the tiles start at the first 1024-byte boundary
+// (the swizzle acts on address bits), so each kernel asks for 1 KB more.
+__device__ __forceinline__ uint32_t aligned_base(unsigned char* smem);
 
 // ------------------------------------------------------------ wgmma sync
 
@@ -57,6 +112,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t aligned_base(unsigned char* smem) {
+  return (smem_addr(smem) + 1023u) & ~1023u;
 }
 // 16 bytes global -> shared; zeros where `src_bytes` is 0
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
@@ -117,7 +175,13 @@ template <int HD> struct Tile {
   // heads * HD; rows at or past `rows` read as zeros
   static __device__ __forceinline__ void load(uint32_t dst, const __nv_bfloat16* src,
                                               int64_t row_stride, int r0, int rows) {
-    for (int i = threadIdx.x; i < ROWS * CHUNKS; i += 128) {
+    load_part(dst, src, row_stride, r0, rows, threadIdx.x, 128);
+  }
+  // the same, by `nt` threads, this one being thread `tid` of them
+  static __device__ __forceinline__ void load_part(uint32_t dst, const __nv_bfloat16* src,
+                                                   int64_t row_stride, int r0, int rows, int tid,
+                                                   int nt) {
+    for (int i = tid; i < ROWS * CHUNKS; i += nt) {
       const int r = i / CHUNKS, c = i % CHUNKS;
       const bool in = r0 + r < rows;
       cp_async16(dst + offset(r, c), in ? src + (int64_t)(r0 + r) * row_stride + c * 8 : src,
@@ -147,6 +211,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
                                             uint64_t b);
+// d (m64 x N, f32) (+)= A (smem, K-major) * B (smem, MN-major), k16, bf16
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                            int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<128>(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {

@@ -73,6 +73,10 @@ _SIGNATURES = {
     "qt_flash_bwd_dkv_f32": [_P] * 10 + [_I] * 7 + [_F, _P],
     # dkv (0: dQ, 1: dK/dV), hd, B, Sq, T, nh, nkv, out (int[10])
     "qt_flash_bwd_design": [_I] * 7 + [_P],
+    # hd, B, Sq, nh, out (int[10])
+    "qt_flash_fwd_design": [_I] * 4 + [_P],
+    # M, N, K, out (int[11])
+    "qt_matmul_8bit_design": [_I] * 3 + [_P],
 }
 
 launches: dict[str, int] = {"matmul_4bit": 0, "matmul_4bit_t": 0, "matmul_8bit": 0,

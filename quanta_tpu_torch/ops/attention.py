@@ -5,10 +5,13 @@ Port of ``quanta_tpu/ops/attention.py``. The kernels are
 ``csrc/flash_fwd.cu`` (the Pallas ``_flash_kernel``) and
 ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel``); each source says what bounds it on the H100
-and how it is laid out. The bf16 backward kernels are built for Hopper
-(warpgroup products, cp.async tile rings, dK/dV split over thread-block
-clusters; ``csrc/sm90.cuh``) and are deterministic: two calls give the
-same bits. :func:`flash_bwd_design` reports how they launch.
+and how it is laid out. The bf16 kernels are built for Hopper (warpgroup
+products with the scores kept in registers, cp.async tile rings;
+``csrc/sm90.cuh``): the forward's blocks share each staged K/V tile
+between two 64-row query tiles, the backward splits dK/dV over
+thread-block clusters. All three are deterministic: two calls give the
+same bits. :func:`flash_fwd_design` and :func:`flash_bwd_design` report
+how they launch.
 
 Layouts are the JAX package's: q ``(B, Sq, nh, hd)``, k and v ``(B, T,
 nkv, hd)`` with ``nh % nkv == 0`` (query head h reads KV head ``h // (nh /
@@ -214,6 +217,19 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_start, kv_len, *, causal=True, use_
 
 _DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "cluster", "blocks_per_sm", "registers",
                 "shared_bytes", "spill_bytes", "sms", "stages")
+_FWD_DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "warpgroups", "blocks_per_sm", "registers",
+                    "shared_bytes", "spill_bytes", "sms", "stages")
+
+
+def flash_fwd_design(b, sq, nh, hd):
+    """How the bf16 forward kernel launches at this shape on this card: its
+    grid, consumer warpgroups a block (64 query rows each), blocks resident
+    per SM, registers a thread, dynamic shared bytes a block and spill
+    bytes a thread (from ``cudaFuncGetAttributes``), the SMs, and the
+    stages of its K/V ring."""
+    out = (ctypes.c_int * len(_FWD_DESIGN_KEYS))()
+    _build.check(_build.library().qt_flash_fwd_design(hd, b, sq, nh, out), "flash_fwd")
+    return dict(zip(_FWD_DESIGN_KEYS, out))
 
 
 def flash_bwd_design(name, b, sq, t, nh, nkv, hd):

@@ -7,7 +7,9 @@ Port of ``quanta_tpu/ops/matmul.py``: ``matmul_4bit``, ``matmul_4bit_t``,
 (the Pallas ``_mm4_kernel``), ``csrc/matmul_4bit_t.cu`` (``_mm4t_kernel``),
 ``csrc/matmul_8bit.cu`` (``_mm8_kernel``) and ``csrc/matmul_8bit_t.cu``
 (``_mm8t_kernel``); each source says what bounds it on the H100 and how it
-is laid out.
+is laid out. The bf16 ``matmul_8bit`` kernel has two Hopper designs, picked
+by M inside the one entry point (split-K ``mma.sync`` for decode, wgmma
+tiles above); :func:`matmul_8bit_design` reports which one a shape takes.
 
 Layouts (``core.codecs.quantize_matmul_weight``): scales ``(K_pad/block,
 N_pad)`` f32; 4-bit codes ``(K_pad/2, N_pad)`` uint8 split_k-packed, 8-bit
@@ -30,6 +32,7 @@ rather than return a tensor that carries no gradient.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -328,6 +331,25 @@ def matmul_8bit(
         _build.check(rc, "matmul_8bit")
         _build.launches["matmul_8bit"] += 1
     return out if out_dtype in (None, x.dtype) else out.to(out_dtype)
+
+
+_MM8_DESIGN_KEYS = ("design", "grid_x", "grid_y", "grid_z", "split", "blocks_per_sm",
+                    "registers", "shared_bytes", "spill_bytes", "stages", "rows")
+
+
+def matmul_8bit_design(m, n, k):
+    """How the bf16 ``matmul_8bit`` kernel launches for x (m, k) and codes
+    (k, n) on this card: ``design`` "decode" (split K, mma.sync, memory
+    bound) or "prefill" (wgmma tiles of 128 or 256 rows), its grid, the K
+    split (the cluster size), blocks resident per SM, registers a thread,
+    dynamic shared bytes and spill bytes a thread
+    (``cudaFuncGetAttributes``), the stages of its cp.async ring and the
+    rows of x a block takes."""
+    out = (ctypes.c_int * len(_MM8_DESIGN_KEYS))()
+    _build.check(_build.library().qt_matmul_8bit_design(m, n, k, out), "matmul_8bit")
+    res = dict(zip(_MM8_DESIGN_KEYS, out))
+    res["design"] = ("decode", "prefill")[res["design"]]
+    return res
 
 
 def matmul_8bit_t_reference(

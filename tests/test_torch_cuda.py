@@ -20,7 +20,8 @@ the output and 1e-4 for gradients; the backward kernels are deterministic,
 two calls give the same bits. ``matmul_8bit`` and ``matmul_8bit_t``
 read the same 256-entry level table as their plain versions and differ
 only in f32 summation order: bf16 within 2 bf16 ulps of max|plain|, f32
-within 1e-5 of it.
+within 1e-5 of it; the bf16 ``matmul_8bit`` sums its split-K partials in a
+fixed order, so two calls give the same bits too.
 """
 
 import numpy as np
@@ -642,3 +643,109 @@ def test_tiny_model_ptq_tree_kernel_path_matches_plain(cuda):
     pk = teval.perplexity(params, flat, cfg, seq_len=32, batch=2)
     pp = teval.perplexity(params, flat, cfg, seq_len=32, batch=2, use_kernel=False)
     assert abs(pk - pp) <= 1e-3 * pp
+
+
+# The bf16 kernel's two designs, picked by M (csrc/matmul_8bit.cu): split-K
+# mma.sync for decode M (kernels of 8, 16 and 32 rows), 128 x 128 wgmma tiles
+# above. M runs across the split; N = 200 is ragged (no 16-byte code loads
+# at the edge).
+MM8_MS = [1, 8, 16, 20, 32, 33, 64, 65, 256, 2048]
+
+
+def _mm8_operands(cuda, fmt, m, k, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    tq = tcore.quantize_matmul_weight(torch.randn((k, n), generator=g, device=cuda), fmt=fmt,
+                                      block_size=32)
+    # the quantizer pads K and N: cut them back (k is a multiple of the block)
+    codes, scales = tq.codes[:k, :n].contiguous(), tq.scale[:k // 32, :n].contiguous()
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    return x, codes, scales, tq.codebook
+
+
+@pytest.mark.parametrize("fmt", EIGHT_BIT)
+@pytest.mark.parametrize("m", MM8_MS)
+def test_matmul_8bit_designs_match_plain(cuda, fmt, m):
+    x, codes, scales, cb = _mm8_operands(cuda, fmt, m, 1024, 200, seed=m)
+    out = tmm.matmul_8bit(x, codes, scales, codebook=cb, block=32)
+    ref = tmm.matmul_8bit(x, codes, scales, codebook=cb, block=32, use_kernel=False)
+    assert out.shape == ref.shape == (m, 200)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
+
+
+def test_matmul_8bit_ms_cover_both_designs(cuda):
+    designs = [tmm.matmul_8bit_design(m, 200, 1024)["design"] for m in MM8_MS]
+    assert designs[0] == "decode" and designs[-1] == "prefill"
+    assert designs == sorted(designs)  # decode below the split, prefill above
+
+
+@pytest.mark.parametrize("m", [8, 16, 32, 64, 2048])
+def test_matmul_8bit_split_fits_one_wave(cuda, m):
+    """A K split never asks for more blocks than the card holds at once: the
+    split counts the blocks an SM holds of the kernel that runs (the decode
+    kernels of 16 and 32 rows hold fewer than that of 8)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k, n in [(2048, 256), (5632, 2048), (2048, 2048)]:
+        d = tmm.matmul_8bit_design(m, n, k)
+        if d["split"] > 1:
+            assert d["grid_x"] * d["grid_y"] * d["grid_z"] <= d["blocks_per_sm"] * sms
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 256), (8, 5632, 2048), (2048, 2048, 256)])
+def test_matmul_8bit_bit_identical_over_two_calls(cuda, m, k, n):
+    """The split-K partials are summed in a fixed order: no atomics."""
+    x, codes, scales, cb = _mm8_operands(cuda, "int8", m, k, n, seed=3)
+    assert tmm.matmul_8bit_design(m, n, k)["split"] > 1
+    first = tmm.matmul_8bit(x, codes, scales, codebook=cb, block=32)
+    assert torch.equal(first, tmm.matmul_8bit(x, codes, scales, codebook=cb, block=32))
+
+
+# (m, k, n): decode with 50 slices of 16 rows over a split of 4 (13, 13,
+# 13, 11 slices; 4, 3, 3, 3 a warp), and prefill with 37 steps of 64 rows
+# over a split of 8 (5 each, 2 on the last rank)
+SPLIT8_CASES = [(8, 800, 128), (256, 2368, 256)]
+
+
+@pytest.mark.parametrize("m,k,n", SPLIT8_CASES)
+def test_matmul_8bit_split_covers_every_k_block(cuda, m, k, n):
+    """Each split takes a contiguous run of K that no split size divides
+    evenly here; a K block missed or summed twice would move the output by
+    far more than the 2 bf16 ulps of max|plain| allowed (the kernel and the
+    plain version multiply the same bf16 weights)."""
+    design = tmm.matmul_8bit_design(m, n, k)
+    assert design["split"] > 1
+    if torch.cuda.get_device_properties(cuda).multi_processor_count == 132:
+        assert design["split"] == (4 if m == 8 else 8)
+    for fmt in EIGHT_BIT:
+        x, codes, scales, cb = _mm8_operands(cuda, fmt, m, k, n, seed=k)
+        out = tmm.matmul_8bit(x, codes, scales, codebook=cb, block=32)
+        ref = tmm.matmul_8bit(x, codes, scales, codebook=cb, block=32, use_kernel=False)
+        assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_fwd_without_lse_and_deterministic(cuda, hd):
+    """save_lse=False (the prefill's call) writes the same output bits as
+    with the lse, and two calls agree bit for bit."""
+    q, k, v, _ = _flash_inputs(cuda, 2, 300, 330, 8, 2, hd, torch.bfloat16, seed=4)
+    qs = torch.tensor([0, 30], dtype=torch.int32, device=cuda)
+    kl = torch.tensor([300, 330], dtype=torch.int32, device=cuda)
+    out, lse = tattn.flash_forward(q, k, v, qs, kl, save_lse=True)
+    again, none = tattn.flash_forward(q, k, v, qs, kl)
+    assert none is None and lse is not None and torch.equal(out, again)
+    ref, _ = tattn.flash_forward_reference(q, k, v, qs, kl)
+    assert (out.float() - ref.float()).abs().max().item() <= 2 * 2.0 ** -7 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("m", [5, 40])
+def test_matmul_8bit_block_off_the_slices(cuda, m):
+    """A block of 24 rows (K = 96): no 16-row slice (decode, M = 5) or 64-row
+    step (prefill, M = 40) keeps one scale row, so both designs read each
+    K row's scales on their own."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    codes = torch.randint(0, 256, (96, 72), generator=g, device=cuda, dtype=torch.uint8)
+    scales = torch.rand((96 // 24, 72), generator=g, device=cuda) * 0.01
+    x = torch.randn((m, 96), generator=g, device=cuda).to(torch.bfloat16)
+    assert tmm.matmul_8bit_design(m, 72, 96)["design"] == ("decode" if m == 5 else "prefill")
+    out = tmm.matmul_8bit(x, codes, scales, block=24)
+    ref = tmm.matmul_8bit(x, codes, scales, block=24, use_kernel=False)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
