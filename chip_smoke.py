@@ -9,10 +9,16 @@ and the script exits non-zero (nothing is caught):
   1. the card (``nvidia-smi`` name and power limit, printed raw as well);
   2. the build of ``quanta_tpu_torch/csrc/*.cu`` with nvcc (seconds, .so);
   3. each CUDA kernel against its plain PyTorch version at the main path's
-     shapes, M in {8, 1024}: ``matmul_4bit`` (nf4a, nf4) within 2 bf16
-     ulps of max|plain|, ``matmul_int4c`` bit for bit; kernel and plain
-     times from CUDA events, weights rotated through more than the 50 MB
-     L2 so decode shapes stream from device memory as they do in a model;
+     shapes: ``matmul_4bit`` at M in {8, 16, 32, 64, 256, 2048} (both
+     sides of its decode/prefill split; 2048 is a QLoRA forward) and at a
+     ragged M = 77, N = 200, in nf4a, nf4, int4 and fp4, within 2 bf16
+     ulps of max|plain|, its output bit-identical over two calls, with its
+     design (``matmul_4bit_design``) on each row; ``matmul_int4c`` at M in
+     {8, 1024} bit for bit; kernel times from CUDA events, weights rotated
+     through more than the 50 MB L2 so decode shapes stream from device
+     memory as they do in a model, and for a decode step (nf4a, M = 8) and
+     a QLoRA forward (nf4, M = 2048) the plain version's and a dense
+     control's (cuBLAS ``torch.matmul`` of the dequantized bf16 weight);
   4. the LLM.int8 kernels (``matmul_int8_fused``, ``matmul_int8``) at the
      five TinyLlama (K, N) for M in {8, 256} (a decode step of 8 slots,
      the largest prefill bucket), f32 x, the quantizer's outlier set, and
@@ -100,8 +106,10 @@ and the script exits non-zero (nothing is caught):
      max|plain|) and at one shape in f32 (within 1e-5 of it, TF32 off);
      ``matmul_8bit`` also at M in {64, 256, 1024} on two shapes (both
      sides of its decode/prefill split) and at a ragged M = 77, N = 200,
-     its bf16 output bit-identical over two calls, with its design
-     (``matmul_8bit_design``) on each row;
+     ``matmul_8bit_t`` also at M in {64, 256} on those two shapes, both at
+     a ragged M = 77, N = 200, their bf16 outputs bit-identical over two
+     calls, with ``matmul_8bit``'s design (``matmul_8bit_design``) on each
+     row;
      kernel times for every format, and for int8 the plain versions' and
      a dense control's (cuBLAS ``torch.matmul`` of the dequantized bf16
      weight: no single PyTorch call dequantizes blockwise 8-bit codes
@@ -225,15 +233,19 @@ FLASH_CASES = [(name, torch.bfloat16) for name in FLASH_SHAPES] + [("cached_pref
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the times of the redesigned kernels before their Hopper redesigns, as
 # PERF.md's kernel table records them: the first port's flash kernels at
-# TinyLlama's shape (wmma through shared memory, no cp.async), its
-# matmul_8bit (64x64 wmma tiles, no split-K, no pipeline) a decode step's
-# 155 int8 calls at M=8, and per call at M=8
-# on (2048, 5632) and w_down (5632, 2048) and at M=2048 on (2048, 5632).
-# Printed on a line of their own, apart from the kernels line's measured
-# times.
+# TinyLlama's shape (wmma through shared memory, no cp.async); its
+# matmul_8bit and matmul_4bit (64x64 wmma tiles, no split-K, no pipeline)
+# a decode step's 155 calls at M=8 (int8, nf4a); its matmul_8bit_t a QLoRA
+# backward's 152 int8 calls at M=2048; and per call (µs) at the shapes
+# named. Printed on a line of their own, apart from the kernels line's
+# measured times.
 EARLIER_MS = {"flash_bwd_dq": 0.2697, "flash_bwd_dkv": 0.7539, "flash_fwd": 0.1999,
-              "matmul_8bit": 23.588}
-EARLIER_MM8_US = {"M8_2048x5632": 120.4, "M8_5632x2048": 361.4, "M2048_2048x5632": 784.4}
+              "matmul_8bit": 23.588, "matmul_4bit": 20.954, "matmul_8bit_t": 79.827}
+EARLIER_US = {
+    "matmul_8bit": {"M8_2048x5632": 120.4, "M8_5632x2048": 361.4, "M2048_2048x5632": 784.4},
+    "matmul_4bit": {"M8_2048x5632": 105.3},
+    "matmul_8bit_t": {"M2048_2048x5632": 894.2},
+}
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
 CROSSOVER_SEQS = (256, 512, 1024, 2048)  # long_prefill's S; 2048 is the reference's row
@@ -256,6 +268,13 @@ F32_SHAPE = (2048, 5632, M_TRAIN)
 # w_down shapes; and a ragged case (M and N off the tiles)
 MM8_MID_MS, MM8_MID_SHAPES = (16, 32, 64, 256, 1024), ((2048, 2048), (5632, 2048))
 MM8_RAGGED = (2048, 200, 77)
+MM8T_MID_MS = (64, 256)  # matmul_8bit_t: one and two of its 128-row tiles
+# matmul_4bit: the 16-entry codebooks of the path; M from decode (8 slots)
+# across its decode/prefill split to a QLoRA forward (batch 4 x seq 512);
+# a ragged case (M and N off the tiles)
+FOUR_BIT = ("nf4a", "nf4", "int4", "fp4")
+MM4_MS = (8, 16, 32, 64, 256, M_TRAIN)
+MM4_RAGGED = (2048, 200, 77)
 CALIB_BATCHES, CALIB_SEQ = 8, 256
 PPL_TOKENS, PPL_SEQ, PPL_BATCH = 32768, 256, 8
 PTQ_PPL_REL = 1e-2
@@ -331,40 +350,76 @@ def copies_past_l2(*tensors):
 
 
 def kernel_checks(dev, work):
+    """matmul_4bit against its plain version at the five TinyLlama (K, N)
+    for M in ``MM4_MS`` (both sides of its decode/prefill split) and at
+    ``MM4_RAGGED``, every 16-entry codebook, within 2 bf16 ulps of
+    max|plain|, bit-identical over two calls, its design per row; and
+    matmul_int4c bit for bit at M in {8, 1024}. µs per call with the
+    weights rotated past the L2. Returns ms of one decode step's calls
+    (M=8; nf4a for matmul_4bit) as [kernel, plain], for matmul_4bit also
+    the dense control (cuBLAS ``torch.matmul`` of the dequantized bf16
+    weights) and the same three for one QLoRA forward's calls (M=2048,
+    nf4); the matmul_4bit µs that ``EARLIER_US`` names; the largest
+    errors."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows, per_step = [], {"matmul_4bit": [0.0, 0.0], "matmul_int4c": [0.0, 0.0]}
+    per_step = {"matmul_4bit": [0.0] * 3, "matmul_int4c": [0.0, 0.0],
+                "matmul_4bit_qlora_forward": [0.0] * 3}
     max_err = {"matmul_4bit": 0.0, "matmul_int4c": 0.0}
-    for (k, n), count in SHAPES.items():
-        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
-        qts = {fmt: codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
-               for fmt in ("nf4a", "nf4")}
-        qw = int4c.quantize_int4c_weight(w)
-        for m in (8, 1024):
-            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            iters = 50 if m == 8 else 10
-            for fmt, qt in qts.items():
-                def run(use_kernel, ws):
-                    return lambda i: matmul.matmul_4bit(
-                        x, *ws[i % len(ws)], codebook=fmt, block=64, use_kernel=use_kernel)
-                out = run(True, [(qt.codes, qt.scale)])(0)
-                ref = run(False, [(qt.codes, qt.scale)])(0)
-                err = (out.float() - ref.float()).abs().max().item()
-                tol = 2 * BF16_ULP * ref.float().abs().max().item()
-                check(torch.isfinite(out).all().item(), f"matmul_4bit {fmt} non-finite")
-                check(err <= tol, f"matmul_4bit {fmt} M={m} K={k} N={n}: err {err} > {tol}")
-                ws = copies_past_l2(qt.codes, qt.scale)
-                ms, plain_ms = time_ms(run(True, ws), iters), time_ms(run(False, ws), iters)
-                max_err["matmul_4bit"] = max(max_err["matmul_4bit"], err)
-                if m == 8 and fmt == "nf4a":
-                    per_step["matmul_4bit"][0] += count * ms
-                    per_step["matmul_4bit"][1] += count * plain_ms
+    per_call = {}
+    cases = [(k, n, m) for (k, n) in SHAPES for m in MM4_MS] + [MM4_RAGGED]
+    for k, n, m in cases:
+        count = SHAPES.get((k, n), 0)
+        n_codes = -(-n // 128) * 128  # the quantizer pads N to 128; a ragged case cuts it back
+        w = (torch.randn((k, n_codes), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        iters = 50 if m <= 64 else 10
+        design = matmul.matmul_4bit_design(m, n, k)
+        for fmt in FOUR_BIT:
+            qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+            codes, scales = qt.codes[:, :n].contiguous(), qt.scale[:, :n].contiguous()
+
+            def run(use_kernel, ws, fmt=fmt):
+                return lambda i: matmul.matmul_4bit(
+                    x, *ws[i % len(ws)], codebook=fmt, block=64, use_kernel=use_kernel)
+            out = run(True, [(codes, scales)])(0)
+            ref = run(False, [(codes, scales)])(0)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = 2 * BF16_ULP * ref.float().abs().max().item()
+            check(out.shape == ref.shape and torch.isfinite(out).all().item(),
+                  f"matmul_4bit {fmt} M={m} K={k} N={n}: bad output")
+            check(err <= tol, f"matmul_4bit {fmt} M={m} K={k} N={n}: err {err} > {tol}")
+            same = torch.equal(out, run(True, [(codes, scales)])(0))
+            check(same, f"matmul_4bit {fmt} M={m} K={k} N={n}: two calls differ")
+            max_err["matmul_4bit"] = max(max_err["matmul_4bit"], err)
+            ws = copies_past_l2(codes, scales)
+            row = dict(kernel="matmul_4bit", fmt=fmt, M=m, K=k, N=n, max_abs_err=err, tol=tol,
+                       us=time_ms(run(True, ws), iters) * 1e3, bit_identical_over_two_calls=same,
+                       design=design)
+            acc = {(8, "nf4a"): per_step["matmul_4bit"],
+                   (M_TRAIN, "nf4"): per_step["matmul_4bit_qlora_forward"]}.get((m, fmt))
+            if acc is not None and count:
+                # the rows past k (the quantizer's K padding) meet zero-padded x
+                wd = matmul._dequant_4bit(qt.codes, qt.scale, fmt, 64, torch.bfloat16)[:k]
+                dense = [d for (d,) in copies_past_l2(wd)]
+                row["plain_us"] = time_ms(run(False, ws), iters) * 1e3
+                row["dense_us"] = time_ms(lambda i: x @ dense[i % len(dense)], iters) * 1e3
+                for j, key in enumerate(("us", "plain_us", "dense_us")):
+                    acc[j] += count * row[key] / 1e3
+                if m == 8:
                     add_work(work, "matmul_4bit", nbytes(x, qt.codes, qt.scale, out),
                              2 * m * k * n, count)
-                rows.append(dict(kernel="matmul_4bit", fmt=fmt, M=m, K=k, N=n, max_abs_err=err,
-                                 tol=tol, us=ms * 1e3, plain_us=plain_ms * 1e3))
-                emit(kernel_check=rows[-1])
-            # int4c: the kernel on the activations the wrapper quantizes
-            x2 = x.float()
+            if fmt == "nf4a" and f"M{m}_{k}x{n}" in EARLIER_US["matmul_4bit"]:
+                per_call[f"M{m}_{k}x{n}"] = row["us"]
+            if m >= 256:
+                row["tflops"] = 2 * m * k * n / (row["us"] * 1e-6) / 1e12
+            emit(kernel_check=row)
+    for (k, n), count in SHAPES.items():
+        # int4c: the kernel on the activations the wrapper quantizes
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        qw = int4c.quantize_int4c_weight(w)
+        for m in (8, 1024):
+            x2 = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16).float()
+            iters = 50 if m == 8 else 10
             rs = torch.clamp(x2.abs().amax(dim=1) / 127.0, min=1e-12)
             xq = torch.clamp(torch.round(x2 / rs[:, None]), -127, 127).to(torch.int8)
 
@@ -382,10 +437,10 @@ def kernel_checks(dev, work):
                 per_step["matmul_int4c"][1] += count * plain_ms
                 add_work(work, "matmul_int4c", nbytes(xq, qw.codes, rs, qw.scale, out),
                          2 * m * k * n, count)
-            rows.append(dict(kernel="matmul_int4c", fmt="int4c", M=m, K=k, N=n,
-                             max_abs_err=err, tol=0.0, us=ms * 1e3, plain_us=plain_ms * 1e3))
-            emit(kernel_check=rows[-1])
-    return per_step, max_err
+            emit(kernel_check=dict(kernel="matmul_int4c", fmt="int4c", M=m, K=k, N=n,
+                                   max_abs_err=err, tol=0.0, us=ms * 1e3,
+                                   plain_us=plain_ms * 1e3))
+    return per_step, per_call, max_err
 
 
 def main_path(dev, cfg, dense):
@@ -1094,21 +1149,22 @@ def eight_bit_checks(dev, work):
     five TinyLlama (K, N), M in {8, 2048}, every 8-bit format, bf16
     operands within 2 bf16 ulps of max|plain|, and at ``F32_SHAPE`` in f32
     within 1e-5 of it; matmul_8bit also at ``MM8_MID_MS`` on two of the
-    shapes (both sides of its decode/prefill split) and at ``MM8_RAGGED``,
-    its bf16 output bit-identical over two calls, its design per shape.
+    shapes (both sides of its decode/prefill split), matmul_8bit_t at
+    ``MM8T_MID_MS`` on them, and both at ``MM8_RAGGED``; the bf16 outputs
+    bit-identical over two calls, matmul_8bit's design per shape.
     µs per call with the weights rotated past the L2, for int8 also the
     plain versions' and the dense control's (cuBLAS ``torch.matmul`` of the
     dequantized bf16 weight). Returns ms of the calls of one decode step
     (matmul_8bit, M=8) and of one QLoRA step's forward (matmul_8bit,
     M=2048) and backward (matmul_8bit_t, M=2048), int8, as [kernel, plain,
-    dense]; µs of the int8 matmul_8bit calls that ``EARLIER_MM8_US`` names;
-    and the largest errors."""
+    dense]; µs of the int8 calls that ``EARLIER_US`` names, by kernel; and
+    the largest errors."""
     gen = torch.Generator(device=dev).manual_seed(7)
     step = {("matmul_8bit", 8): [0.0] * 3, ("matmul_8bit", M_TRAIN): [0.0] * 3,
             ("matmul_8bit_t", M_TRAIN): [0.0] * 3}
     count = {"matmul_8bit": SHAPES, "matmul_8bit_t": T_SHAPES}
     max_err = {"matmul_8bit": 0.0, "matmul_8bit_t": 0.0}
-    per_call = {}
+    per_call = {"matmul_8bit": {}, "matmul_8bit_t": {}}
     cases = [(k, n, m, torch.bfloat16) for (k, n) in SHAPES for m in (8, M_TRAIN)]
     cases += [(k, n, m, torch.bfloat16) for (k, n) in MM8_MID_SHAPES for m in MM8_MID_MS]
     cases += [(*MM8_RAGGED, torch.bfloat16), (*F32_SHAPE, torch.float32)]
@@ -1123,8 +1179,8 @@ def eight_bit_checks(dev, work):
             codes, scales = qt.codes[:, :n].contiguous(), qt.scale[:, :n].contiguous()
             for name, fn, a in (("matmul_8bit", matmul.matmul_8bit, x),
                                 ("matmul_8bit_t", matmul.matmul_8bit_t, g)):
-                if name == "matmul_8bit_t" and m != M_TRAIN:
-                    continue  # the backward runs at the training M only
+                if name == "matmul_8bit_t" and m not in (M_TRAIN, *MM8T_MID_MS, MM8_RAGGED[2]):
+                    continue  # the backward runs at the training M
 
                 def run(use_kernel, ws, fn=fn, a=a, cb=qt.codebook):
                     return lambda i: fn(a, *ws[i % len(ws)], codebook=cb, block=64,
@@ -1142,12 +1198,14 @@ def eight_bit_checks(dev, work):
                 iters = 50 if m <= 64 else 10
                 row = dict(kernel=name, fmt=fmt, dtype=str(dtype), M=m, K=k, N=n,
                            max_abs_err=err, tol=tol, us=time_ms(run(True, ws), iters) * 1e3)
-                if name == "matmul_8bit" and design is not None:
+                if dtype == torch.bfloat16:
                     same = torch.equal(out, run(True, [(codes, scales)])(0))
-                    check(same, f"matmul_8bit {fmt} M={m} K={k} N={n}: two calls differ")
-                    row.update(bit_identical_over_two_calls=same, design=design)
-                    if fmt == "int8":
-                        per_call[f"M{m}_{k}x{n}"] = row["us"]
+                    check(same, f"{name} {fmt} M={m} K={k} N={n}: two calls differ")
+                    row.update(bit_identical_over_two_calls=same)
+                    if name == "matmul_8bit":
+                        row.update(design=design)
+                    if fmt == "int8" and f"M{m}_{k}x{n}" in EARLIER_US[name]:
+                        per_call[name][f"M{m}_{k}x{n}"] = row["us"]
                 if fmt == "int8" and dtype == torch.bfloat16 and (name, m) in step:
                     wd = matmul._dequant_8bit(qt.codes, qt.scale, None, 64, torch.bfloat16)[:k]
                     dense = [d.T.contiguous() if name == "matmul_8bit_t" else d
@@ -1164,7 +1222,7 @@ def eight_bit_checks(dev, work):
                 if m >= 256:
                     row["tflops"] = 2 * m * k * n / (row["us"] * 1e-6) / 1e12
                 emit(kernel_check=row)
-    return step, {key: per_call[key] for key in EARLIER_MM8_US}, max_err
+    return step, per_call, max_err
 
 
 def _ptq_tree():
@@ -1368,7 +1426,7 @@ def main():
 
     work = {}
     with timed("3-4 kernel checks"):
-        per_step, max_err = kernel_checks(dev, work)
+        per_step, mm4_per_call, max_err = kernel_checks(dev, work)
         int8_step, int8_err = int8_kernel_checks(dev, work)
         per_step.update(int8_step)
         max_err.update(int8_err)
@@ -1449,14 +1507,22 @@ def main():
     bwd_pair_ms = flash_ms["flash_bwd_dq_ms"] + flash_ms["flash_bwd_dkv_ms"]
     measured = {name: flash_ms[f"{name}_ms"] for name in FLASH_KERNELS}
     measured["matmul_8bit"] = eight_step[("matmul_8bit", 8)][0]
+    measured["matmul_4bit"] = per_step["matmul_4bit"][0]
+    measured["matmul_8bit_t"] = eight_step[("matmul_8bit_t", M_TRAIN)][0]
     emit(earlier_times=dict(
         note="PERF.md's times of the designs before the Hopper redesigns, at the same work, "
              "not measured in this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},
-        matmul_8bit_per_call_us=EARLIER_MM8_US, measured_ms=measured,
-        measured_matmul_8bit_per_call_us=eight_per_call))
+        per_call_us=EARLIER_US, measured_ms=measured,
+        measured_per_call_us={"matmul_4bit": mm4_per_call, **eight_per_call}))
     emit(kernels=[
         entry("matmul_4bit", "matmul_4bit.cu", "quanta_tpu/ops/matmul.py:204",
-              launches["matmul_4bit"], *per_step["matmul_4bit"], "bf16", at),
+              launches["matmul_4bit"], *per_step["matmul_4bit"][:2], "bf16",
+              at + "; library: none, no PyTorch call dequantizes blockwise 4-bit codes inside "
+              "a GEMM (dense_control_ms: cuBLAS torch.matmul of the dequantized bf16 weights; "
+              "qlora_forward_ms: one QLoRA forward's 155 calls at M=2048, nf4, as [kernel, "
+              "plain, dense])",
+              dense_control_ms=per_step["matmul_4bit"][2],
+              qlora_forward_ms=per_step["matmul_4bit_qlora_forward"]),
         entry("matmul_int4c", "int4c.cu", "quanta_tpu/ops/int4c.py:116",
               launches["matmul_int4c"], *per_step["matmul_int4c"], "int8", at),
         entry("matmul_int8_fused", "int8mm.cu", "quanta_tpu/ops/int8mm.py:167",

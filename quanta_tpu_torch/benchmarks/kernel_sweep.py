@@ -1,11 +1,12 @@
-"""Time the bf16 ``flash_fwd`` and ``matmul_8bit`` kernels across shapes.
+"""Time the bf16 ``flash_fwd``, ``matmul_8bit``, ``matmul_4bit`` and
+``matmul_8bit_t`` kernels across shapes.
 
-    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8]
+    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8 mm4 mm8t] [--ms 8 32]
 
-To try a design choice of ``csrc/flash_fwd.cu`` or ``csrc/matmul_8bit.cu``
-(warpgroups, ring stages, the decode/prefill split, the prefill tile), edit
-its constant, which rebuilds the library, and run this again. One JSON
-object per line:
+To try a design choice of ``csrc/flash_fwd.cu``, ``csrc/matmul_8bit.cu``,
+``csrc/matmul_4bit.cu`` or ``csrc/matmul_8bit_t.cu`` (warpgroups, ring
+stages, the decode/prefill split, the prefill tile), edit its constant,
+which rebuilds the library, and run this again. One JSON object per line:
 
 - ``flash``: the forward (``save_lse=True``, the training call) at
   TinyLlama-1.1B's (B=2, S=T=1024, 32/4 heads, hd 64) and Llama-2-7B's
@@ -13,8 +14,16 @@ object per line:
   same inputs;
 - ``mm8``: ``matmul_8bit`` (int8 codes, bf16 x) at the five TinyLlama
   (K, N) for M in {8, 16, 32, 64, 256, 1024, 2048}, with the design each
-  takes; weights rotated past the 50 MB L2 as ``chip_smoke.py`` times them.
+  takes;
+- ``mm4``: ``matmul_4bit`` (nf4a codes, bf16 x) at the same shapes and M,
+  with the design each takes (the decode/prefill crossover, the ring
+  depths);
+- ``mm8t``: ``matmul_8bit_t`` (int8 codes, bf16 g) at the five TinyLlama
+  (K, N) for M in {256, 1024, 2048} (the tile widths).
 
+``--ms`` keeps only the M named (of the matmul rows).
+
+Weights are rotated past the 50 MB L2 as ``chip_smoke.py`` times them.
 Times are CUDA events around back-to-back calls while the device first
 spins, so the host's Python between calls is not timed. Needs a CUDA card.
 """
@@ -77,14 +86,11 @@ def flash_rows(dev):
              design=attention.flash_fwd_design(b, s, nh, hd))
 
 
-def mm8_rows(dev):
+def mm8_rows(dev, pick):
     gen = torch.Generator(device=dev).manual_seed(0)
     for k, n in MM8_SHAPES:
-        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
-        qt = codecs.quantize_matmul_weight(w, fmt="int8", block_size=64)
-        copies = max(1, min(64, math.ceil(2 * L2_BYTES / (qt.codes.numel() + 4 * qt.scale.numel()))))
-        ws = [(qt.codes.clone(), qt.scale.clone()) for _ in range(copies)]
-        for m in MM8_MS:
+        qt, ws = _weights(gen, dev, k, n, "int8")
+        for m in pick(MM8_MS):
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             ref = matmul.matmul_8bit(x, qt.codes, qt.scale, codebook=None, use_kernel=False)
             out = matmul.matmul_8bit(x, qt.codes, qt.scale, codebook=None)
@@ -97,9 +103,51 @@ def mm8_rows(dev):
                  ok=err <= tol, design=matmul.matmul_8bit_design(m, n, k))
 
 
+def _weights(gen, dev, k, n, fmt):
+    w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+    qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+    copies = max(1, min(64, math.ceil(2 * L2_BYTES / (qt.codes.numel() + 4 * qt.scale.numel()))))
+    return qt, [(qt.codes.clone(), qt.scale.clone()) for _ in range(copies)]
+
+
+def mm4_rows(dev, pick):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for k, n in MM8_SHAPES:
+        qt, ws = _weights(gen, dev, k, n, "nf4a")
+        for m in pick(MM8_MS):
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            ref = matmul.matmul_4bit(x, qt.codes, qt.scale, codebook="nf4a", use_kernel=False)
+            out = matmul.matmul_4bit(x, qt.codes, qt.scale, codebook="nf4a")
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = time_ms(lambda i: matmul.matmul_4bit(x, *ws[i % len(ws)], codebook="nf4a"),
+                         50 if m <= 64 else 10)
+            tol = 2 * 2.0 ** -7 * ref.float().abs().max().item()
+            emit(sweep="matmul_4bit", M=m, K=k, N=n, us=ms * 1e3,
+                 tflops=2 * m * k * n / (ms * 1e-3) / 1e12, max_abs_err=err, tol=tol,
+                 ok=err <= tol, design=matmul.matmul_4bit_design(m, n, k))
+
+
+def mm8t_rows(dev, pick):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for k, n in MM8_SHAPES:
+        qt, ws = _weights(gen, dev, k, n, "int8")
+        for m in pick((256, 1024, 2048)):
+            g = torch.randn((m, n), generator=gen, device=dev).to(torch.bfloat16)
+            ref = matmul.matmul_8bit_t(g, qt.codes, qt.scale, codebook=None, use_kernel=False)
+            out = matmul.matmul_8bit_t(g, qt.codes, qt.scale, codebook=None)
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = time_ms(lambda i: matmul.matmul_8bit_t(g, *ws[i % len(ws)], codebook=None), 10)
+            tol = 2 * 2.0 ** -7 * ref.float().abs().max().item()
+            emit(sweep="matmul_8bit_t", M=m, K=k, N=n, us=ms * 1e3,
+                 tflops=2 * m * k * n / (ms * 1e-3) / 1e12, max_abs_err=err, tol=tol,
+                 ok=err <= tol)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--what", nargs="+", choices=("flash", "mm8"), default=["flash", "mm8"])
+    ap.add_argument("--what", nargs="+", choices=("flash", "mm8", "mm4", "mm8t"),
+                    default=["flash", "mm8", "mm4", "mm8t"])
+    ap.add_argument("--ms", nargs="+", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_sweep: needs a CUDA device")
@@ -110,8 +158,14 @@ def main(argv=None):
                              timeout=60).stdout.strip())
     if "flash" in args.what:
         flash_rows(dev)
+    def pick(default):
+        return [m for m in default if args.ms is None or m in args.ms]
     if "mm8" in args.what:
-        mm8_rows(dev)
+        mm8_rows(dev, pick)
+    if "mm4" in args.what:
+        mm4_rows(dev, pick)
+    if "mm8t" in args.what:
+        mm8t_rows(dev, pick)
 
 
 if __name__ == "__main__":

@@ -18,8 +18,11 @@
 // (row-major, 128 bytes a row) dequantizes into a 64 x 128 bf16 tile in the
 // swizzled layout of Tile<128> (rows = K, 128 columns = N in two 64-column
 // halves). Under Tile<128>::mn_major that tile is the MN-major B operand of
-// out = x @ W (matmul_8bit); read with rows = N it is the K-major B that
-// dx = g @ W^T wants (matmul_8bit_t), the next kernel to move onto it.
+// out = x @ W (matmul_8bit). The transposed product dx = g @ W^T
+// (matmul_8bit_t) wants W's rows as the N of its wgmma and N as the
+// reduction: a staged slab of 128 rows of K x 64 columns of N dequantizes
+// into a 128-row Tile<64> (two Tile<64>s back to back, rows = K), which
+// Tile<64>::k_major reads as the K-major B of an m64n128 product.
 
 #pragma once
 
@@ -173,6 +176,68 @@ __device__ __forceinline__ void dequant_slab(uint32_t tile, const unsigned char*
       packed[e] = *reinterpret_cast<const uint32_t*>(&w);
     }
     asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(tile + Tile<128>::offset(r, c)),
+                 "r"(packed[0]), "r"(packed[1]), "r"(packed[2]), "r"(packed[3])
+                 : "memory");
+  }
+}
+
+// Rows [k0, k0 + 128) x columns [n0, n0 + 64) of W's codes into a raw slab
+// of 128 rows of 64 bytes (zeros past K or N): the transposed product's.
+__device__ __forceinline__ void stage_code_slab_t(unsigned char* slab, uint32_t slab_s,
+                                                  const uint8_t* __restrict__ codes, int k0,
+                                                  int n0, int K, int N, int tid, int nt) {
+  for (int i = tid; i < 128 * 4; i += nt) {
+    const int r = i / 4, c = (i % 4) * 16;
+    stage_codes16(slab + r * 64 + c, slab_s + r * 64 + c, codes, k0 + r, n0 + c, K, N);
+  }
+}
+
+// Dequantize a staged transposed slab (rows [k0, k0 + 128) of K, columns
+// [n0, n0 + 64) of N) into the 128-row Tile<64> at shared address `tile`
+// (rows = K). Each of the NT threads takes 128 * 8 / NT 16-byte chunks of
+// one column range, loading all of them first. `srow` is the slab's two
+// staged scale rows (64 floats for rows k0..k0+63, then 64 for the rest;
+// a block of 64 rows or more), or null: then each row reads its own scales
+// from device memory. Columns past N give zeros; rows past K are left to
+// whatever their codes and scales give, since a B row k only reaches dx
+// column k, which the store drops.
+template <int NT>
+__device__ __forceinline__ void dequant_slab_t(uint32_t tile, const unsigned char* slab,
+                                               const float* srow,
+                                               const float* __restrict__ scales,
+                                               const float* lv, int k0, int n0, int K, int N,
+                                               int block, int tid) {
+  static_assert(NT % 8 == 0 && (128 * 8) % NT == 0, "whole rows of chunks");
+  constexpr int PER = 128 * 8 / NT, ROW_STEP = NT / 8;
+  const int lane = tid % 32, c = tid % 8, r0 = tid / 8, n = n0 + 8 * c;
+  uint2 raws[PER];
+#pragma unroll
+  for (int it = 0; it < PER; ++it)
+    raws[it] = *reinterpret_cast<const uint2*>(slab + (r0 + it * ROW_STEP) * 64 + 8 * c);
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int r = r0 + it * ROW_STEP;
+    float s[8];
+    if (srow != nullptr) {
+      const float* sr = srow + 64 * (r / 64) + 8 * c;
+      const float4 a = *reinterpret_cast<const float4*>(sr);
+      const float4 b = *reinterpret_cast<const float4*>(sr + 4);
+      s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+      s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+    } else {
+      load_scales8(s, scales, k0 + r, n, K, N, block);
+    }
+    const uint2 raw = raws[it];
+    uint32_t packed[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t word = e < 2 ? raw.x : raw.y;
+      const uint32_t c0 = (word >> (16 * (e & 1))) & 0xFF, c1 = (word >> (16 * (e & 1) + 8)) & 0xFF;
+      const __nv_bfloat162 w = __floats2bfloat162_rn(__fmul_rn(level(lv, c0, lane), s[2 * e]),
+                                                     __fmul_rn(level(lv, c1, lane), s[2 * e + 1]));
+      packed[e] = *reinterpret_cast<const uint32_t*>(&w);
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(tile + Tile<64>::offset(r, c)),
                  "r"(packed[0]), "r"(packed[1]), "r"(packed[2]), "r"(packed[3])
                  : "memory");
   }

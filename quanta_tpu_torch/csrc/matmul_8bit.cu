@@ -67,69 +67,11 @@
 
 #include "dequant8.cuh"  // BN, BK, THREADS, N_LEVELS, kPad, load_levels, load_b8, load_rows
 #include "dequant8_sm90.cuh"
+#include "splitk_sm90.cuh"  // cluster_sum_store, pick_split, MmKind, MmPlan, mma_bf16_16816
 
 namespace {
 
-namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
-
-// ---------------------------------------------- split-K sum in a cluster
-
-// The f32 partial tiles of the cluster's blocks, `slabs` of them per block
-// (rows x cols, stride ld, slab after slab), summed in rank then slab order
-// and stored as bf16 at out[m0.., n0..] (rows past M, columns past N
-// dropped). Rank r sums and stores rows [r * rows / S, (r + 1) * rows / S).
-// Call after every block's partials are in its shared memory (cluster.sync).
-__device__ __forceinline__ void cluster_sum_store(cg::cluster_group& cluster, float* red,
-                                                  int slabs, int rows, int cols, int ld,
-                                                  bf16* __restrict__ out, int m0, int n0, int M,
-                                                  int N, int tid, int nt) {
-  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int r_lo = rank * rows / S, r_hi = (rank + 1) * rows / S, c4 = cols / 4;
-  for (int i = tid; i < (r_hi - r_lo) * c4; i += nt) {
-    const int row = r_lo + i / c4, col = (i % c4) * 4;
-    const int m = m0 + row, n = n0 + col;
-    // unrolled to the largest cluster, so the remote loads issue together
-    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      if (q >= S) continue;
-      const float* rem = cluster.map_shared_rank(red, q) + row * ld + col;
-      for (int s = 0; s < slabs; ++s) {
-        const float4 x = *reinterpret_cast<const float4*>(rem + s * rows * ld);
-        if (q == 0 && s == 0) {
-          sum = x;
-        } else {
-          sum.x += x.x;
-          sum.y += x.y;
-          sum.z += x.z;
-          sum.w += x.w;
-        }
-      }
-    }
-    if (m >= M) continue;
-    bf16* o = out + (int64_t)m * N + n;
-    if ((N & 3) == 0 && n + 4 <= N) {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x, sum.y);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z, sum.w);
-      uint2 v;
-      v.x = *reinterpret_cast<const uint32_t*>(&lo);
-      v.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(o) = v;
-    } else {
-      const float e[4] = {sum.x, sum.y, sum.z, sum.w};
-      for (int j = 0; j < 4 && n + j < N; ++j) o[j] = __float2bfloat16_rn(e[j]);
-    }
-  }
-}
-
-// The K split: the largest power of two up to 8 (and `max_split`) that
-// keeps the tiles' blocks within `slots`, one wave of resident blocks.
-int pick_split(int64_t tiles, int64_t slots, int max_split) {
-  int s = 1;
-  while (s < 8 && 2 * s <= max_split && tiles * 2 * s <= slots) s *= 2;
-  return s;
-}
 
 // ------------------------------------------------------ bf16: decode
 
@@ -149,20 +91,6 @@ template <int MT> struct DecSmem {  // MT n8 tiles of x rows: M <= 8 * MT a bloc
   static constexpr int RED = 4 * 8 * MT * RED_LD * 4;  // f32 partials, after the loop
   static constexpr size_t bytes = LV_BYTES + (RING > RED ? RING : RED);
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // grid (S, N / 64, M / (8 MT)), clusters of S along x: rank r takes the
 // 16-row slices [r * per, (r + 1) * per) of K, per = ceil(slices / S), and
@@ -437,20 +365,16 @@ mm8_prefill(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
 
 // ------------------------------------------------------ bf16: launches
 
-// The kernel of a bf16 call: design 0 (decode) or 1 (prefill) and its
-// template (MT for decode, the tile's rows for prefill).
-struct Mm8Kind {
-  int design, tmpl;
-  int rows() const { return design ? tmpl : 8 * tmpl; }  // x rows a block
-  int cols() const { return design ? PF_BN : DEC_BN; }   // columns of W a block
-};
-
-Mm8Kind kind_mm8(int M) {
-  if (M <= DECODE_MAX_M) return {0, M <= 8 ? 1 : M <= 16 ? 2 : 4};
-  return {1, M > PF_WIDE_M ? 256 : 128};
+MmKind kind_mm8(int M) {
+  if (M <= DECODE_MAX_M) {
+    const int mt = M <= 8 ? 1 : M <= 16 ? 2 : 4;
+    return {0, mt, 8 * mt, DEC_BN};
+  }
+  const int bm = M > PF_WIDE_M ? 256 : 128;
+  return {1, bm, bm, PF_BN};
 }
 
-template <typename F> auto with_kernel(const Mm8Kind& k, F f) {
+template <typename F> auto with_kernel(const MmKind& k, F f) {
   if (k.design == 1)
     return k.tmpl == 256 ? f(mm8_prefill<256>, PF_THREADS, PfSmem<256>::bytes)
                          : f(mm8_prefill<128>, PF_THREADS, PfSmem<128>::bytes);
@@ -463,7 +387,7 @@ template <typename F> auto with_kernel(const Mm8Kind& k, F f) {
 
 // Blocks of the kind's kernel an SM holds (registers, shared memory), asked
 // of the runtime once per kernel.
-int resident(const Mm8Kind& k) {
+int resident(const MmKind& k) {
   static int n[5] = {};  // decode MT 1, 2, 4; prefill 128, 256 rows
   int& r = n[k.design ? 2 + k.tmpl / 128 : k.tmpl / 2];
   if (r == 0)
@@ -473,22 +397,12 @@ int resident(const Mm8Kind& k) {
   return r;
 }
 
-// How a bf16 call launches: its kernel, the grid and the K split.
-struct Mm8Plan {
-  Mm8Kind kind;
-  int split;
-  dim3 grid;
-};
-
-Mm8Plan plan_mm8(int M, int N, int K) {
-  const Mm8Kind k = kind_mm8(M);
-  const int tn = (N + k.cols() - 1) / k.cols(), tm = (M + k.rows() - 1) / k.rows();
+MmPlan plan_mm8(int M, int N, int K) {
+  const MmKind k = kind_mm8(M);
   // decode: each warp at least two 16-row slices, so K splits no finer than
   // 128 rows; prefill: each split at least 4 steps of 64 rows
   const int min_k = k.design ? 4 * PF_BK : 128;
-  const int s = pick_split((int64_t)tn * tm, (int64_t)resident(k) * sm_count(),
-                           max(1, (K + min_k - 1) / min_k));
-  return {k, s, dim3(s, tn, tm)};
+  return plan_split(k, M, N, max(1, (K + min_k - 1) / min_k), resident(k));
 }
 
 // ----------------------------------------------- f32: CUDA-core FMAs
@@ -547,7 +461,7 @@ extern "C" int qt_matmul_8bit_bf16(const void* x, const void* codes, const void*
                                    const void* levels, void* out, int M, int N, int K,
                                    int block, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
-  const Mm8Plan p = plan_mm8(M, N, K);
+  const MmPlan p = plan_mm8(M, N, K);
   return with_kernel(p.kind, [&](auto kernel, int threads, size_t smem) {
     return launch_cluster(kernel, p.grid, p.split, threads, smem, stream,
                           static_cast<const bf16*>(x), static_cast<const uint8_t*>(codes),
@@ -568,20 +482,13 @@ extern "C" int qt_matmul_8bit_f32(const void* x, const void* codes, const void* 
   return (int)cudaGetLastError();
 }
 
-// The bf16 route's launch at (M, N, K), for a report: out[11] = design (0
-// decode, 1 prefill), grid x, y, z, cluster size (the K split), blocks
-// resident per SM, registers a thread, dynamic shared bytes, local (spill)
-// bytes a thread, cp.async stages, rows of x a block
+// The bf16 route's launch at (M, N, K), for a report (report_plan says
+// what out[11] holds)
 extern "C" int qt_matmul_8bit_design(int M, int N, int K, int* out) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const Mm8Plan p = plan_mm8(M, N, K);
-  return with_kernel(p.kind, [&](auto kernel, int threads, size_t smem) {
-    cudaFuncAttributes attr;
-    const cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
-    const int vals[11] = {p.kind.design, (int)p.grid.x, (int)p.grid.y, (int)p.grid.z, p.split,
-                          resident(p.kind), attr.numRegs, (int)smem, (int)attr.localSizeBytes,
-                          p.kind.design ? PF_STAGES : DEC_STAGES, p.kind.rows()};
-    for (int i = 0; i < 11; ++i) out[i] = vals[i];
-    return (int)rc;
+  const MmPlan p = plan_mm8(M, N, K);
+  return with_kernel(p.kind, [&](auto kernel, int, size_t smem) {
+    return report_plan(p, kernel, smem, resident(p.kind),
+                       p.kind.design ? PF_STAGES : DEC_STAGES, out);
   });
 }

@@ -7,9 +7,11 @@ Port of ``quanta_tpu/ops/matmul.py``: ``matmul_4bit``, ``matmul_4bit_t``,
 (the Pallas ``_mm4_kernel``), ``csrc/matmul_4bit_t.cu`` (``_mm4t_kernel``),
 ``csrc/matmul_8bit.cu`` (``_mm8_kernel``) and ``csrc/matmul_8bit_t.cu``
 (``_mm8t_kernel``); each source says what bounds it on the H100 and how it
-is laid out. The bf16 ``matmul_8bit`` kernel has two Hopper designs, picked
-by M inside the one entry point (split-K ``mma.sync`` for decode, wgmma
-tiles above); :func:`matmul_8bit_design` reports which one a shape takes.
+is laid out. The bf16 ``matmul_4bit`` and ``matmul_8bit`` kernels each have
+two Hopper designs, picked by M inside the one entry point (split-K
+``mma.sync`` for decode, wgmma tiles above); :func:`matmul_4bit_design` and
+:func:`matmul_8bit_design` report which one a shape takes. The bf16
+``matmul_8bit_t`` kernel is wgmma tiles over the same dequantized tile.
 
 Layouts (``core.codecs.quantize_matmul_weight``): scales ``(K_pad/block,
 N_pad)`` f32; 4-bit codes ``(K_pad/2, N_pad)`` uint8 split_k-packed, 8-bit
@@ -199,6 +201,17 @@ def matmul_4bit(
     return out if out_dtype in (None, x.dtype) else out.to(out_dtype)
 
 
+def matmul_4bit_design(m, n, k):
+    """How the bf16 ``matmul_4bit`` kernel launches for x (m, k) and
+    split_k-packed codes (k / 2, n), k = K_pad, on this card: the keys of
+    :func:`matmul_8bit_design` (``design`` "decode" or "prefill", grid, K
+    split, blocks per SM, registers, shared and spill bytes, stages, rows
+    of x a block)."""
+    if k % 2:
+        raise ValueError(f"k={k}: split_k packing needs an even K_pad")
+    return _design("qt_matmul_4bit_design", "matmul_4bit", m, n, k // 2)
+
+
 def matmul_4bit_t_reference(
     g: torch.Tensor,
     codes_packed: torch.Tensor,
@@ -333,8 +346,16 @@ def matmul_8bit(
     return out if out_dtype in (None, x.dtype) else out.to(out_dtype)
 
 
-_MM8_DESIGN_KEYS = ("design", "grid_x", "grid_y", "grid_z", "split", "blocks_per_sm",
-                    "registers", "shared_bytes", "spill_bytes", "stages", "rows")
+_MM_DESIGN_KEYS = ("design", "grid_x", "grid_y", "grid_z", "split", "blocks_per_sm",
+                   "registers", "shared_bytes", "spill_bytes", "stages", "rows")
+
+
+def _design(entry, name, m, n, k):
+    out = (ctypes.c_int * len(_MM_DESIGN_KEYS))()
+    _build.check(getattr(_build.library(), entry)(m, n, k, out), name)
+    res = dict(zip(_MM_DESIGN_KEYS, out))
+    res["design"] = ("decode", "prefill")[res["design"]]
+    return res
 
 
 def matmul_8bit_design(m, n, k):
@@ -345,11 +366,7 @@ def matmul_8bit_design(m, n, k):
     dynamic shared bytes and spill bytes a thread
     (``cudaFuncGetAttributes``), the stages of its cp.async ring and the
     rows of x a block takes."""
-    out = (ctypes.c_int * len(_MM8_DESIGN_KEYS))()
-    _build.check(_build.library().qt_matmul_8bit_design(m, n, k, out), "matmul_8bit")
-    res = dict(zip(_MM8_DESIGN_KEYS, out))
-    res["design"] = ("decode", "prefill")[res["design"]]
-    return res
+    return _design("qt_matmul_8bit_design", "matmul_8bit", m, n, k)
 
 
 def matmul_8bit_t_reference(

@@ -20,8 +20,9 @@ the output and 1e-4 for gradients; the backward kernels are deterministic,
 two calls give the same bits. ``matmul_8bit`` and ``matmul_8bit_t``
 read the same 256-entry level table as their plain versions and differ
 only in f32 summation order: bf16 within 2 bf16 ulps of max|plain|, f32
-within 1e-5 of it; the bf16 ``matmul_8bit`` sums its split-K partials in a
-fixed order, so two calls give the same bits too.
+within 1e-5 of it; the bf16 ``matmul_4bit`` and ``matmul_8bit`` sum their
+split-K partials in a fixed order, and the bf16 ``matmul_8bit_t`` splits
+nothing, so two calls give the same bits too.
 """
 
 import numpy as np
@@ -749,3 +750,153 @@ def test_matmul_8bit_block_off_the_slices(cuda, m):
     out = tmm.matmul_8bit(x, codes, scales, block=24)
     ref = tmm.matmul_8bit(x, codes, scales, block=24, use_kernel=False)
     assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
+
+
+# The bf16 matmul_4bit kernel's two designs, picked by M (csrc/matmul_4bit.cu):
+# split-K mma.sync for decode M (kernels of 8, 16 and 32 rows), 128- or
+# 256-row wgmma tiles above, over the 16-entry codebooks of the path. M
+# runs across the split; N = 200 is ragged (no 16-byte code loads at the
+# edge).
+FOUR_BIT_CB = ["nf4a", "nf4", "int4", "fp4"]
+MM4_MS = [1, 8, 16, 20, 32, 33, 64, 65, 256, 2048]
+
+
+def _mm4_operands(cuda, fmt, m, k, n, seed, block=32):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    tq = tcore.quantize_matmul_weight(torch.randn((k, n), generator=g, device=cuda), fmt=fmt,
+                                      block_size=block)
+    # the quantizer pads K and N: cut them back. Packed row j holds K rows j
+    # and K2 + j, so the codes keep their first k / 2 rows and the scales
+    # are re-cut to the blocks of those k rows (random, any will do)
+    k2 = k // 2
+    codes = tq.codes[:k2, :n].contiguous()
+    scales = torch.rand((k // block, n), generator=g, device=cuda) * 0.1
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    return x, codes, scales, tq.codebook
+
+
+def _mm4_check(x, codes, scales, cb, block):
+    out = tmm.matmul_4bit(x, codes, scales, codebook=cb, block=block)
+    ref = tmm.matmul_4bit(x, codes, scales, codebook=cb, block=block, use_kernel=False)
+    assert out.shape == ref.shape == (x.shape[0], codes.shape[1])
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("fmt", FOUR_BIT_CB)
+@pytest.mark.parametrize("m", MM4_MS)
+def test_matmul_4bit_designs_match_plain(cuda, fmt, m):
+    x, codes, scales, cb = _mm4_operands(cuda, fmt, m, 1024, 200, seed=m)
+    before = _build.launches["matmul_4bit"]
+    _mm4_check(x, codes, scales, cb, 32)
+    assert _build.launches["matmul_4bit"] == before + 1
+
+
+def test_matmul_4bit_ms_cover_both_designs(cuda):
+    designs = [tmm.matmul_4bit_design(m, 200, 1024)["design"] for m in MM4_MS]
+    assert designs[0] == "decode" and designs[-1] == "prefill"
+    assert designs == sorted(designs)  # decode below the split, prefill above
+
+
+@pytest.mark.parametrize("m", [8, 16, 32, 64, 2048])
+def test_matmul_4bit_split_fits_one_wave(cuda, m):
+    """A K split never asks for more blocks than the card holds at once: the
+    split counts the blocks an SM holds of the kernel that runs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k, n in [(2048, 256), (5632, 2048), (2048, 2048)]:
+        d = tmm.matmul_4bit_design(m, n, k)
+        if d["split"] > 1:
+            assert d["grid_x"] * d["grid_y"] * d["grid_z"] <= d["blocks_per_sm"] * sms
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 256), (8, 5632, 2048), (2048, 2048, 256)])
+def test_matmul_4bit_bit_identical_over_two_calls(cuda, m, k, n):
+    """The split-K partials are summed in a fixed order: no atomics."""
+    x, codes, scales, cb = _mm4_operands(cuda, "nf4a", m, k, n, seed=3)
+    assert tmm.matmul_4bit_design(m, n, k)["split"] > 1
+    first = tmm.matmul_4bit(x, codes, scales, codebook=cb, block=32)
+    assert torch.equal(first, tmm.matmul_4bit(x, codes, scales, codebook=cb, block=32))
+
+
+# (m, k, n): decode with K2 = 800 packed rows, 50 slices of 16 over a split
+# of 4 (13, 13, 13, 11 slices), and prefill with K2 = 1184, 37 steps of 32
+# packed rows over a split of 8 (5 each, 2 on the last rank)
+SPLIT4_CASES = [(8, 1600, 128), (256, 2368, 256)]
+
+
+@pytest.mark.parametrize("m,k,n", SPLIT4_CASES)
+def test_matmul_4bit_split_covers_every_k_block(cuda, m, k, n):
+    """Each split takes a contiguous run of packed rows that no split size
+    divides evenly here; a run missed or summed twice, in either nibble
+    half, would move the output by far more than 2 bf16 ulps."""
+    design = tmm.matmul_4bit_design(m, n, k)
+    assert design["split"] > 1
+    if torch.cuda.get_device_properties(cuda).multi_processor_count == 132:
+        assert design["split"] == (4 if m == 8 else 8)
+    for fmt in FOUR_BIT_CB:
+        _mm4_check(*_mm4_operands(cuda, fmt, m, k, n, seed=k), 32)
+
+
+# (m, K2, block): K2 = 200 is a multiple of neither 16 nor 32 (the last
+# slice or slab runs past K2 in both halves, and the two halves' scale
+# rows are read row by row); K2 = 100 also puts x's high half off 16-byte
+# alignment; block 40 is a multiple of neither 16 nor 32
+OFF4_CASES = [(5, 200, 16), (40, 200, 16), (5, 100, 40), (40, 100, 40)]
+
+
+@pytest.mark.parametrize("m,k2,block", OFF4_CASES)
+def test_matmul_4bit_k2_off_the_slices(cuda, m, k2, block):
+    g = torch.Generator(device=cuda).manual_seed(k2 + block)
+    codes = torch.randint(0, 256, (k2, 72), generator=g, device=cuda, dtype=torch.uint8)
+    scales = torch.rand((2 * k2 // block, 72), generator=g, device=cuda) * 0.1
+    x = torch.randn((m, 2 * k2), generator=g, device=cuda).to(torch.bfloat16)
+    assert tmm.matmul_4bit_design(m, 72, 2 * k2)["design"] == ("decode" if m == 5 else "prefill")
+    for cb in FOUR_BIT_CB:
+        _mm4_check(x, codes, scales, cb, block)
+
+
+# The bf16 matmul_8bit_t kernel: wgmma tiles of 128 rows of g by 64 dx
+# columns (csrc/matmul_8bit_t.cu). K = 992 leaves the last 64-column tile
+# half full; N = 200 is off the 128-column steps.
+MM8T_MS = [1, 33, 64, 2048]
+
+
+@pytest.mark.parametrize("fmt", EIGHT_BIT)
+@pytest.mark.parametrize("m", MM8T_MS)
+def test_matmul_8bit_t_wgmma_matches_plain(cuda, fmt, m):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    tq = tcore.quantize_matmul_weight(torch.randn((992, 200), generator=g, device=cuda), fmt=fmt,
+                                      block_size=32)
+    codes, scales = tq.codes[:992, :200].contiguous(), tq.scale[:992 // 32, :200].contiguous()
+    gr = torch.randn((m, 200), generator=g, device=cuda).to(torch.bfloat16)
+    before = _build.launches["matmul_8bit_t"]
+    out = tmm.matmul_8bit_t(gr, codes, scales, codebook=tq.codebook, block=32)
+    ref = tmm.matmul_8bit_t(gr, codes, scales, codebook=tq.codebook, block=32, use_kernel=False)
+    assert _build.launches["matmul_8bit_t"] == before + 1
+    assert out.shape == ref.shape == (m, 992)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("k,n,block", [(96, 203, 32), (200, 77, 40), (1024, 300, 64)])
+def test_matmul_8bit_t_raw_ragged(cuda, k, n, block):
+    """N off 8 (g read value by value) and off 16 (codes byte by byte),
+    blocks below the 64-row slab (scales row by row), K off the 64-column
+    tile."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    codes = torch.randint(0, 256, (k, n), generator=g, device=cuda, dtype=torch.uint8)
+    scales = torch.rand((k // block, n), generator=g, device=cuda) * 0.01
+    gr = torch.randn((37, n), generator=g, device=cuda).to(torch.bfloat16)
+    for c in (codes, codes.view(torch.int8)):
+        out = tmm.matmul_8bit_t(gr, c, scales, block=block)
+        ref = tmm.matmul_8bit_t(gr, c, scales, block=block, use_kernel=False)
+        assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n", [(2048, 2048, 256), (2048, 5632, 2048), (33, 2048, 32000)])
+def test_matmul_8bit_t_bit_identical_over_two_calls(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    codes = torch.randint(-128, 128, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    scales = torch.rand((k // 64, n), generator=g, device=cuda) * 0.01
+    gr = torch.randn((m, n), generator=g, device=cuda).to(torch.bfloat16)
+    first = tmm.matmul_8bit_t(gr, codes, scales)
+    assert torch.equal(first, tmm.matmul_8bit_t(gr, codes, scales))

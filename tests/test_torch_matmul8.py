@@ -90,6 +90,24 @@ def test_matmul_8bit_t_matches_jax_kernel(fmt, dtype):
     assert (np.abs(out - ref) <= _tolerance(fmt, dtype, ref, g_abs, w_abs.T)).all()
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", EIGHT_BIT)
+@pytest.mark.parametrize("m", [33, 65])
+def test_matmul_8bit_t_across_m_matches_jax_kernel(m, fmt, dtype):
+    """The plain transposed version the card holds the wgmma kernel against,
+    at M past one and two 64-row warpgroup tiles."""
+    jq, tq = _weights(fmt)
+    gj, gt = _pair(_rand((m, 100), 20 + m), dtype)
+    ref = np.asarray(jmm.matmul_8bit_t(gj, jq.codes, jq.scale, codebook=jq.codebook, block=64,
+                                       interpret=True, out_dtype=jnp.float32))
+    out = tmm.matmul_8bit_t(gt, tq.codes, tq.scale, codebook=tq.codebook, block=64,
+                            out_dtype=torch.float32).numpy()
+    assert out.shape == ref.shape == (m, 1024)
+    w_abs = np.abs(tmm._dequant_8bit(tq.codes, tq.scale, tq.codebook, 64, torch.float32).numpy())
+    g_abs = np.abs(np.pad(gt.float().numpy(), ((0, 0), (0, 28))))
+    assert (np.abs(out - ref) <= _tolerance(fmt, dtype, ref, g_abs, w_abs.T)).all()
+
+
 @pytest.mark.parametrize("fmt", EIGHT_BIT)
 def test_matmul_quantized_8bit_grad_matches_jax(fmt):
     """The forward and ``jax.grad`` through ``matmul_quantized`` (the

@@ -59,6 +59,28 @@ def test_matmul_4bit_bf16_activations_match_jax():
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("fmt", FOUR_BIT)
+@pytest.mark.parametrize("m", [1, 33, 65])
+def test_matmul_4bit_bf16_across_m_matches_jax(fmt, m):
+    """The plain version the card holds the kernel's designs against, at M
+    on either side of their edges (one row; past the 32-row decode kernel;
+    past a 64-row tile), with bf16 activations, every 4-bit layout (int4a's
+    codes read as their own values, its zero-point term outside)."""
+    x = _rand((m, 300), 10 + m)
+    w = _rand((300, 200), 11)
+    jq = jcore.quantize_matmul_weight(jnp.asarray(w), fmt=fmt, block_size=64)
+    tq = tcore.quantize_matmul_weight(torch.from_numpy(w), fmt=fmt, block_size=64)
+    np.testing.assert_array_equal(tq.codes.numpy(), np.asarray(jq.codes))
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = np.asarray(jmm.matmul_4bit(xb, jq.codes, jq.scale, codebook=jq.codebook,
+                                     interpret=True, out_dtype=jnp.float32))
+    xt = torch.tensor(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
+    out = tmm.matmul_4bit(xt, tq.codes, tq.scale, codebook=tq.codebook, out_dtype=torch.float32)
+    assert out.shape == ref.shape == (m, 256)
+    # same bf16 operands, exact products, f32 sums in another order
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-4)
+
+
 def test_matmul_8bit_layout_plain_path():
     x = _rand((5, 128), 4)
     w = _rand((128, 64), 5)
