@@ -14,11 +14,16 @@ and the script exits non-zero (nothing is caught):
      ragged M = 77, N = 200, in nf4a, nf4, int4 and fp4, within 2 bf16
      ulps of max|plain|, its output bit-identical over two calls, with its
      design (``matmul_4bit_design``) on each row; ``matmul_int4c`` at M in
-     {8, 1024} bit for bit; kernel times from CUDA events, weights rotated
-     through more than the 50 MB L2 so decode shapes stream from device
-     memory as they do in a model, and for a decode step (nf4a, M = 8) and
-     a QLoRA forward (nf4, M = 2048) the plain version's and a dense
-     control's (cuBLAS ``torch.matmul`` of the dequantized bf16 weight);
+     {8, 32, 1024} (both sides of its decode/prefill split) bit for bit,
+     with its design (``matmul_int4c_design``) on each row; kernel times
+     from CUDA events, weights rotated through more than the 50 MB L2 so
+     decode shapes stream from device memory as they do in a model, and
+     for a decode step (nf4a, M = 8) and a QLoRA forward (nf4, M = 2048)
+     the plain version's and a dense control's (cuBLAS ``torch.matmul`` of
+     the dequantized bf16 weight); for ``matmul_int4c`` above M = 16 a
+     dense control's (``torch._int_mm`` of the int8 activations and the
+     unpacked int8 weight, row- or column-major, whichever is faster: no
+     scales, no packing);
   4. the LLM.int8 kernels (``matmul_int8_fused``, ``matmul_int8``) at the
      five TinyLlama (K, N) for M in {8, 256} (a decode step of 8 slots,
      the largest prefill bucket), f32 x, the quantizer's outlier set, and
@@ -50,8 +55,13 @@ and the script exits non-zero (nothing is caught):
      device-busy share of a step;
   9. QLoRA training at the full TinyLlama-1.1B width and depth: (a)
      ``matmul_4bit_t`` against its plain version at the five (K, N) with
-     M = 2048 (batch 4 x seq 512), bf16 gradients, nf4 and nf4a, plus one
-     f32 shape, within 2 bf16 ulps of max|plain| (f32: 1e-5); (b)
+     M = 2048 (batch 4 x seq 512) and Llama-2-7B's three with M = 1024
+     (batch 1 x seq 1024), bf16 gradients, nf4 and nf4a, plus one f32
+     shape, within 2 bf16 ulps of max|plain| (f32: 1e-5), the bf16
+     outputs bit-identical over two calls, with its design
+     (``matmul_4bit_t_design``) on each row, and for the nf4 TinyLlama
+     rows the plain version's and a dense control's time (cuBLAS
+     ``g @ W_deq^T`` of the dequantized bf16 weight); (b)
      ``adam8bit_update`` bit for bit over 5 chained steps at the adapter
      leaf sizes (64 and 8 blocks) and one full-parameter leaf (45,056
      blocks), one block all zero; (c) 3 QLoRA steps (nf4 base, rank-8 bf16
@@ -202,6 +212,8 @@ M_TRAIN = TRAIN_BATCH * TRAIN_SEQ
 T_SHAPES = {(2048, 2048): 2 * 22 - 1, (2048, 256): 2 * 22 - 2, (2048, 5632): 2 * 22,
             (5632, 2048): 22, (2048, 32000): 1}
 PER_BACKWARD = sum(T_SHAPES.values())  # 152
+# Llama-2-7B's (K, N) and its QLoRA backward's M (batch 1 x seq 1024)
+T_SHAPES_7B, M_TRAIN_7B = ((4096, 4096), (4096, 11008), (11008, 4096)), 1024
 # adapter leaves per step by blocks of 256: A of wq and wv and B of wq
 # (2048 x 8 or 8 x 2048: 64 blocks), B of wv (8 x 256: 8 blocks)
 ADAM_LEAVES = {64: 3 * 22, 8: 22}
@@ -235,16 +247,20 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # PERF.md's kernel table records them: the first port's flash kernels at
 # TinyLlama's shape (wmma through shared memory, no cp.async); its
 # matmul_8bit and matmul_4bit (64x64 wmma tiles, no split-K, no pipeline)
-# a decode step's 155 calls at M=8 (int8, nf4a); its matmul_8bit_t a QLoRA
-# backward's 152 int8 calls at M=2048; and per call (µs) at the shapes
-# named. Printed on a line of their own, apart from the kernels line's
-# measured times.
+# a decode step's 155 calls at M=8 (int8, nf4a); its matmul_8bit_t and
+# matmul_4bit_t a QLoRA backward's 152 calls at M=2048 (int8, nf4); its
+# matmul_int4c (64x64 wmma s8 tiles, no split-K, no pipeline) a decode
+# step's 155 calls at M=8; and per call (µs) at the shapes named. Printed
+# on a line of their own, apart from the kernels line's measured times.
 EARLIER_MS = {"flash_bwd_dq": 0.2697, "flash_bwd_dkv": 0.7539, "flash_fwd": 0.1999,
-              "matmul_8bit": 23.588, "matmul_4bit": 20.954, "matmul_8bit_t": 79.827}
+              "matmul_8bit": 23.588, "matmul_4bit": 20.954, "matmul_8bit_t": 79.827,
+              "matmul_4bit_t": 67.866, "matmul_int4c": 10.977}
 EARLIER_US = {
     "matmul_8bit": {"M8_2048x5632": 120.4, "M8_5632x2048": 361.4, "M2048_2048x5632": 784.4},
     "matmul_4bit": {"M8_2048x5632": 105.3},
     "matmul_8bit_t": {"M2048_2048x5632": 894.2},
+    "matmul_4bit_t": {"M2048_2048x5632": 798.5},
+    "matmul_int4c": {"M8_2048x5632": 58.6},
 }
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
@@ -275,6 +291,9 @@ MM8T_MID_MS = (64, 256)  # matmul_8bit_t: one and two of its 128-row tiles
 FOUR_BIT = ("nf4a", "nf4", "int4", "fp4")
 MM4_MS = (8, 16, 32, 64, 256, M_TRAIN)
 MM4_RAGGED = (2048, 200, 77)
+# matmul_int4c: decode (8 slots), the top of its decode design, and
+# decode_bench's and serve's prefill (batch 8 x 128 tokens)
+I4C_MS = (8, 32, 1024)
 CALIB_BATCHES, CALIB_SEQ = 8, 256
 PPL_TOKENS, PPL_SEQ, PPL_BATCH = 32768, 256, 8
 PTQ_PPL_REL = 1e-2
@@ -354,18 +373,20 @@ def kernel_checks(dev, work):
     for M in ``MM4_MS`` (both sides of its decode/prefill split) and at
     ``MM4_RAGGED``, every 16-entry codebook, within 2 bf16 ulps of
     max|plain|, bit-identical over two calls, its design per row; and
-    matmul_int4c bit for bit at M in {8, 1024}. µs per call with the
-    weights rotated past the L2. Returns ms of one decode step's calls
-    (M=8; nf4a for matmul_4bit) as [kernel, plain], for matmul_4bit also
-    the dense control (cuBLAS ``torch.matmul`` of the dequantized bf16
-    weights) and the same three for one QLoRA forward's calls (M=2048,
-    nf4); the matmul_4bit µs that ``EARLIER_US`` names; the largest
-    errors."""
+    matmul_int4c bit for bit at M in ``I4C_MS``, its design per row. µs
+    per call with the weights rotated past the L2. Returns ms of one
+    decode step's calls (M=8; nf4a for matmul_4bit) as [kernel, plain],
+    for matmul_4bit also the dense control (cuBLAS ``torch.matmul`` of the
+    dequantized bf16 weights) and the same three for one QLoRA forward's
+    calls (M=2048, nf4), for matmul_int4c the same three for one prefill
+    forward's calls (M=1024; dense: ``torch._int_mm`` of the int8
+    activations and the unpacked int8 weight); the µs that ``EARLIER_US``
+    names; the largest errors."""
     gen = torch.Generator(device=dev).manual_seed(1)
     per_step = {"matmul_4bit": [0.0] * 3, "matmul_int4c": [0.0, 0.0],
-                "matmul_4bit_qlora_forward": [0.0] * 3}
+                "matmul_4bit_qlora_forward": [0.0] * 3, "matmul_int4c_prefill": [0.0] * 3}
     max_err = {"matmul_4bit": 0.0, "matmul_int4c": 0.0}
-    per_call = {}
+    per_call = {"matmul_4bit": {}, "matmul_int4c": {}}
     cases = [(k, n, m) for (k, n) in SHAPES for m in MM4_MS] + [MM4_RAGGED]
     for k, n, m in cases:
         count = SHAPES.get((k, n), 0)
@@ -409,7 +430,7 @@ def kernel_checks(dev, work):
                     add_work(work, "matmul_4bit", nbytes(x, qt.codes, qt.scale, out),
                              2 * m * k * n, count)
             if fmt == "nf4a" and f"M{m}_{k}x{n}" in EARLIER_US["matmul_4bit"]:
-                per_call[f"M{m}_{k}x{n}"] = row["us"]
+                per_call["matmul_4bit"][f"M{m}_{k}x{n}"] = row["us"]
             if m >= 256:
                 row["tflops"] = 2 * m * k * n / (row["us"] * 1e-6) / 1e12
             emit(kernel_check=row)
@@ -417,9 +438,12 @@ def kernel_checks(dev, work):
         # int4c: the kernel on the activations the wrapper quantizes
         w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
         qw = int4c.quantize_int4c_weight(w)
-        for m in (8, 1024):
+        # the unpacked int8 weight of the dense control (torch._int_mm), row-
+        # major and column-major: the faster of the two is the control
+        w8 = int4c._unpack_values(qw.codes).to(torch.int8)
+        for m in I4C_MS:
             x2 = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16).float()
-            iters = 50 if m == 8 else 10
+            iters = 50 if m <= 32 else 10
             rs = torch.clamp(x2.abs().amax(dim=1) / 127.0, min=1e-12)
             xq = torch.clamp(torch.round(x2 / rs[:, None]), -127, 127).to(torch.int8)
 
@@ -432,14 +456,28 @@ def kernel_checks(dev, work):
             check(torch.equal(out, ref), f"matmul_int4c M={m} K={k} N={n} not bit-exact: {err}")
             ws = copies_past_l2(qw.codes, qw.scale)
             ms, plain_ms = time_ms(run_c(True, ws), iters), time_ms(run_c(False, ws), iters)
+            row = dict(kernel="matmul_int4c", fmt="int4c", M=m, K=k, N=n, max_abs_err=err,
+                       tol=0.0, us=ms * 1e3, plain_us=plain_ms * 1e3,
+                       tops=2 * m * k * n / (ms * 1e-3) / 1e12,
+                       design=int4c.matmul_int4c_design(m, n, k))
+            if m > 16:  # torch._int_mm takes M > 16 only
+                for layout in ("row", "col"):
+                    dense = [d.T.contiguous().T if layout == "col" else d
+                             for (d,) in copies_past_l2(w8)]
+                    us = time_ms(lambda i: torch._int_mm(xq, dense[i % len(dense)]), iters) * 1e3
+                    if us < row.get("dense_us", math.inf):
+                        row.update(dense_us=us, dense_layout=layout)
             if m == 8:
                 per_step["matmul_int4c"][0] += count * ms
                 per_step["matmul_int4c"][1] += count * plain_ms
                 add_work(work, "matmul_int4c", nbytes(xq, qw.codes, rs, qw.scale, out),
                          2 * m * k * n, count)
-            emit(kernel_check=dict(kernel="matmul_int4c", fmt="int4c", M=m, K=k, N=n,
-                                   max_abs_err=err, tol=0.0, us=ms * 1e3,
-                                   plain_us=plain_ms * 1e3))
+            if m == 1024:
+                for j, key in enumerate(("us", "plain_us", "dense_us")):
+                    per_step["matmul_int4c_prefill"][j] += count * row[key] / 1e3
+            if f"M{m}_{k}x{n}" in EARLIER_US["matmul_int4c"]:
+                per_call["matmul_int4c"][f"M{m}_{k}x{n}"] = row["us"]
+            emit(kernel_check=row)
     return per_step, per_call, max_err
 
 
@@ -674,18 +712,24 @@ def serve_rows(cfg, params_by_fmt):
 
 
 def transposed_checks(dev, work):
-    """matmul_4bit_t at the backward's shapes (M = 2048), bf16 g in nf4 and
-    nf4a within 2 bf16 ulps of max|plain|, and one f32 shape; µs per call
-    with the weights rotated past the L2. Returns one backward's calls
-    (nf4) in ms, kernel and plain, and the largest error."""
+    """matmul_4bit_t at the backward's shapes (TinyLlama's at M = 2048,
+    Llama-2-7B's at M = 1024), bf16 g in nf4 and nf4a within 2 bf16 ulps of
+    max|plain| and bit-identical over two calls, its design per row, and
+    one f32 shape; µs per call with the weights rotated past the L2.
+    Returns one TinyLlama backward's calls (nf4) in ms, [kernel, plain,
+    dense] (dense: cuBLAS ``g @ W_deq^T`` of the dequantized bf16 weight),
+    the µs that ``EARLIER_US`` names, and the largest error."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    per_step, max_err = [0.0, 0.0], 0.0
-    cases = [(k, n, fmt, torch.bfloat16) for (k, n) in T_SHAPES for fmt in ("nf4", "nf4a")]
-    cases.append((2048, 5632, "nf4", torch.float32))
-    for k, n, fmt, dtype in cases:
+    per_step, per_call, max_err = [0.0] * 3, {}, 0.0
+    cases = [(k, n, m, fmt, torch.bfloat16)
+             for (k, n), m in [(s, M_TRAIN) for s in T_SHAPES] + [(s, M_TRAIN_7B)
+                                                                  for s in T_SHAPES_7B]
+             for fmt in ("nf4", "nf4a")]
+    cases.append((*F32_SHAPE[:2], M_TRAIN, "nf4", torch.float32))
+    for k, n, m, fmt, dtype in cases:
         w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
         qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
-        g = torch.randn((M_TRAIN, n), generator=gen, device=dev).to(dtype)
+        g = torch.randn((m, n), generator=gen, device=dev).to(dtype)
 
         def run(use_kernel, ws):
             return lambda i: matmul.matmul_4bit_t(g, *ws[i % len(ws)], codebook=fmt, block=64,
@@ -695,22 +739,33 @@ def transposed_checks(dev, work):
         err = (out.float() - ref.float()).abs().max().item()
         rel = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-5
         tol = rel * ref.float().abs().max().item()
-        check(out.shape == (M_TRAIN, qt.codes.shape[0] * 2) and torch.isfinite(out).all().item(),
+        check(out.shape == (m, qt.codes.shape[0] * 2) and torch.isfinite(out).all().item(),
               f"matmul_4bit_t {fmt} K={k} N={n}: bad output")
-        check(err <= tol, f"matmul_4bit_t {fmt} {dtype} K={k} N={n}: err {err} > {tol}")
+        check(err <= tol, f"matmul_4bit_t {fmt} {dtype} M={m} K={k} N={n}: err {err} > {tol}")
         ws = copies_past_l2(qt.codes, qt.scale)
-        ms, plain_ms = time_ms(run(True, ws), 10), time_ms(run(False, ws), 10)
+        ms = time_ms(run(True, ws), 10)
         max_err = max(max_err, err)
-        if fmt == "nf4" and dtype == torch.bfloat16:
-            per_step[0] += T_SHAPES[(k, n)] * ms
-            per_step[1] += T_SHAPES[(k, n)] * plain_ms
+        row = dict(kernel="matmul_4bit_t", fmt=fmt, dtype=str(dtype), M=m, K=k, N=n,
+                   max_abs_err=err, tol=tol, us=ms * 1e3,
+                   tflops=2 * m * k * n / (ms * 1e-3) / 1e12)
+        if dtype == torch.bfloat16:
+            same = torch.equal(out, run(True, [(qt.codes, qt.scale)])(0))
+            check(same, f"matmul_4bit_t {fmt} M={m} K={k} N={n}: two calls differ")
+            row.update(bit_identical_over_two_calls=same,
+                       design=matmul.matmul_4bit_t_design(m, n, k))
+        if fmt == "nf4" and (m, dtype) == (M_TRAIN, torch.bfloat16):
+            wd = matmul._dequant_4bit(qt.codes, qt.scale, fmt, 64, torch.bfloat16)[:k]
+            dense = [d.T.contiguous() for (d,) in copies_past_l2(wd)]
+            row["plain_us"] = time_ms(run(False, ws), 10) * 1e3
+            row["dense_us"] = time_ms(lambda i: g @ dense[i % len(dense)], 10) * 1e3
+            for j, key in enumerate(("us", "plain_us", "dense_us")):
+                per_step[j] += T_SHAPES[(k, n)] * row[key] / 1e3
             add_work(work, "matmul_4bit_t", nbytes(g, qt.codes, qt.scale, out),
-                     2 * M_TRAIN * k * n, T_SHAPES[(k, n)])
-        emit(kernel_check=dict(kernel="matmul_4bit_t", fmt=fmt, dtype=str(dtype), M=M_TRAIN,
-                               K=k, N=n, max_abs_err=err, tol=tol, us=ms * 1e3,
-                               plain_us=plain_ms * 1e3,
-                               tflops=2 * M_TRAIN * k * n / (ms * 1e-3) / 1e12))
-    return per_step, max_err
+                     2 * m * k * n, T_SHAPES[(k, n)])
+            if f"M{m}_{k}x{n}" in EARLIER_US["matmul_4bit_t"]:
+                per_call[f"M{m}_{k}x{n}"] = row["us"]
+        emit(kernel_check=row)
+    return per_step, per_call, max_err
 
 
 def adam_checks(dev, work):
@@ -1454,7 +1509,7 @@ def main():
         emit(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
     with timed("9 qlora nf4"):
-        t_step, max_err["matmul_4bit_t"] = transposed_checks(dev, work)
+        t_step, t_per_call, max_err["matmul_4bit_t"] = transposed_checks(dev, work)
         adam_step, max_err["adam8bit_update"] = adam_checks(dev, work)
         train_launches = qlora_path(dev, cfg, params["nf4"])
         launches["matmul_4bit"] += train_launches["matmul_4bit"]
@@ -1509,11 +1564,13 @@ def main():
     measured["matmul_8bit"] = eight_step[("matmul_8bit", 8)][0]
     measured["matmul_4bit"] = per_step["matmul_4bit"][0]
     measured["matmul_8bit_t"] = eight_step[("matmul_8bit_t", M_TRAIN)][0]
+    measured["matmul_4bit_t"] = t_step[0]
+    measured["matmul_int4c"] = per_step["matmul_int4c"][0]
     emit(earlier_times=dict(
         note="PERF.md's times of the designs before the Hopper redesigns, at the same work, "
              "not measured in this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},
         per_call_us=EARLIER_US, measured_ms=measured,
-        measured_per_call_us={"matmul_4bit": mm4_per_call, **eight_per_call}))
+        measured_per_call_us={**mm4_per_call, **eight_per_call, "matmul_4bit_t": t_per_call}))
     emit(kernels=[
         entry("matmul_4bit", "matmul_4bit.cu", "quanta_tpu/ops/matmul.py:204",
               launches["matmul_4bit"], *per_step["matmul_4bit"][:2], "bf16",
@@ -1524,7 +1581,12 @@ def main():
               dense_control_ms=per_step["matmul_4bit"][2],
               qlora_forward_ms=per_step["matmul_4bit_qlora_forward"]),
         entry("matmul_int4c", "int4c.cu", "quanta_tpu/ops/int4c.py:116",
-              launches["matmul_int4c"], *per_step["matmul_int4c"], "int8", at),
+              launches["matmul_int4c"], *per_step["matmul_int4c"], "int8",
+              at + "; library: none, no PyTorch call unpacks 4-bit codes or applies row and "
+              "column scales (prefill_forward_ms: one prefill forward's 155 calls at M=1024 as "
+              "[kernel, plain, dense], dense: torch._int_mm of the int8 activations and the "
+              "unpacked int8 weight, which takes M > 16 only)",
+              prefill_forward_ms=per_step["matmul_int4c_prefill"]),
         entry("matmul_int8_fused", "int8mm.cu", "quanta_tpu/ops/int8mm.py:167",
               launches["matmul_int8_fused"], *per_step["matmul_int8_fused"], "int8", at),
         entry("matmul_int8", "int8mm.cu", "quanta_tpu/ops/int8mm.py:235",
@@ -1533,8 +1595,10 @@ def main():
               launches["quantize_blockwise"], q_ms, q_plain_ms, "f32",
               "one call at a window's KV write (22 x 8 x 8 x 4 x 64 bf16), ms"),
         entry("matmul_4bit_t", "matmul_4bit_t.cu", "quanta_tpu/ops/matmul.py:423",
-              train_launches["matmul_4bit_t"], *t_step, "bf16",
-              "one QLoRA backward's 152 calls at M=2048, bf16 g, nf4, ms"),
+              train_launches["matmul_4bit_t"], *t_step[:2], "bf16",
+              "one QLoRA backward's 152 calls at M=2048, bf16 g, nf4, ms; library: none "
+              "(dense_control_ms: cuBLAS g @ W_deq^T of the dequantized bf16 weights)",
+              dense_control_ms=t_step[2]),
         entry("adam8bit_update", "adam8bit.cu", "quanta_tpu/ops/adam8bit.py:72",
               train_launches["adam8bit_update"], *adam_step, "f32",
               "one QLoRA step's 88 adapter calls (66 of 64 blocks, 22 of 8), ms"),

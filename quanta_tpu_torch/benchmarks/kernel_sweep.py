@@ -1,12 +1,14 @@
-"""Time the bf16 ``flash_fwd``, ``matmul_8bit``, ``matmul_4bit`` and
-``matmul_8bit_t`` kernels across shapes.
+"""Time the bf16 ``flash_fwd``, ``matmul_8bit``, ``matmul_4bit``,
+``matmul_8bit_t`` and ``matmul_4bit_t`` kernels and ``matmul_int4c`` across
+shapes.
 
-    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8 mm4 mm8t] [--ms 8 32]
+    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8 mm4 mm8t mm4t i4c] [--ms 8 32]
 
 To try a design choice of ``csrc/flash_fwd.cu``, ``csrc/matmul_8bit.cu``,
-``csrc/matmul_4bit.cu`` or ``csrc/matmul_8bit_t.cu`` (warpgroups, ring
-stages, the decode/prefill split, the prefill tile), edit its constant,
-which rebuilds the library, and run this again. One JSON object per line:
+``csrc/matmul_4bit.cu``, ``csrc/matmul_8bit_t.cu``, ``csrc/matmul_4bit_t.cu``
+or ``csrc/int4c.cu`` (warpgroups, ring stages, the decode/prefill split,
+the tile widths), edit its constant, which rebuilds the library, and run
+this again. One JSON object per line:
 
 - ``flash``: the forward (``save_lse=True``, the training call) at
   TinyLlama-1.1B's (B=2, S=T=1024, 32/4 heads, hd 64) and Llama-2-7B's
@@ -19,7 +21,14 @@ which rebuilds the library, and run this again. One JSON object per line:
   with the design each takes (the decode/prefill crossover, the ring
   depths);
 - ``mm8t``: ``matmul_8bit_t`` (int8 codes, bf16 g) at the five TinyLlama
-  (K, N) for M in {256, 1024, 2048} (the tile widths).
+  (K, N) for M in {256, 1024, 2048} (the tile widths);
+- ``mm4t``: ``matmul_4bit_t`` (nf4 codes, bf16 g) at the five TinyLlama
+  (K, N) and Llama-2-7B's three for M in {256, 1024, 2048}, with the
+  design each takes (the tile widths, the ring depth);
+- ``i4c``: ``matmul_int4c`` (the quantizer's codes and the wrapper's int8
+  activations) at the five TinyLlama (K, N) for M in {8, 16, 32, 64, 256,
+  1024, 2048}, with the design each takes (the decode/prefill crossover,
+  the ring depths).
 
 ``--ms`` keeps only the M named (of the matmul rows).
 
@@ -39,11 +48,12 @@ import subprocess
 import torch
 
 from quanta_tpu_torch.core import codecs
-from quanta_tpu_torch.ops import attention, matmul
+from quanta_tpu_torch.ops import attention, int4c, matmul
 
 FLASH_SHAPES = {"tinyllama_s1024": (2, 1024, 32, 4, 64), "llama2_7b_s1024": (1, 1024, 32, 32, 128)}
 MM8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
 MM8_MS = (8, 16, 32, 64, 256, 1024, 2048)
+MM4T_SHAPES = MM8_SHAPES + [(4096, 4096), (4096, 11008), (11008, 4096)]
 L2_BYTES = 50 * 2**20
 
 
@@ -143,10 +153,48 @@ def mm8t_rows(dev, pick):
                  ok=err <= tol)
 
 
+def mm4t_rows(dev, pick):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for k, n in MM4T_SHAPES:
+        qt, ws = _weights(gen, dev, k, n, "nf4")
+        for m in pick((256, 1024, 2048)):
+            g = torch.randn((m, n), generator=gen, device=dev).to(torch.bfloat16)
+            ref = matmul.matmul_4bit_t(g, qt.codes, qt.scale, codebook="nf4", use_kernel=False)
+            out = matmul.matmul_4bit_t(g, qt.codes, qt.scale, codebook="nf4")
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = time_ms(lambda i: matmul.matmul_4bit_t(g, *ws[i % len(ws)], codebook="nf4"), 10)
+            tol = 2 * 2.0 ** -7 * ref.float().abs().max().item()
+            emit(sweep="matmul_4bit_t", M=m, K=k, N=n, us=ms * 1e3,
+                 tflops=2 * m * k * n / (ms * 1e-3) / 1e12, max_abs_err=err, tol=tol,
+                 ok=err <= tol, design=matmul.matmul_4bit_t_design(m, n, k))
+
+
+def i4c_rows(dev, pick):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for k, n in MM8_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        qw = int4c.quantize_int4c_weight(w)
+        copies = max(1, min(64, math.ceil(2 * L2_BYTES / (qw.codes.numel() + 4 * n))))
+        ws = [(qw.codes.clone(), qw.scale.clone()) for _ in range(copies)]
+        for m in pick(MM8_MS):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            rs = torch.clamp(x.abs().amax(dim=1) / 127.0, min=1e-12)
+            xq = torch.clamp(torch.round(x / rs[:, None]), -127, 127).to(torch.int8)
+            out = int4c.matmul_int4c_kernel(xq, qw.codes, rs, qw.scale)
+            exact = torch.equal(out, int4c.matmul_int4c_kernel(xq, qw.codes, rs, qw.scale,
+                                                               use_kernel=False))
+            ms = time_ms(lambda i: int4c.matmul_int4c_kernel(xq, ws[i % len(ws)][0], rs,
+                                                             ws[i % len(ws)][1]),
+                         50 if m <= 64 else 10)
+            emit(sweep="matmul_int4c", M=m, K=k, N=n, us=ms * 1e3,
+                 tops=2 * m * k * n / (ms * 1e-3) / 1e12, ok=exact,
+                 design=int4c.matmul_int4c_design(m, n, k))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--what", nargs="+", choices=("flash", "mm8", "mm4", "mm8t"),
-                    default=["flash", "mm8", "mm4", "mm8t"])
+    ap.add_argument("--what", nargs="+", choices=("flash", "mm8", "mm4", "mm8t", "mm4t", "i4c"),
+                    default=["flash", "mm8", "mm4", "mm8t", "mm4t", "i4c"])
     ap.add_argument("--ms", nargs="+", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -166,6 +214,10 @@ def main(argv=None):
         mm4_rows(dev, pick)
     if "mm8t" in args.what:
         mm8t_rows(dev, pick)
+    if "mm4t" in args.what:
+        mm4t_rows(dev, pick)
+    if "i4c" in args.what:
+        i4c_rows(dev, pick)
 
 
 if __name__ == "__main__":

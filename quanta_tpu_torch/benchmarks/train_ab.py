@@ -1,6 +1,6 @@
 """Time QLoRA train steps of two checkouts of this repository, in turns.
 
-    python -m quanta_tpu_torch.benchmarks.train_ab DIR_A DIR_B [--rounds 2] [--decode nf4a]
+    python -m quanta_tpu_torch.benchmarks.train_ab DIR_A DIR_B [--rounds 2] [--decode nf4a] [--kernels]
 
 One subprocess a run, in the order A, B, B, A (two rounds), each started in
 its checkout's root, so that it imports that checkout's ``quanta_tpu_torch``,
@@ -18,8 +18,14 @@ One JSON line a run: ``{"dir": ..., "run": i, "rows": [...]}``. With
 ``--decode FMT`` the same order then runs ``decode_bench.measure`` (greedy
 decode of the full TinyLlama-1.1B, batch 8, prompt 128, cache 512) on FMT
 weights in each checkout: one line ``{"dir": ..., "run": i, "decode":
-{...}}`` a run. Comparing two versions holds only within one call, on one
-card.
+{...}}`` a run. With ``--kernels`` it first times, in the same order and
+through each checkout's own wrappers, ``matmul_4bit_t`` (nf4, bf16 g) at
+the TinyLlama-1.1B backward's (K, N) for M = 2048 and Llama-2-7B's for M =
+1024, and ``matmul_int4c`` at the TinyLlama (K, N) for M in {8, 32, 1024}
+(µs a call, weights rotated past the 50 MB L2; plus a QLoRA backward's
+152 ``matmul_4bit_t`` calls and a decode step's 155 ``matmul_int4c`` calls
+in ms): one line ``{"dir": ..., "run": i, "kernels": {...}}`` a run.
+Comparing two versions holds only within one call, on one card.
 """
 
 from __future__ import annotations
@@ -72,6 +78,57 @@ print(json.dumps(decode_bench.measure(decode_bench.quantized(dense, %r), cfg)))
 """
 
 
+KERNEL_CHILD = """
+import json, math, torch
+from quanta_tpu_torch.core import codecs
+from quanta_tpu_torch.ops import int4c, matmul
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+gen = torch.Generator(device=dev).manual_seed(0)
+def time_us(fn, iters):
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10**8)
+    a.record()
+    for i in range(iters):
+        fn(i)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters * 1e3
+def copies(*ts):
+    n = sum(t.numel() * t.element_size() for t in ts)
+    return [tuple(t.clone() for t in ts) for _ in range(min(64, max(1, math.ceil(2 * 50 * 2**20 / n))))]
+t_shapes = {(2048, 2048): 43, (2048, 256): 42, (2048, 5632): 44, (5632, 2048): 22, (2048, 32000): 1}
+shapes = {(2048, 2048): 44, (2048, 256): 44, (2048, 5632): 44, (5632, 2048): 22, (2048, 32000): 1}
+res = {"matmul_4bit_t": {}, "matmul_int4c": {}, "backward_ms": 0.0, "decode_step_ms": 0.0}
+for (k, n), m in [(s, 2048) for s in t_shapes] + [((4096, 4096), 1024), ((4096, 11008), 1024),
+                                                    ((11008, 4096), 1024)]:
+    w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+    qt = codecs.quantize_matmul_weight(w, fmt="nf4", block_size=64)
+    g = torch.randn((m, n), generator=gen, device=dev).to(torch.bfloat16)
+    ws = copies(qt.codes, qt.scale)
+    us = time_us(lambda i: matmul.matmul_4bit_t(g, *ws[i % len(ws)], codebook="nf4"), 10)
+    res["matmul_4bit_t"][f"M{m}_{k}x{n}"] = us
+    res["backward_ms"] += t_shapes.get((k, n), 0) * us / 1e3 if m == 2048 else 0.0
+for (k, n), count in shapes.items():
+    qw = int4c.quantize_int4c_weight((torch.randn((k, n), generator=gen, device=dev)
+                                      / math.sqrt(k)).to(torch.bfloat16))
+    ws = copies(qw.codes, qw.scale)
+    for m in (8, 32, 1024):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        rs = torch.clamp(x.abs().amax(dim=1) / 127.0, min=1e-12)
+        xq = torch.clamp(torch.round(x / rs[:, None]), -127, 127).to(torch.int8)
+        us = time_us(lambda i: int4c.matmul_int4c_kernel(xq, ws[i % len(ws)][0], rs,
+                                                         ws[i % len(ws)][1]),
+                     50 if m <= 32 else 10)
+        res["matmul_int4c"][f"M{m}_{k}x{n}"] = us
+        res["decode_step_ms"] += count * us / 1e3 if m == 8 else 0.0
+print(json.dumps(res))
+"""
+
+
 def run_one(root: str, script: str) -> list[dict] | dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
@@ -88,9 +145,12 @@ def main(argv=None):
     ap.add_argument("dir_b")
     ap.add_argument("--rounds", type=int, default=2, help="A, B, B, A per two rounds")
     ap.add_argument("--decode", metavar="FMT", help="then decode_bench on FMT weights")
+    ap.add_argument("--kernels", action="store_true",
+                    help="first time matmul_4bit_t and matmul_int4c in each checkout")
     args = ap.parse_args(argv)
     order = [args.dir_a, args.dir_b]
-    jobs = [("rows", CHILD % (ROWS,))]
+    jobs = [("kernels", KERNEL_CHILD)] if args.kernels else []
+    jobs.append(("rows", CHILD % (ROWS,)))
     if args.decode:
         jobs.append(("decode", DECODE_CHILD % args.decode))
     for key, script in jobs:

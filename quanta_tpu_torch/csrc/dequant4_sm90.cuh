@@ -1,5 +1,5 @@
 // split_k-packed 4-bit weights dequantized for the Hopper designs of
-// matmul_4bit.cu.
+// matmul_4bit.cu and matmul_4bit_t.cu.
 //
 // Codes are (K2, N) bytes, K2 = K_pad / 2: the low nibble of byte (k, n) is
 // row k of W, the high nibble row K2 + k. Scales are f32 (K_pad / block,
@@ -29,6 +29,13 @@
 // is the MN-major B of out = x @ W, and the x tile (a swizzled Tile<64>)
 // follows the same K order: chunks 0-3 of a row hold x[:, kp:kp+32],
 // chunks 4-7 x[:, K2+kp:K2+kp+32].
+//
+// Transposed tile (matmul_4bit_t.cu). A staged slab of 64 packed rows x 64
+// columns dequantizes into one 128-row Tile<64> (rows = dx columns,
+// columns = N): the low nibbles in rows 0-63 (dx columns j0..j0+63), the
+// high ones in rows 64-127 (K2+j0..K2+j0+63), the K order above read the
+// other way. Under Tile<64>::k_major it is the K-major B of dx = g @ W^T,
+// as matmul_8bit_t's tile is (dequant8_sm90.cuh).
 
 #pragma once
 
@@ -136,6 +143,68 @@ __device__ __forceinline__ void dequant4_slab(uint32_t tile, const unsigned char
       deq_nibbles8(packed, raws[it], h, s[h], lv, lane);
       asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
                    ::"r"(tile + Tile<128>::offset(32 * h + r, c)), "r"(packed[0]),
+                   "r"(packed[1]), "r"(packed[2]), "r"(packed[3])
+                   : "memory");
+    }
+  }
+}
+
+// Packed rows [j0, j0 + 64) x columns [n0, n0 + 64) of the codes into a raw
+// slab of 64 rows of 64 bytes (zeros past K2 or N): the transposed
+// product's (matmul_4bit_t.cu).
+__device__ __forceinline__ void stage_code_slab4_t(unsigned char* slab, uint32_t slab_s,
+                                                   const uint8_t* __restrict__ codes, int j0,
+                                                   int n0, int K2, int N, int tid, int nt) {
+  for (int i = tid; i < 64 * 4; i += nt) {
+    const int r = i / 4, c = (i % 4) * 16;
+    stage_codes16(slab + r * 64 + c, slab_s + r * 64 + c, codes, j0 + r, n0 + c, K2, N);
+  }
+}
+
+// Dequantize a staged transposed slab (packed rows [j0, j0 + 64), columns
+// [n0, n0 + 64) of N) into the 128-row Tile<64> at shared address `tile`
+// (rows = dx columns, columns = N): the low nibbles of packed row j0 + r in
+// row r (dx column j0 + r), the high ones in row 64 + r (dx column K2 + j0
+// + r). Read K-major it is the B of dx = g @ W^T. Each of the NT threads
+// takes 8 code bytes of 64 * 8 / NT packed rows, loading all of them
+// first, and writes a 16-byte chunk to each half. `srow` is the slab's
+// four staged scale rows, 64 floats each: the low half's for packed rows
+// j0.. and j0 + 32.., then the high half's (block and K2 multiples of 32),
+// or null: then each K row reads its own scales from device memory, zeros
+// past K2 in either half. Columns past N give zeros; rows past K2 reach
+// only dx columns the store drops.
+template <int NT>
+__device__ __forceinline__ void dequant4_slab_t(uint32_t tile, const unsigned char* slab,
+                                                const float* srow,
+                                                const float* __restrict__ scales,
+                                                const float* lv, int j0, int n0, int K2, int N,
+                                                int block, int tid) {
+  static_assert(NT % 8 == 0 && (64 * 8) % NT == 0, "whole rows of chunks");
+  constexpr int PER = 64 * 8 / NT, ROW_STEP = NT / 8;
+  const int lane = tid % 32, c = tid % 8, r0 = tid / 8, n = n0 + 8 * c;
+  uint2 raws[PER];
+#pragma unroll
+  for (int it = 0; it < PER; ++it)
+    raws[it] = *reinterpret_cast<const uint2*>(slab + (r0 + it * ROW_STEP) * 64 + 8 * c);
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int r = r0 + it * ROW_STEP;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s[8];
+      if (srow != nullptr) {
+        const float* sr = srow + 64 * (2 * h + r / 32) + 8 * c;
+        const float4 a = *reinterpret_cast<const float4*>(sr);
+        const float4 b = *reinterpret_cast<const float4*>(sr + 4);
+        s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+        s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+      } else {
+        load_scales8(s, scales, h * K2 + j0 + r, n, (h + 1) * K2, N, block);
+      }
+      uint32_t packed[4];
+      deq_nibbles8(packed, raws[it], h, s, lv, lane);
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                   ::"r"(tile + Tile<64>::offset(64 * h + r, c)), "r"(packed[0]),
                    "r"(packed[1]), "r"(packed[2]), "r"(packed[3])
                    : "memory");
     }

@@ -79,6 +79,8 @@ _SIGNATURES = {
     "qt_matmul_8bit_design": [_I] * 3 + [_P],
     # M, N, K2, out (int[11])
     "qt_matmul_4bit_design": [_I] * 3 + [_P],
+    "qt_matmul_4bit_t_design": [_I] * 3 + [_P],
+    "qt_matmul_int4c_design": [_I] * 3 + [_P],
 }
 
 launches: dict[str, int] = {"matmul_4bit": 0, "matmul_4bit_t": 0, "matmul_8bit": 0,

@@ -5,7 +5,9 @@ f32 scale per output column (absmax/7), split_k-packed two per byte and
 biased by +8; activations are row-quantized to int8 (absmax/127) in plain
 torch, as the JAX package does it in XLA outside its kernel. The GEMM is
 ``csrc/int4c.cu`` (it replaces the Pallas ``_mm_i4c_kernel``): int8 x int8
--> int32, then ``acc * row_scale * col_scale``.
+-> int32, then ``acc * row_scale * col_scale``, with two Hopper designs
+picked by M inside the one entry point (split-K int8 ``mma.sync`` for
+decode, int8 wgmma tiles above; :func:`matmul_int4c_design` says which).
 
 The plain version computes the integer product as an f32 matmul of the
 integer values: ``int8 @ int8`` in torch returns int8 on the CPU (and
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from quanta_tpu_torch.ops import _build
-from quanta_tpu_torch.ops.matmul import _aligned
+from quanta_tpu_torch.ops.matmul import _aligned, _design
 
 _EPS = 1e-12
 _EXACT_F32 = 2**24
@@ -127,6 +129,18 @@ def matmul_int4c_kernel(
         _build.check(rc, "matmul_int4c")
         _build.launches["matmul_int4c"] += 1
     return out
+
+
+def matmul_int4c_design(m, n, k):
+    """How the ``matmul_int4c`` kernel launches for xq (m, k) and packed
+    codes (k / 2, n), k = K_pad, on this card: the keys of
+    ``matmul.matmul_8bit_design``, ``design`` "decode" (split-K int8
+    ``mma.sync``, memory bound) or "prefill" (int8 wgmma tiles of 128 rows),
+    its grid, K split, blocks per SM, registers, shared and spill bytes,
+    stages and rows of xq a block."""
+    if k % 2:
+        raise ValueError(f"k={k}: split_k packing needs an even K_pad")
+    return _design("qt_matmul_int4c_design", "matmul_int4c", m, n, k // 2)
 
 
 def matmul_int4c(

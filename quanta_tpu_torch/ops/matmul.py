@@ -11,7 +11,8 @@ is laid out. The bf16 ``matmul_4bit`` and ``matmul_8bit`` kernels each have
 two Hopper designs, picked by M inside the one entry point (split-K
 ``mma.sync`` for decode, wgmma tiles above); :func:`matmul_4bit_design` and
 :func:`matmul_8bit_design` report which one a shape takes. The bf16
-``matmul_8bit_t`` kernel is wgmma tiles over the same dequantized tile.
+``matmul_4bit_t`` and ``matmul_8bit_t`` kernels are wgmma dx tiles over a
+dequantized tile read K-major (:func:`matmul_4bit_t_design`).
 
 Layouts (``core.codecs.quantize_matmul_weight``): scales ``(K_pad/block,
 N_pad)`` f32; 4-bit codes ``(K_pad/2, N_pad)`` uint8 split_k-packed, 8-bit
@@ -212,6 +213,17 @@ def matmul_4bit_design(m, n, k):
     return _design("qt_matmul_4bit_design", "matmul_4bit", m, n, k // 2)
 
 
+def matmul_4bit_t_design(m, n, k):
+    """How the bf16 ``matmul_4bit_t`` kernel launches for g (m, n) and
+    split_k-packed codes (k / 2, n), k = K_pad, on this card: the keys of
+    :func:`matmul_8bit_design`, with ``design`` "wgmma" (its one design:
+    tiles of ``rows`` rows of g, 256 where that grid fills at least half
+    the SMs, else 128, by 128 dx columns; no K split)."""
+    if k % 2:
+        raise ValueError(f"k={k}: split_k packing needs an even K_pad")
+    return _design("qt_matmul_4bit_t_design", "matmul_4bit_t", m, n, k // 2, names=("wgmma",))
+
+
 def matmul_4bit_t_reference(
     g: torch.Tensor,
     codes_packed: torch.Tensor,
@@ -350,11 +362,11 @@ _MM_DESIGN_KEYS = ("design", "grid_x", "grid_y", "grid_z", "split", "blocks_per_
                    "registers", "shared_bytes", "spill_bytes", "stages", "rows")
 
 
-def _design(entry, name, m, n, k):
+def _design(entry, name, m, n, k, names=("decode", "prefill")):
     out = (ctypes.c_int * len(_MM_DESIGN_KEYS))()
     _build.check(getattr(_build.library(), entry)(m, n, k, out), name)
     res = dict(zip(_MM_DESIGN_KEYS, out))
-    res["design"] = ("decode", "prefill")[res["design"]]
+    res["design"] = names[res["design"]]
     return res
 
 

@@ -21,8 +21,10 @@ two calls give the same bits. ``matmul_8bit`` and ``matmul_8bit_t``
 read the same 256-entry level table as their plain versions and differ
 only in f32 summation order: bf16 within 2 bf16 ulps of max|plain|, f32
 within 1e-5 of it; the bf16 ``matmul_4bit`` and ``matmul_8bit`` sum their
-split-K partials in a fixed order, and the bf16 ``matmul_8bit_t`` splits
-nothing, so two calls give the same bits too.
+split-K partials in a fixed order, and the bf16 ``matmul_8bit_t`` and
+``matmul_4bit_t`` split nothing, so two calls give the same bits too.
+``matmul_int4c``'s int32 partials are exact in any order: both of its
+designs equal the plain version bit for bit.
 """
 
 import numpy as np
@@ -900,3 +902,153 @@ def test_matmul_8bit_t_bit_identical_over_two_calls(cuda, m, k, n):
     gr = torch.randn((m, n), generator=g, device=cuda).to(torch.bfloat16)
     first = tmm.matmul_8bit_t(gr, codes, scales)
     assert torch.equal(first, tmm.matmul_8bit_t(gr, codes, scales))
+
+
+# The bf16 matmul_4bit_t kernel: wgmma dx tiles of 256 or 128 rows of g by
+# 128 dx columns, the low and high nibbles of 64 packed rows
+# (csrc/matmul_4bit_t.cu), at the (K, N) of the TinyLlama-1.1B and
+# Llama-2-7B linears, block 64, over the 16-entry codebooks; M across
+# both tile widths.
+MM4T_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000),
+               (4096, 4096), (4096, 11008), (11008, 4096)]
+MM4T_MS = [1, 64, 256, 1024, 2048]
+
+
+def _mm4t_check(gr, codes, scales, cb, block):
+    out = tmm.matmul_4bit_t(gr, codes, scales, codebook=cb, block=block)
+    ref = tmm.matmul_4bit_t(gr, codes, scales, codebook=cb, block=block, use_kernel=False)
+    assert out.shape == ref.shape == (gr.shape[0], 2 * codes.shape[0])
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("fmt", FOUR_BIT_CB)
+@pytest.mark.parametrize("m", MM4T_MS)
+def test_matmul_4bit_t_wgmma_matches_plain(cuda, fmt, m):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    for k, n in MM4T_SHAPES:
+        tq = tcore.quantize_matmul_weight(torch.randn((k, n), generator=g, device=cuda) * 0.1,
+                                          fmt=fmt, block_size=64)
+        gr = torch.randn((m, n), generator=g, device=cuda).to(torch.bfloat16)
+        before = _build.launches["matmul_4bit_t"]
+        _mm4t_check(gr, tq.codes, tq.scale, tq.codebook, 64)
+        assert _build.launches["matmul_4bit_t"] == before + 1
+
+
+def test_matmul_4bit_t_ms_take_both_tile_widths(cuda):
+    """256-row tiles where their grid fills at least half the SMs, else 128."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in MM4T_MS:
+        for k, n in MM4T_SHAPES:
+            d = tmm.matmul_4bit_t_design(m, n, k)
+            tiles = (k // 128) * -(-m // 256)
+            assert d["design"] == "wgmma" and d["split"] == 1
+            assert d["rows"] == (256 if 2 * tiles >= sms else 128)
+            assert (d["grid_x"], d["grid_y"]) == (k // 128, -(-m // d["rows"]))
+    if sms == 132:
+        assert tmm.matmul_4bit_t_design(2048, 5632, 2048)["rows"] == 256
+        assert tmm.matmul_4bit_t_design(1024, 5632, 2048)["rows"] == 128
+
+
+@pytest.mark.parametrize("block", [32, 128])
+@pytest.mark.parametrize("fmt", FOUR_BIT_CB)
+def test_matmul_4bit_t_quantizer_blocks(cuda, fmt, block):
+    """Quantizer-made weights at blocks below and above the 64 packed rows
+    of a tile: the staged scale rows of each 32-row group."""
+    g = torch.Generator(device=cuda).manual_seed(block)
+    for m, k, n in [(256, 2048, 5632), (1024, 5632, 2048)]:
+        tq = tcore.quantize_matmul_weight(torch.randn((k, n), generator=g, device=cuda) * 0.1,
+                                          fmt=fmt, block_size=block)
+        gr = torch.randn((m, n), generator=g, device=cuda).to(torch.bfloat16)
+        _mm4t_check(gr, tq.codes, tq.scale, tq.codebook, block)
+
+
+# (m, K2, block): K2 = 200 is off the 64-row tile and the 32-row scale
+# groups, block 16 below them (every weight reads its own scale); K2 = 100
+# with block 40 also puts g's rows and the high half off alignment
+OFF4T_CASES = [(5, 200, 16), (300, 200, 16), (5, 100, 40), (300, 100, 40)]
+
+
+@pytest.mark.parametrize("m,k2,block", OFF4T_CASES)
+def test_matmul_4bit_t_k2_off_the_tiles(cuda, m, k2, block):
+    g = torch.Generator(device=cuda).manual_seed(k2 + block)
+    codes = torch.randint(0, 256, (k2, 72), generator=g, device=cuda, dtype=torch.uint8)
+    scales = torch.rand((2 * k2 // block, 72), generator=g, device=cuda) * 0.1
+    gr = torch.randn((m, 72), generator=g, device=cuda).to(torch.bfloat16)
+    for cb in FOUR_BIT_CB:
+        _mm4t_check(gr, codes, scales, cb, block)
+
+
+@pytest.mark.parametrize("m,k,n", [(2048, 2048, 256), (2048, 5632, 2048), (1024, 4096, 11008)])
+def test_matmul_4bit_t_bit_identical_over_two_calls(cuda, m, k, n):
+    """No split of N, no atomics: the same bits on every call."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    codes = torch.randint(0, 256, (k // 2, n), generator=g, device=cuda, dtype=torch.uint8)
+    scales = torch.rand((k // 64, n), generator=g, device=cuda) * 0.01
+    gr = torch.randn((m, n), generator=g, device=cuda).to(torch.bfloat16)
+    first = tmm.matmul_4bit_t(gr, codes, scales, codebook="nf4")
+    assert torch.equal(first, tmm.matmul_4bit_t(gr, codes, scales, codebook="nf4"))
+
+
+# matmul_int4c's two designs, picked by M (csrc/int4c.cu): split-K int8
+# mma.sync for decode M (kernels of 8, 16 and 32 rows), int8 wgmma tiles
+# of 128 rows above; bit for bit against the plain version at every
+# TinyLlama-1.1B (K, N), on the activations the wrapper quantizes.
+I4C_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
+I4C_MS = [1, 8, 16, 32, 33, 64, 256, 1024, 2048]
+
+
+def _i4c_operands(cuda, m, k2, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xq = torch.randint(-127, 128, (m, 2 * k2), generator=g, device=cuda, dtype=torch.int8)
+    codes = torch.randint(0, 256, (k2, n), generator=g, device=cuda, dtype=torch.uint8)
+    rs = torch.rand(m, generator=g, device=cuda) * 0.01
+    cs = torch.rand(n, generator=g, device=cuda) * 0.1
+    return xq, codes, rs, cs
+
+
+@pytest.mark.parametrize("m", I4C_MS)
+def test_matmul_int4c_designs_bit_exact(cuda, m):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    for k, n in I4C_SHAPES:
+        qw = tint4c.quantize_int4c_weight(torch.randn((k, n), generator=g, device=cuda))
+        x = torch.randn((m, k), generator=g, device=cuda)
+        before = _build.launches["matmul_int4c"]
+        out = tint4c.matmul_int4c(x, qw)
+        assert _build.launches["matmul_int4c"] == before + 1
+        assert torch.equal(out, tint4c.matmul_int4c(x, qw, use_kernel=False))
+        # every code and activation value, not only the quantizer's
+        ops = _i4c_operands(cuda, m, k // 2, n, seed=k + n)
+        assert torch.equal(tint4c.matmul_int4c_kernel(*ops),
+                           tint4c.matmul_int4c_kernel(*ops, use_kernel=False))
+
+
+def test_matmul_int4c_ms_cover_both_designs(cuda):
+    designs = [tint4c.matmul_int4c_design(m, 2048, 2048)["design"] for m in I4C_MS]
+    assert designs[0] == "decode" and designs[-1] == "prefill"
+    assert designs == sorted(designs)  # decode below the split, prefill above
+    assert [tint4c.matmul_int4c_design(m, 2048, 2048)["rows"] for m in (1, 16, 32, 33)] == \
+        [8, 16, 32, 128]
+
+
+@pytest.mark.parametrize("m", [8, 32, 64, 1024])
+def test_matmul_int4c_split_fits_one_wave(cuda, m):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k, n in I4C_SHAPES:
+        d = tint4c.matmul_int4c_design(m, n, k)
+        if d["split"] > 1:
+            assert d["grid_x"] * d["grid_y"] * d["grid_z"] <= d["blocks_per_sm"] * sms
+
+
+# (m, K2, N): K2 off 16 (x read byte by byte, the last slice and step run
+# past K2 in both halves), N off 16, 64 and 128 (codes byte by byte, masked
+# columns); decode and prefill M, ragged M
+I4C_RAGGED = [(5, 1000, 77), (8, 200, 200), (30, 1000, 77), (40, 200, 200), (300, 1000, 77),
+              (1000, 1000, 200)]
+
+
+@pytest.mark.parametrize("m,k2,n", I4C_RAGGED)
+def test_matmul_int4c_ragged(cuda, m, k2, n):
+    ops = _i4c_operands(cuda, m, k2, n, seed=m + k2)
+    assert torch.equal(tint4c.matmul_int4c_kernel(*ops),
+                       tint4c.matmul_int4c_kernel(*ops, use_kernel=False))

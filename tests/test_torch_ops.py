@@ -6,6 +6,8 @@ Inputs are made with numpy from a seed and handed to both. The CUDA
 kernels against their plain versions: tests/test_torch_cuda.py.
 """
 
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from quanta_tpu.ops import matmul as jmm
 from quanta_tpu_torch import calib as tcalib
 from quanta_tpu_torch import core as tcore
 from quanta_tpu_torch import nn as tnn
+from quanta_tpu_torch.ops import _build
 from quanta_tpu_torch.ops import int4c as tint4c
 from quanta_tpu_torch.ops import matmul as tmm
 
@@ -116,7 +119,11 @@ def test_quantize_int4c_weight_bit_exact(k, n):
                                np.asarray(jint4c.dequantize_int4c(jw)), rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("xshape,k,n", [((7, 300), 300, 100), ((2, 3, 512), 512, 256)])
+# the last four: M on either side of the CUDA kernel's decode/prefill split
+# (32) and past a 128-row prefill tile, K and N off the padding
+@pytest.mark.parametrize("xshape,k,n", [((7, 300), 300, 100), ((2, 3, 512), 512, 256),
+                                        ((1, 600), 600, 200), ((32, 600), 600, 200),
+                                        ((33, 600), 600, 200), ((130, 600), 600, 200)])
 def test_matmul_int4c_matches_jax_kernel(xshape, k, n):
     x = _rand(xshape, 7)
     w = _rand((k, n), 8)
@@ -127,6 +134,40 @@ def test_matmul_int4c_matches_jax_kernel(xshape, k, n):
     assert out.shape == ref.shape == (*xshape[:-1], n)
     # exact int32 sums and the same two f32 multiplies on both sides
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+class _DesignLib:
+    """Entry points that report a launch: design, grid, split, ..., and
+    record the (M, N, K2) they were asked about."""
+
+    def __init__(self, design):
+        self.design, self.asked = design, []
+
+    def _report(self, m, n, k2, out):
+        self.asked.append((m, n, k2))
+        for i, v in enumerate([self.design, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10]):
+            out[i] = v
+        return 0
+
+    qt_matmul_4bit_t_design = qt_matmul_int4c_design = _report
+
+
+@pytest.mark.parametrize("fn,design,name", [
+    (tmm.matmul_4bit_t_design, 0, "wgmma"),
+    (tint4c.matmul_int4c_design, 0, "decode"),
+    (tint4c.matmul_int4c_design, 1, "prefill")])
+def test_design_reports_read_the_entry_points(fn, design, name):
+    """The design reports ask their entry point about the packed K (K_pad /
+    2) and name its fields; an odd K_pad has no split_k packing."""
+    lib = _DesignLib(design)
+    with mock.patch.object(_build, "library", lambda: lib):
+        res = fn(33, 2048, 5632)
+        with pytest.raises(ValueError, match="even"):
+            fn(33, 2048, 5631)
+    assert lib.asked == [(33, 2048, 2816)]
+    assert res == {"design": name, "grid_x": 1, "grid_y": 2, "grid_z": 3, "split": 4,
+                   "blocks_per_sm": 5, "registers": 6, "shared_bytes": 7, "spill_bytes": 8,
+                   "stages": 9, "rows": 10}
 
 
 def test_int4c_reference_checks_exactness_bound():

@@ -88,6 +88,28 @@ def test_matmul_4bit_t_reference_matches_jax(fmt, m, k, n):
     assert np.abs(out.float().numpy() - ref).max() <= tol
 
 
+@pytest.mark.parametrize("block", [32, 128])
+@pytest.mark.parametrize("m", [1, 130])
+@pytest.mark.parametrize("fmt", ["nf4", "fp4"])
+def test_matmul_4bit_t_bf16_across_m_and_blocks_matches_jax(fmt, m, block):
+    """The plain version the card holds the kernel's wgmma tiles against, at
+    M on either side of a 128-row tile and at blocks below and above its
+    64 packed rows (the quantizer pads K to 16 blocks), bf16 g: the same
+    bf16 weights, f32 sums in another order, within 2 bf16 ulps of
+    max|ref|."""
+    w = _rand((300, 200), 20 + block)
+    jq = jcore.quantize_matmul_weight(jnp.asarray(w), fmt=fmt, block_size=block)
+    tq = tcore.quantize_matmul_weight(torch.from_numpy(w), fmt=fmt, block_size=block)
+    np.testing.assert_array_equal(tq.codes.numpy(), np.asarray(jq.codes))
+    gb = jnp.asarray(_rand((m, 200), 21 + m)).astype(jnp.bfloat16)
+    ref = np.asarray(jmm.matmul_4bit_t(gb, jq.codes, jq.scale, codebook=jq.codebook, block=block,
+                                       interpret=True).astype(jnp.float32))
+    gt = torch.from_numpy(np.asarray(gb.astype(jnp.float32))).to(torch.bfloat16)
+    out = tmm.matmul_4bit_t(gt, tq.codes, tq.scale, codebook=tq.codebook, block=block)
+    assert out.shape == ref.shape == (m, 2 * tq.codes.shape[0])
+    assert np.abs(out.float().numpy() - ref).max() <= 2 * BF16_ULP * np.abs(ref).max()
+
+
 # ------------------------------------------------ autograd dx through _mmq
 
 
