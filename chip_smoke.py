@@ -25,8 +25,12 @@ and the script exits non-zero (nothing is caught):
      unpacked int8 weight, row- or column-major, whichever is faster: no
      scales, no packing);
   4. the LLM.int8 kernels (``matmul_int8_fused``, ``matmul_int8``) at the
-     five TinyLlama (K, N) for M in {8, 256} (a decode step of 8 slots,
-     the largest prefill bucket), f32 x, the quantizer's outlier set, and
+     five TinyLlama (K, N) for M in {8, 32, 256, 1024} (a decode step of 8
+     slots, the top of their decode design, the largest prefill bucket,
+     decode_bench's prefill), f32 x, the quantizer's outlier set, and at a
+     ragged M = 300, K = 203, N = 77, bit-identical over two calls, with
+     their design (``matmul_int8_design``) on each row and, above M = 16,
+     a dense control's time (``torch._int_mm``, as for int4c); and
      ``quantize_blockwise`` at the int8 KV writes of the serve path (a
      prefill of 256 tokens, a window of 8 steps for 8 slots, every layer
      in one call; and one layer's window), all bit for bit against their
@@ -249,18 +253,22 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # matmul_8bit and matmul_4bit (64x64 wmma tiles, no split-K, no pipeline)
 # a decode step's 155 calls at M=8 (int8, nf4a); its matmul_8bit_t and
 # matmul_4bit_t a QLoRA backward's 152 calls at M=2048 (int8, nf4); its
-# matmul_int4c (64x64 wmma s8 tiles, no split-K, no pipeline) a decode
-# step's 155 calls at M=8; and per call (µs) at the shapes named. Printed
-# on a line of their own, apart from the kernels line's measured times.
+# matmul_int4c, matmul_int8_fused and matmul_int8 (64x64 wmma s8 tiles, no
+# split-K, no pipeline) a decode step's 155 calls at M=8; and per call (µs)
+# at the shapes named. Printed on a line of their own, apart from the
+# kernels line's measured times.
 EARLIER_MS = {"flash_bwd_dq": 0.2697, "flash_bwd_dkv": 0.7539, "flash_fwd": 0.1999,
               "matmul_8bit": 23.588, "matmul_4bit": 20.954, "matmul_8bit_t": 79.827,
-              "matmul_4bit_t": 67.866, "matmul_int4c": 10.977}
+              "matmul_4bit_t": 67.866, "matmul_int4c": 10.977, "matmul_int8_fused": 8.832,
+              "matmul_int8": 5.251}
 EARLIER_US = {
     "matmul_8bit": {"M8_2048x5632": 120.4, "M8_5632x2048": 361.4, "M2048_2048x5632": 784.4},
     "matmul_4bit": {"M8_2048x5632": 105.3},
     "matmul_8bit_t": {"M2048_2048x5632": 894.2},
     "matmul_4bit_t": {"M2048_2048x5632": 798.5},
     "matmul_int4c": {"M8_2048x5632": 58.6},
+    "matmul_int8_fused": {"M8_2048x5632": 65.5},
+    "matmul_int8": {"M8_2048x5632": 29.0},
 }
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
@@ -294,6 +302,11 @@ MM4_RAGGED = (2048, 200, 77)
 # matmul_int4c: decode (8 slots), the top of its decode design, and
 # decode_bench's and serve's prefill (batch 8 x 128 tokens)
 I4C_MS = (8, 32, 1024)
+# LLM.int8: decode (8 slots), the top of its decode design, the largest
+# serve prefill bucket and decode_bench's prefill (batch 8 x 128 tokens);
+# and a ragged case (K, N, M): K and N off the tiles, M off the prefill tile
+I8_MS = (8, 32, 256, 1024)
+I8_RAGGED = (203, 77, 300)
 CALIB_BATCHES, CALIB_SEQ = 8, 256
 PPL_TOKENS, PPL_SEQ, PPL_BATCH = 32768, 256, 8
 PTQ_PPL_REL = 1e-2
@@ -532,21 +545,46 @@ def main_path(dev, cfg, dense):
 
 def int8_kernel_checks(dev, work):
     """matmul_int8_fused and matmul_int8 against their plain versions at
-    the serve shapes, bit for bit; times from CUDA events."""
+    the five TinyLlama (K, N) for M in ``I8_MS`` (both sides of their
+    decode/prefill split), f32 x with the quantizer's outlier set, and at
+    ``I8_RAGGED`` on random codes, bit for bit, bit-identical over two
+    calls, the design per row; µs per call with the weights rotated past
+    the L2, above M = 16 beside a dense control (``torch._int_mm`` of the
+    int8 activations and the codes, row- or column-major, whichever is
+    faster: no scales, no outliers). Returns ms of one decode step's calls
+    (M=8) as [kernel, plain] and, under ``<kernel>_prefill``, of one
+    prefill forward's calls (M=1024) as [kernel, plain, dense]; the µs that
+    ``EARLIER_US`` names; the largest errors."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    per_step = {"matmul_int8_fused": [0.0, 0.0], "matmul_int8": [0.0, 0.0]}
-    max_err = {"matmul_int8_fused": 0.0, "matmul_int8": 0.0}
-    for (k, n), count in SHAPES.items():
-        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
-        qw = int8mm.quantize_int8_weight(w)
-        for m in (8, 256):
+    names = ("matmul_int8_fused", "matmul_int8")
+    per_step = {name: [0.0, 0.0] for name in names}
+    per_step.update({f"{name}_prefill": [0.0] * 3 for name in names})
+    max_err = dict.fromkeys(names, 0.0)
+    per_call = {name: {} for name in names}
+    k_r, n_r, m_r = I8_RAGGED
+    for (k, n), ms in [*((shape, I8_MS) for shape in SHAPES), ((k_r, n_r), (m_r,))]:
+        count = SHAPES.get((k, n), 0)
+        if count:
+            w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+            qw = int8mm.quantize_int8_weight(w)
+            codes, cs = qw.codes, qw.scale
+        else:  # K and N off the tiles: random codes and scales
+            codes = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+            cs = torch.rand(n, generator=gen, device=dev) * 0.01
+        ws = copies_past_l2(codes, cs)
+        for m in ms:
             x = torch.randn((m, k), generator=gen, device=dev)
-            x[:, qw.outlier_idx[:4].long()] *= 20.0  # systematic outlier features
-            # the operands matmul_int8 hands the kernels
-            y_out = x.index_select(1, qw.outlier_idx) @ qw.w_outlier.float()
-            xa = x.abs()
-            xa[:, qw.outlier_idx] = 0.0
-            rs = torch.clamp(xa.amax(dim=1) / 127.0, min=1e-12)
+            if count:
+                x[:, qw.outlier_idx[:4].long()] *= 20.0  # systematic outlier features
+                # the operands matmul_int8 hands the kernels
+                y_out = x.index_select(1, qw.outlier_idx) @ qw.w_outlier.float()
+                xa = x.abs()
+                xa[:, qw.outlier_idx] = 0.0
+                rs = torch.clamp(xa.amax(dim=1) / 127.0, min=1e-12)
+            else:
+                x *= 30.0
+                rs = torch.rand(m, generator=gen, device=dev) + 0.05
+                y_out = torch.randn((m, n), generator=gen, device=dev)
             xq = int8mm.quantize_rows(x, rs)
             runs = {
                 "matmul_int8_fused": lambda uk, ws: lambda i: int8mm.matmul_int8_fused(
@@ -554,26 +592,43 @@ def int8_kernel_checks(dev, work):
                 "matmul_int8": lambda uk, ws: lambda i: int8mm.matmul_int8_kernel(
                     xq, ws[i % len(ws)][0], rs, ws[i % len(ws)][1], use_kernel=uk),
             }
-            operands = {"matmul_int8_fused": (x, qw.codes, rs, qw.scale, y_out),
-                        "matmul_int8": (xq, qw.codes, rs, qw.scale)}
-            iters = 50 if m == 8 else 10
+            operands = {"matmul_int8_fused": (x, codes, rs, cs, y_out),
+                        "matmul_int8": (xq, codes, rs, cs)}
+            iters = 50 if m <= 32 else 10
+            dense = {}
+            if m > 16 and count:  # torch._int_mm takes M > 16 and K, N multiples of 8
+                for layout in ("row", "col"):
+                    ds = [d.T.contiguous().T if layout == "col" else d for (d, _) in ws]
+                    us = time_ms(lambda i: torch._int_mm(xq, ds[i % len(ds)]), iters) * 1e3
+                    if us < dense.get("dense_us", math.inf):
+                        dense.update(dense_us=us, dense_layout=layout)
             for name, run in runs.items():
-                out = run(True, [(qw.codes, qw.scale)])(0)
-                ref = run(False, [(qw.codes, qw.scale)])(0)
+                out = run(True, [(codes, cs)])(0)
+                ref = run(False, [(codes, cs)])(0)
                 err = (out - ref).abs().max().item()
                 check(torch.isfinite(out).all().item(), f"{name} non-finite")
                 check(torch.equal(out, ref), f"{name} M={m} K={k} N={n} not bit-exact: {err}")
+                same = torch.equal(out, run(True, [(codes, cs)])(0))
+                check(same, f"{name} M={m} K={k} N={n}: two calls differ")
                 max_err[name] = max(max_err[name], err)
-                ws = copies_past_l2(qw.codes, qw.scale)
-                ms, plain_ms = time_ms(run(True, ws), iters), time_ms(run(False, ws), iters)
-                if m == 8:
-                    per_step[name][0] += count * ms
+                ms_, plain_ms = time_ms(run(True, ws), iters), time_ms(run(False, ws), iters)
+                row = dict(kernel=name, fmt="llm_int8", M=m, K=k, N=n, max_abs_err=err, tol=0.0,
+                           us=ms_ * 1e3, plain_us=plain_ms * 1e3,
+                           tops=2 * m * k * n / (ms_ * 1e-3) / 1e12,
+                           bit_identical_over_two_calls=same, **dense,
+                           design=int8mm.matmul_int8_design(m, n, k,
+                                                            fused=name == "matmul_int8_fused"))
+                if m == 8 and count:
+                    per_step[name][0] += count * ms_
                     per_step[name][1] += count * plain_ms
                     add_work(work, name, nbytes(*operands[name], out), 2 * m * k * n, count)
-                emit(kernel_check=dict(kernel=name, fmt="llm_int8", M=m, K=k, N=n,
-                                       max_abs_err=err, tol=0.0, us=ms * 1e3,
-                                       plain_us=plain_ms * 1e3))
-    return per_step, max_err
+                if m == 1024 and count:
+                    for j, key in enumerate(("us", "plain_us", "dense_us")):
+                        per_step[f"{name}_prefill"][j] += count * row[key] / 1e3
+                if f"M{m}_{k}x{n}" in EARLIER_US[name]:
+                    per_call[name][f"M{m}_{k}x{n}"] = row["us"]
+                emit(kernel_check=row)
+    return per_step, per_call, max_err
 
 
 def quantize_checks(dev, work):
@@ -1482,7 +1537,7 @@ def main():
     work = {}
     with timed("3-4 kernel checks"):
         per_step, mm4_per_call, max_err = kernel_checks(dev, work)
-        int8_step, int8_err = int8_kernel_checks(dev, work)
+        int8_step, int8_per_call, int8_err = int8_kernel_checks(dev, work)
         per_step.update(int8_step)
         max_err.update(int8_err)
         q_times, max_err["quantize_blockwise"] = quantize_checks(dev, work)
@@ -1555,6 +1610,8 @@ def main():
                 "library_ms": library_ms, "at": at, **extra}
 
     at = "one decode step's calls at M=8 (nf4a for matmul_4bit), ms"
+    i8_prefill = ("one prefill forward's 155 calls at M=1024 as [kernel, plain, dense], dense: "
+                  "torch._int_mm of the int8 activations and the codes, which takes M > 16 only)")
     q_ms, q_plain_ms = q_times["window_8x8"]
     flash_at = ("one call at TinyLlama-1.1B's QLoRA shape (B=2, S=T=1024, 32 heads, 4 KV "
                 "heads, hd 64, bf16), ms; library: ")
@@ -1566,11 +1623,14 @@ def main():
     measured["matmul_8bit_t"] = eight_step[("matmul_8bit_t", M_TRAIN)][0]
     measured["matmul_4bit_t"] = t_step[0]
     measured["matmul_int4c"] = per_step["matmul_int4c"][0]
+    for name in ("matmul_int8_fused", "matmul_int8"):
+        measured[name] = per_step[name][0]
     emit(earlier_times=dict(
         note="PERF.md's times of the designs before the Hopper redesigns, at the same work, "
              "not measured in this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},
         per_call_us=EARLIER_US, measured_ms=measured,
-        measured_per_call_us={**mm4_per_call, **eight_per_call, "matmul_4bit_t": t_per_call}))
+        measured_per_call_us={**mm4_per_call, **eight_per_call, **int8_per_call,
+                              "matmul_4bit_t": t_per_call}))
     emit(kernels=[
         entry("matmul_4bit", "matmul_4bit.cu", "quanta_tpu/ops/matmul.py:204",
               launches["matmul_4bit"], *per_step["matmul_4bit"][:2], "bf16",
@@ -1588,9 +1648,15 @@ def main():
               "unpacked int8 weight, which takes M > 16 only)",
               prefill_forward_ms=per_step["matmul_int4c_prefill"]),
         entry("matmul_int8_fused", "int8mm.cu", "quanta_tpu/ops/int8mm.py:167",
-              launches["matmul_int8_fused"], *per_step["matmul_int8_fused"], "int8", at),
+              launches["matmul_int8_fused"], *per_step["matmul_int8_fused"], "int8",
+              at + "; library: none, no PyTorch call quantizes rows of f32 x, applies row and "
+              "column scales or adds the outlier partial (prefill_forward_ms: " + i8_prefill,
+              prefill_forward_ms=per_step["matmul_int8_fused_prefill"]),
         entry("matmul_int8", "int8mm.cu", "quanta_tpu/ops/int8mm.py:235",
-              launches["matmul_int8"], *per_step["matmul_int8"], "int8", at),
+              launches["matmul_int8"], *per_step["matmul_int8"], "int8",
+              at + "; library: none, torch._int_mm takes no row or column scales "
+              "(prefill_forward_ms: " + i8_prefill,
+              prefill_forward_ms=per_step["matmul_int8_prefill"]),
         entry("quantize_blockwise", "quantize.cu", "quanta_tpu/ops/quantize.py:65",
               launches["quantize_blockwise"], q_ms, q_plain_ms, "f32",
               "one call at a window's KV write (22 x 8 x 8 x 4 x 64 bf16), ms"),

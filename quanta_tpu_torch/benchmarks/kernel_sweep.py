@@ -1,14 +1,14 @@
 """Time the bf16 ``flash_fwd``, ``matmul_8bit``, ``matmul_4bit``,
-``matmul_8bit_t`` and ``matmul_4bit_t`` kernels and ``matmul_int4c`` across
-shapes.
+``matmul_8bit_t`` and ``matmul_4bit_t`` kernels, ``matmul_int4c`` and the
+LLM.int8 pair across shapes.
 
-    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8 mm4 mm8t mm4t i4c] [--ms 8 32]
+    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8 mm4 mm8t mm4t i4c i8] [--ms 8 32]
 
 To try a design choice of ``csrc/flash_fwd.cu``, ``csrc/matmul_8bit.cu``,
-``csrc/matmul_4bit.cu``, ``csrc/matmul_8bit_t.cu``, ``csrc/matmul_4bit_t.cu``
-or ``csrc/int4c.cu`` (warpgroups, ring stages, the decode/prefill split,
-the tile widths), edit its constant, which rebuilds the library, and run
-this again. One JSON object per line:
+``csrc/matmul_4bit.cu``, ``csrc/matmul_8bit_t.cu``, ``csrc/matmul_4bit_t.cu``,
+``csrc/int4c.cu`` or ``csrc/int8mm.cu`` (warpgroups, ring stages, the
+decode/prefill split, the tile widths), edit its constant, which rebuilds
+the library, and run this again. One JSON object per line:
 
 - ``flash``: the forward (``save_lse=True``, the training call) at
   TinyLlama-1.1B's (B=2, S=T=1024, 32/4 heads, hd 64) and Llama-2-7B's
@@ -28,7 +28,11 @@ this again. One JSON object per line:
 - ``i4c``: ``matmul_int4c`` (the quantizer's codes and the wrapper's int8
   activations) at the five TinyLlama (K, N) for M in {8, 16, 32, 64, 256,
   1024, 2048}, with the design each takes (the decode/prefill crossover,
-  the ring depths).
+  the ring depths);
+- ``i8``: ``matmul_int8_fused`` and ``matmul_int8`` (the quantizer's codes
+  and outlier set, the operands ``matmul_int8`` hands them) at the same
+  shapes and M, with the design each takes (the decode/prefill crossover,
+  the ring depths, the decode column width).
 
 ``--ms`` keeps only the M named (of the matmul rows).
 
@@ -48,7 +52,7 @@ import subprocess
 import torch
 
 from quanta_tpu_torch.core import codecs
-from quanta_tpu_torch.ops import attention, int4c, matmul
+from quanta_tpu_torch.ops import attention, int4c, int8mm, matmul
 
 FLASH_SHAPES = {"tinyllama_s1024": (2, 1024, 32, 4, 64), "llama2_7b_s1024": (1, 1024, 32, 32, 128)}
 MM8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
@@ -191,10 +195,42 @@ def i4c_rows(dev, pick):
                  design=int4c.matmul_int4c_design(m, n, k))
 
 
+def i8_rows(dev, pick):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for k, n in MM8_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        qw = int8mm.quantize_int8_weight(w)
+        copies = max(1, min(64, math.ceil(2 * L2_BYTES / (qw.codes.numel() + 4 * n))))
+        ws = [(qw.codes.clone(), qw.scale.clone()) for _ in range(copies)]
+        for m in pick(MM8_MS):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            x[:, qw.outlier_idx[:4].long()] *= 20.0
+            y_out = x.index_select(1, qw.outlier_idx) @ qw.w_outlier.float()
+            xa = x.abs()
+            xa[:, qw.outlier_idx] = 0.0
+            rs = torch.clamp(xa.amax(dim=1) / 127.0, min=1e-12)
+            xq = int8mm.quantize_rows(x, rs)
+            calls = {
+                "matmul_int8_fused": lambda c, s, uk=None: int8mm.matmul_int8_fused(
+                    x, c, rs, s, y_out, use_kernel=uk),
+                "matmul_int8": lambda c, s, uk=None: int8mm.matmul_int8_kernel(
+                    xq, c, rs, s, use_kernel=uk),
+            }
+            for name, call in calls.items():
+                exact = torch.equal(call(qw.codes, qw.scale),
+                                    call(qw.codes, qw.scale, uk=False))
+                ms = time_ms(lambda i: call(*ws[i % len(ws)]), 50 if m <= 64 else 10)
+                emit(sweep=name, M=m, K=k, N=n, us=ms * 1e3,
+                     tops=2 * m * k * n / (ms * 1e-3) / 1e12, ok=exact,
+                     design=int8mm.matmul_int8_design(m, n, k,
+                                                      fused=name == "matmul_int8_fused"))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--what", nargs="+", choices=("flash", "mm8", "mm4", "mm8t", "mm4t", "i4c"),
-                    default=["flash", "mm8", "mm4", "mm8t", "mm4t", "i4c"])
+    ap.add_argument("--what", nargs="+",
+                    choices=("flash", "mm8", "mm4", "mm8t", "mm4t", "i4c", "i8"),
+                    default=["flash", "mm8", "mm4", "mm8t", "mm4t", "i4c", "i8"])
     ap.add_argument("--ms", nargs="+", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -218,6 +254,8 @@ def main(argv=None):
         mm4t_rows(dev, pick)
     if "i4c" in args.what:
         i4c_rows(dev, pick)
+    if "i8" in args.what:
+        i8_rows(dev, pick)
 
 
 if __name__ == "__main__":

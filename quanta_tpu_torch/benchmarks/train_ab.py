@@ -1,6 +1,7 @@
 """Time QLoRA train steps of two checkouts of this repository, in turns.
 
     python -m quanta_tpu_torch.benchmarks.train_ab DIR_A DIR_B [--rounds 2] [--decode nf4a] [--kernels]
+        [--serve llm_int8] [--no-train]
 
 One subprocess a run, in the order A, B, B, A (two rounds), each started in
 its checkout's root, so that it imports that checkout's ``quanta_tpu_torch``,
@@ -21,11 +22,19 @@ weights in each checkout: one line ``{"dir": ..., "run": i, "decode":
 {...}}`` a run. With ``--kernels`` it first times, in the same order and
 through each checkout's own wrappers, ``matmul_4bit_t`` (nf4, bf16 g) at
 the TinyLlama-1.1B backward's (K, N) for M = 2048 and Llama-2-7B's for M =
-1024, and ``matmul_int4c`` at the TinyLlama (K, N) for M in {8, 32, 1024}
-(µs a call, weights rotated past the 50 MB L2; plus a QLoRA backward's
-152 ``matmul_4bit_t`` calls and a decode step's 155 ``matmul_int4c`` calls
-in ms): one line ``{"dir": ..., "run": i, "kernels": {...}}`` a run.
-Comparing two versions holds only within one call, on one card.
+1024, and ``matmul_int4c``, ``matmul_int8_fused`` and ``matmul_int8`` (the
+quantizer's codes and outlier set, the operands ``matmul_int8`` hands them)
+at the TinyLlama (K, N) for M in {8, 32, 1024} (µs a call, weights rotated
+past the 50 MB L2; plus a QLoRA backward's 152 ``matmul_4bit_t`` calls, a
+decode step's 155 ``matmul_int4c`` calls and, for each LLM.int8 kernel, a
+decode step's 155 calls at M = 8 and a prefill forward's at M = 1024, in
+ms): one line ``{"dir": ..., "run": i, "kernels": {...}}`` a run. With
+``--serve FMT`` it last runs ``chip_smoke.py``'s timed serve row on FMT
+weights (``serve_bench.run_one`` at 11 of 22 layers: 16 Poisson requests
+at 24 req/s, 48 new tokens, 8 slots, multi_step 8, and one steady
+window's profile): one line ``{"dir": ..., "run": i, "serve": {...}}`` a
+run. ``--no-train`` leaves the train rows out. Comparing two versions
+holds only within one call, on one card.
 """
 
 from __future__ import annotations
@@ -78,10 +87,30 @@ print(json.dumps(decode_bench.measure(decode_bench.quantized(dense, %r), cfg)))
 """
 
 
+SERVE_CHILD = """
+import dataclasses, json, torch
+from quanta_tpu_torch import nn as qnn
+from quanta_tpu_torch.benchmarks import serve_bench
+from quanta_tpu_torch.models import llama
+dev = torch.device("cuda")
+cfg = llama.LlamaConfig.tinyllama_1b()
+dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+params = qnn.quantize_params(dense, mode=%r)
+del dense
+cfg = dataclasses.replace(cfg, n_layers=11)
+params = {**params, "layers": params["layers"][:11]}
+m = serve_bench.run_one(params, cfg, fmt_name=%r, n_requests=16, rate=24.0, max_new=48,
+                        n_slots=8, multi_step=8)
+m["window"] = serve_bench.window_profile(params, cfg, multi_step=8)
+print(json.dumps({k: m[k] for k in ("throughput_tok_s", "ttft_p50_ms", "ttft_p99_ms",
+                                    "serve_seconds", "window")}))
+"""
+
+
 KERNEL_CHILD = """
 import json, math, torch
 from quanta_tpu_torch.core import codecs
-from quanta_tpu_torch.ops import int4c, matmul
+from quanta_tpu_torch.ops import int4c, int8mm, matmul
 dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
 gen = torch.Generator(device=dev).manual_seed(0)
@@ -125,6 +154,29 @@ for (k, n), count in shapes.items():
                      50 if m <= 32 else 10)
         res["matmul_int4c"][f"M{m}_{k}x{n}"] = us
         res["decode_step_ms"] += count * us / 1e3 if m == 8 else 0.0
+for name in ("matmul_int8_fused", "matmul_int8"):
+    res[name] = {}
+    res[name + "_decode_step_ms"] = res[name + "_prefill_forward_ms"] = 0.0
+for (k, n), count in shapes.items():
+    qw = int8mm.quantize_int8_weight((torch.randn((k, n), generator=gen, device=dev)
+                                      / math.sqrt(k)).to(torch.bfloat16))
+    ws = copies(qw.codes, qw.scale)
+    for m in (8, 32, 1024):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        x[:, qw.outlier_idx[:4].long()] *= 20.0
+        y_out = x.index_select(1, qw.outlier_idx) @ qw.w_outlier.float()
+        xa = x.abs()
+        xa[:, qw.outlier_idx] = 0.0
+        rs = torch.clamp(xa.amax(dim=1) / 127.0, min=1e-12)
+        xq = int8mm.quantize_rows(x, rs)
+        calls = {"matmul_int8_fused": lambda c, s: int8mm.matmul_int8_fused(x, c, rs, s, y_out),
+                 "matmul_int8": lambda c, s: int8mm.matmul_int8_kernel(xq, c, rs, s)}
+        for name, call in calls.items():
+            us = time_us(lambda i: call(*ws[i % len(ws)]), 50 if m <= 32 else 10)
+            res[name][f"M{m}_{k}x{n}"] = us
+            step = {8: "_decode_step_ms", 1024: "_prefill_forward_ms"}.get(m)
+            if step:
+                res[name + step] += count * us / 1e3
 print(json.dumps(res))
 """
 
@@ -146,13 +198,19 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=2, help="A, B, B, A per two rounds")
     ap.add_argument("--decode", metavar="FMT", help="then decode_bench on FMT weights")
     ap.add_argument("--kernels", action="store_true",
-                    help="first time matmul_4bit_t and matmul_int4c in each checkout")
+                    help="first time matmul_4bit_t, matmul_int4c and the LLM.int8 pair "
+                         "in each checkout")
+    ap.add_argument("--serve", metavar="FMT", help="last the timed serve row on FMT weights")
+    ap.add_argument("--no-train", action="store_true", help="leave the train rows out")
     args = ap.parse_args(argv)
     order = [args.dir_a, args.dir_b]
     jobs = [("kernels", KERNEL_CHILD)] if args.kernels else []
-    jobs.append(("rows", CHILD % (ROWS,)))
+    if not args.no_train:
+        jobs.append(("rows", CHILD % (ROWS,)))
     if args.decode:
         jobs.append(("decode", DECODE_CHILD % args.decode))
+    if args.serve:
+        jobs.append(("serve", SERVE_CHILD % (args.serve, args.serve)))
     for key, script in jobs:
         for i in range(args.rounds):
             for root in (order if i % 2 == 0 else order[::-1]):

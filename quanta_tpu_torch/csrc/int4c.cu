@@ -62,22 +62,12 @@
 #include <stdint.h>
 
 #include "dequant8_sm90.cuh"  // stage_codes16 (and sm90.cuh)
+#include "int8_sm90.cuh"      // transpose4x4, store_scaled
 #include "splitk_sm90.cuh"    // cluster_sum, MmKind, MmPlan, plan_split, mma_s8_16832
 
 namespace {
 
 // ------------------------------------------------------------ unpacking
-
-// r[i] holds bytes (c = 0..3) of packed row i; w[c] gets byte c of rows
-// 0..3, row i in byte i.
-__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&w)[4]) {
-  const uint32_t a0 = __byte_perm(r[0], r[1], 0x5140), a1 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t b0 = __byte_perm(r[2], r[3], 0x5140), b1 = __byte_perm(r[2], r[3], 0x7362);
-  w[0] = __byte_perm(a0, b0, 0x5410);
-  w[1] = __byte_perm(a0, b0, 0x7632);
-  w[2] = __byte_perm(a1, b1, 0x5410);
-  w[3] = __byte_perm(a1, b1, 0x7632);
-}
 
 // The 4 low nibbles of w minus their +8 bias, as 4 int8: the same bytes as
 // __vsub4(w & 0x0F0F0F0F, 0x08080808) (adding 0x78 and flipping bit 7 takes
@@ -103,25 +93,6 @@ __device__ __forceinline__ void stage_x_half16(unsigned char* dst, uint32_t dst_
   } else {
 #pragma unroll
     for (int e = 0; e < 16; ++e) dst[e] = j + e < K2 ? src[e] : 0;
-  }
-}
-
-// out[m, n..n+4) = f32(acc) * row_scale[m] * col_scale[n..], in that order
-// (columns past N dropped)
-__device__ __forceinline__ void store_scaled(float* __restrict__ out, int m, int n,
-                                             const int4& acc, const float* __restrict__ rs,
-                                             const float* __restrict__ cs, int N) {
-  const float r = __ldg(rs + m);
-  const int a[4] = {acc.x, acc.y, acc.z, acc.w};
-  float v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    v[j] = n + j < N ? __fmul_rn(__fmul_rn(__int2float_rn(a[j]), r), __ldg(cs + n + j)) : 0.0f;
-  float* o = out + (int64_t)m * N + n;
-  if ((N & 3) == 0 && n + 4 <= N) {
-    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    for (int j = 0; j < 4 && n + j < N; ++j) o[j] = v[j];
   }
 }
 

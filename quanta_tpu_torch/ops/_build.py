@@ -52,8 +52,9 @@ _SIGNATURES = {
     "qt_matmul_8bit_t_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xq, codes, row_scale, col_scale, out, M, N, K2, stream
     "qt_matmul_int4c": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x (f32), codes, row_scale, col_scale, y_out, out, M, N, K, stream
-    "qt_matmul_int8_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x (f32), codes, row_scale, col_scale, y_out, xq scratch (int8 (M, K)), out, M, N, K,
+    # stream
+    "qt_matmul_int8_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # xq, codes, row_scale, col_scale, out, M, N, K, stream
     "qt_matmul_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, codes, scale, midpoints, n, block, n_blocks, n_mids, stream
@@ -81,6 +82,8 @@ _SIGNATURES = {
     "qt_matmul_4bit_design": [_I] * 3 + [_P],
     "qt_matmul_4bit_t_design": [_I] * 3 + [_P],
     "qt_matmul_int4c_design": [_I] * 3 + [_P],
+    # M, N, K, fused, out (int[11])
+    "qt_matmul_int8_design": [_I] * 4 + [_P],
 }
 
 launches: dict[str, int] = {"matmul_4bit": 0, "matmul_4bit_t": 0, "matmul_8bit": 0,

@@ -14,7 +14,9 @@ count a feature twice. At run time
     on the int32 sum: ``csrc/int8mm.cu``, which replaces the Pallas
     ``_mm_i8_fused_kernel`` (x quantized in the prologue, the outlier
     partial added in the epilogue) and ``_mm_i8_kernel`` (x quantized
-    beforehand) with one kernel template.
+    beforehand) with two Hopper designs picked by M inside each entry
+    point (split-K int8 ``mma.sync`` for decode, int8 wgmma tiles above;
+    :func:`matmul_int8_design` says which).
 
 ``matmul_int8`` has three routes, as in JAX: the fused kernel (the
 default on CUDA: ``fused`` follows "the kernel is used"), the plain-variant
@@ -34,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from quanta_tpu_torch.ops import _build
-from quanta_tpu_torch.ops.matmul import _aligned
+from quanta_tpu_torch.ops.matmul import _aligned, _design
 
 _EPS = 1e-12
 _EXACT_F64 = 2**53
@@ -159,12 +161,15 @@ def _launch(entry: str, counter: str, a, codes, row_scale, col_scale, y_out, a_d
         raise ValueError("y_out must be f32 (M, N)")
     a, codes = _aligned(a), _aligned(codes)
     row_scale, col_scale = row_scale.contiguous(), col_scale.contiguous()
-    y_out = None if y_out is None else y_out.contiguous()
+    y_out = None if y_out is None else _aligned(y_out)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m:
         args = [a.data_ptr(), codes.data_ptr(), row_scale.data_ptr(), col_scale.data_ptr()]
         if y_out is not None:
-            args.append(y_out.data_ptr())
+            # where the fused kernel reads int8 x (every M but the small
+            # decode ones), the C call first quantizes x into this scratch
+            scratch = torch.empty((m, k), dtype=torch.int8, device=a.device)
+            args += [y_out.data_ptr(), scratch.data_ptr()]
         rc = getattr(_build.library(), entry)(
             *args, out.data_ptr(), m, n, k, torch.cuda.current_stream(a.device).cuda_stream)
         _build.check(rc, counter)
@@ -213,6 +218,17 @@ def matmul_int8_kernel(
         return matmul_int8_kernel_reference(xq, codes, row_scale, col_scale)
     return _launch("qt_matmul_int8", "matmul_int8", xq, codes, row_scale, col_scale, None,
                    torch.int8)
+
+
+def matmul_int8_design(m, n, k, fused=True):
+    """How the fused (``fused=True``) or plain-variant LLM.int8 kernel
+    launches for x (m, k) and codes (k, n), k = K_pad, on this card: the
+    keys of ``matmul.matmul_8bit_design``, ``design`` "decode" (split-K int8
+    ``mma.sync``, memory bound) or "prefill" (int8 wgmma tiles of 128 rows;
+    fused, after a pass that quantizes x into int8), its grid, K split,
+    blocks per SM, registers, shared and spill bytes, stages and rows of x
+    a block."""
+    return _design("qt_matmul_int8_design", "matmul_int8", m, n, k, int(bool(fused)))
 
 
 def matmul_int8(

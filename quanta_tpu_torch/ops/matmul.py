@@ -362,9 +362,10 @@ _MM_DESIGN_KEYS = ("design", "grid_x", "grid_y", "grid_z", "split", "blocks_per_
                    "registers", "shared_bytes", "spill_bytes", "stages", "rows")
 
 
-def _design(entry, name, m, n, k, names=("decode", "prefill")):
+def _design(entry, name, m, n, k, *extra, names=("decode", "prefill")):
+    """The report of design entry point ``entry(m, n, k, *extra, out)``."""
     out = (ctypes.c_int * len(_MM_DESIGN_KEYS))()
-    _build.check(getattr(_build.library(), entry)(m, n, k, out), name)
+    _build.check(getattr(_build.library(), entry)(m, n, k, *extra, out), name)
     res = dict(zip(_MM_DESIGN_KEYS, out))
     res["design"] = names[res["design"]]
     return res

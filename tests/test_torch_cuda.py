@@ -23,8 +23,9 @@ only in f32 summation order: bf16 within 2 bf16 ulps of max|plain|, f32
 within 1e-5 of it; the bf16 ``matmul_4bit`` and ``matmul_8bit`` sum their
 split-K partials in a fixed order, and the bf16 ``matmul_8bit_t`` and
 ``matmul_4bit_t`` split nothing, so two calls give the same bits too.
-``matmul_int4c``'s int32 partials are exact in any order: both of its
-designs equal the plain version bit for bit.
+``matmul_int4c``'s and the LLM.int8 kernels' int32 partials are exact in
+any order: both designs of each equal the plain versions bit for bit, and
+the LLM.int8 ones give the same bits on a second call.
 """
 
 import numpy as np
@@ -1052,3 +1053,96 @@ def test_matmul_int4c_ragged(cuda, m, k2, n):
     ops = _i4c_operands(cuda, m, k2, n, seed=m + k2)
     assert torch.equal(tint4c.matmul_int4c_kernel(*ops),
                        tint4c.matmul_int4c_kernel(*ops, use_kernel=False))
+
+
+# matmul_int8_fused's and matmul_int8's two designs, picked by M
+# (csrc/int8mm.cu): split-K int8 mma.sync for decode M (kernels of 8, 16
+# and 32 rows), int8 wgmma tiles of 128 rows above (the fused entry point
+# first quantizes x into int8 there); bit for bit against the plain
+# versions at every TinyLlama-1.1B (K, N), on the operands matmul_int8
+# hands the kernels, with the quantizer's outlier set and x's outlier
+# columns scaled by 20.
+I8_MS = [1, 8, 16, 32, 33, 64, 256, 1024]
+
+
+def _i8_operands(cuda, m, k, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qw = tint8.quantize_int8_weight(torch.randn((k, n), generator=g, device=cuda) / k ** 0.5)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    x[:, qw.outlier_idx.long()] *= 20.0
+    y_out = x.index_select(1, qw.outlier_idx) @ qw.w_outlier.float()
+    xa = x.abs()
+    xa[:, qw.outlier_idx] = 0.0
+    rs = torch.clamp(xa.amax(dim=1) / 127.0, min=1e-12)
+    return qw, x, rs, y_out
+
+
+def _i8_check(x, codes, rs, cs, y_out):
+    """Both entry points against their plain versions, bit for bit, one
+    launch each, and the same bits on a second call."""
+    xq = tint8.quantize_rows(x, rs)
+    before = dict(_build.launches)
+    fused = tint8.matmul_int8_fused(x, codes, rs, cs, y_out)
+    plain = tint8.matmul_int8_kernel(xq, codes, rs, cs)
+    assert _build.launches["matmul_int8_fused"] == before["matmul_int8_fused"] + 1
+    assert _build.launches["matmul_int8"] == before["matmul_int8"] + 1
+    assert torch.equal(fused, tint8.matmul_int8_fused(x, codes, rs, cs, y_out, use_kernel=False))
+    assert torch.equal(plain, tint8.matmul_int8_kernel(xq, codes, rs, cs, use_kernel=False))
+    assert torch.equal(fused, tint8.matmul_int8_fused(x, codes, rs, cs, y_out))
+    assert torch.equal(plain, tint8.matmul_int8_kernel(xq, codes, rs, cs))
+
+
+@pytest.mark.parametrize("m", I8_MS)
+def test_matmul_int8_designs_bit_exact(cuda, m):
+    for k, n in I4C_SHAPES:
+        qw, x, rs, y_out = _i8_operands(cuda, m, k, n, seed=m + k + n)
+        _i8_check(x, qw.codes, rs, qw.scale, y_out)
+
+
+def test_matmul_int8_ms_cover_both_designs(cuda):
+    for fused in (True, False):
+        ds = [tint8.matmul_int8_design(m, 2048, 2048, fused=fused) for m in I8_MS]
+        assert [d["design"] for d in ds] == ["decode"] * 4 + ["prefill"] * 4
+        assert [d["rows"] for d in ds] == [8, 8, 16, 32, 128, 128, 128, 128]
+        assert all(d["spill_bytes"] == 0 for d in ds)
+
+
+@pytest.mark.parametrize("m", [8, 32, 64, 1024])
+def test_matmul_int8_split_fits_one_wave(cuda, m):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k, n in I4C_SHAPES:
+        for fused in (True, False):
+            d = tint8.matmul_int8_design(m, n, k, fused=fused)
+            if d["split"] > 1:
+                assert d["grid_x"] * d["grid_y"] * d["grid_z"] <= d["blocks_per_sm"] * sms
+
+
+# (m, K, N): K off 4 (203: x read one value or byte at a time) and off 16
+# (1000: int8 x byte by byte, f32 x by cp.async), N off 16 and 128 (codes
+# byte by byte, masked columns, y_out and out one by one); decode and
+# prefill M, ragged M
+I8_RAGGED = [(5, 203, 77), (30, 1000, 200), (300, 203, 77), (1000, 1000, 200)]
+
+
+@pytest.mark.parametrize("m,k,n", I8_RAGGED)
+def test_int8_raw_kernels_ragged_designs(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    codes = torch.randint(-127, 128, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    x = torch.randn((m, k), generator=g, device=cuda) * 30
+    rs = torch.rand(m, generator=g, device=cuda) + 0.05
+    cs = torch.rand(n, generator=g, device=cuda) * 0.01
+    _i8_check(x, codes, rs, cs, torch.randn((m, n), generator=g, device=cuda))
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_matmul_int8_fused_rounds_ties_to_even(cuda, m):
+    """x / row_scale lands exactly on k + 0.5 (a power-of-two scale): the
+    prologue rounds half to even, as torch.round does."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    k, n = 2048, 256
+    codes = torch.randint(-127, 128, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    rs = torch.full((m,), 0.125, device=cuda)
+    x = (torch.randint(-130, 130, (m, k), generator=g, device=cuda) + 0.5) * 0.125
+    assert (x / rs[:, None] % 1 == 0.5).all()
+    _i8_check(x, codes, rs, torch.rand(n, generator=g, device=cuda) * 0.01,
+              torch.zeros((m, n), device=cuda))

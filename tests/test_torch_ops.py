@@ -6,6 +6,7 @@ Inputs are made with numpy from a seed and handed to both. The CUDA
 kernels against their plain versions: tests/test_torch_cuda.py.
 """
 
+import functools
 from unittest import mock
 
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from quanta_tpu_torch import core as tcore
 from quanta_tpu_torch import nn as tnn
 from quanta_tpu_torch.ops import _build
 from quanta_tpu_torch.ops import int4c as tint4c
+from quanta_tpu_torch.ops import int8mm as tint8
 from quanta_tpu_torch.ops import matmul as tmm
 
 FOUR_BIT = ["nf4a", "nf4", "int4", "fp4", "int4a"]
@@ -138,33 +140,51 @@ def test_matmul_int4c_matches_jax_kernel(xshape, k, n):
 
 class _DesignLib:
     """Entry points that report a launch: design, grid, split, ..., and
-    record the (M, N, K2) they were asked about."""
+    record the arguments (all but the output) they were asked about."""
 
     def __init__(self, design):
         self.design, self.asked = design, []
 
-    def _report(self, m, n, k2, out):
-        self.asked.append((m, n, k2))
+    def _report(self, *args):
+        *asked, out = args
+        self.asked.append(tuple(asked))
         for i, v in enumerate([self.design, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10]):
             out[i] = v
         return 0
 
-    qt_matmul_4bit_t_design = qt_matmul_int4c_design = _report
+    qt_matmul_4bit_t_design = qt_matmul_int4c_design = qt_matmul_int8_design = _report
+
+
+_I8_PLAIN = functools.partial(tint8.matmul_int8_design, fused=False)
 
 
 @pytest.mark.parametrize("fn,design,name", [
     (tmm.matmul_4bit_t_design, 0, "wgmma"),
     (tint4c.matmul_int4c_design, 0, "decode"),
-    (tint4c.matmul_int4c_design, 1, "prefill")])
+    (tint4c.matmul_int4c_design, 1, "prefill"),
+    (tint8.matmul_int8_design, 0, "decode"),
+    (tint8.matmul_int8_design, 1, "prefill"),
+    (_I8_PLAIN, 0, "decode"),
+    (_I8_PLAIN, 1, "prefill")])
 def test_design_reports_read_the_entry_points(fn, design, name):
     """The design reports ask their entry point about the packed K (K_pad /
-    2) and name its fields; an odd K_pad has no split_k packing."""
+    2) and name its fields; an odd K_pad has no split_k packing. The
+    LLM.int8 report asks about K itself, odd or not, and passes ``fused``
+    (default True) through."""
     lib = _DesignLib(design)
+    int8 = fn in (tint8.matmul_int8_design, _I8_PLAIN)
     with mock.patch.object(_build, "library", lambda: lib):
         res = fn(33, 2048, 5632)
-        with pytest.raises(ValueError, match="even"):
+        if int8:
             fn(33, 2048, 5631)
-    assert lib.asked == [(33, 2048, 2816)]
+        else:
+            with pytest.raises(ValueError, match="even"):
+                fn(33, 2048, 5631)
+    if int8:
+        fused = int(fn is tint8.matmul_int8_design)
+        assert lib.asked == [(33, 2048, 5632, fused), (33, 2048, 5631, fused)]
+    else:
+        assert lib.asked == [(33, 2048, 2816)]
     assert res == {"design": name, "grid_x": 1, "grid_y": 2, "grid_z": 3, "split": 4,
                    "blocks_per_sm": 5, "registers": 6, "shared_bytes": 7, "spill_bytes": 8,
                    "stages": 9, "rows": 10}
