@@ -34,7 +34,10 @@ and the script exits non-zero (nothing is caught):
      ``quantize_blockwise`` at the int8 KV writes of the serve path (a
      prefill of 256 tokens, a window of 8 steps for 8 slots, every layer
      in one call; and one layer's window), all bit for bit against their
-     plain versions, timed as in phase 3;
+     plain versions, timed as in phase 3; then the fused K+V write into
+     the int8 pool (``kvcache.write_rows``, one launch) at the prefill and
+     window shapes against ``quantize_kv`` plus ``index_put``, equal
+     outside the null page 0 (whose rows repeat), timed;
   5. the decode path at the full TinyLlama-1.1B geometry (22 layers, random
      bf16 weights from seed 0) in bf16, nf4a, nf4 and int4c: greedy decode
      of 8 prompts of 128 tokens for 32 new tokens, with the launch counts of
@@ -66,9 +69,12 @@ and the script exits non-zero (nothing is caught):
      (``matmul_4bit_t_design``) on each row, and for the nf4 TinyLlama
      rows the plain version's and a dense control's time (cuBLAS
      ``g @ W_deq^T`` of the dequantized bf16 weight); (b)
-     ``adam8bit_update`` bit for bit over 5 chained steps at the adapter
-     leaf sizes (64 and 8 blocks) and one full-parameter leaf (45,056
-     blocks), one block all zero; (c) 3 QLoRA steps (nf4 base, rank-8 bf16
+     ``adam8bit_update``: the optimizer's multi-leaf step over one QLoRA
+     step's 88 bf16 adapter leaves (one launch) bit for bit against its
+     plain version over 5 chained steps, with and without decay, timed;
+     the one-leaf op bit for bit at the adapter leaf sizes (64 and 8
+     blocks) and one full-parameter leaf (45,056 blocks), one block all
+     zero; (c) 3 QLoRA steps (nf4 base, rank-8 bf16
      LoRA on wq and wv, 8-bit Adam at lr 1e-3, one fixed batch) through
      the kernels and 3 through ``use_kernel=False`` from the same
      adapters, and one step through plain versions that sum in another
@@ -78,8 +84,8 @@ and the script exits non-zero (nothing is caught):
      lora_a gradients zero, the step-3
      loss below step 1's on both routes, and per kernel-route step 155
      ``matmul_4bit``, 152 ``matmul_4bit_t`` (layer 0's wq, wk and wv read
-     the frozen embedding and need no dx) and 88 ``adam8bit_update`` (one
-     per adapter tensor); (d) the timed ``train_bench`` rows, nf4, nf4a
+     the frozen embedding and need no dx) and 1 ``adam8bit_update`` (one
+     launch over every adapter tensor); (d) the timed ``train_bench`` rows, nf4, nf4a
      and the bf16-base control, and the 8-bit Adam bytes;
  10. the flash-attention kernels (``flash_fwd``, ``flash_bwd_dq``,
      ``flash_bwd_dkv``) against their plain versions on the same inputs at
@@ -102,7 +108,7 @@ and the script exits non-zero (nothing is caught):
      adapters, and one step with the einsum attention in f32 (the floor
      bf16 rounding of the attention sets): step-1 loss within 1e-2,
      lora_b gradients within phase 9's floor rule, the loss falling on
-     both routes, and per flash step 155 / 152 / 88 launches beside 22
+     both routes, and per flash step 155 / 152 / 1 launches beside 22
      each of the three flash kernels (none on the einsum route);
  12. greedy decode (nf4a, B=2) from a 1024-token prompt into 1040 cache
      slots: prefill logits flash against einsum (within 1e-2 rel-L2, or
@@ -141,7 +147,7 @@ and the script exits non-zero (nothing is caught):
      through the kernels within 1e-2 relative of the plain route's;
  16. QLoRA on int8 and nf8 bases under phase 9's rules (step-1 loss,
      lora_b gradients within 1.5 times their floor plus 2e-3, the loss
-     falling; 155 ``matmul_8bit``, 152 ``matmul_8bit_t`` and 88
+     falling; 155 ``matmul_8bit``, 152 ``matmul_8bit_t`` and 1
      ``adam8bit_update`` a step), then ``train_bench.bench_qlora`` on both
      bases;
  17. the CLI, in subprocesses from a temporary directory: ``quantize
@@ -189,7 +195,7 @@ from quanta_tpu_torch.metrics import MetricsRecorder
 from quanta_tpu_torch.models import llama
 from quanta_tpu_torch.ops import _build, adam8bit, attention, int4c, int8mm, matmul, quantize
 from quanta_tpu_torch.optim import Adam8bit
-from quanta_tpu_torch.serve import Engine, Request
+from quanta_tpu_torch.serve import Engine, Request, kvcache
 from quanta_tpu_torch.state.config import ConfigTree, QuantConfig
 
 # the module: the package attribute ``quanta_tpu_torch.nn.linear`` is the function
@@ -208,6 +214,9 @@ NF4_REL_L2 = 3e-2
 # one call, as the runner writes it), and one layer's window
 KV_WRITES = {"prefill_256": (22, 256, 4, 64), "window_8x8": (22, 8, 8, 4, 64),
              "window_8x8_layer": (8, 8, 4, 64)}
+# the fused K+V writes into an int8 pool of KV_PAGES pages of 16 (the
+# closed trace's default pool), prefill and window, every layer at once
+KV_PAGES = 1 + 8 * 16
 # QLoRA training: batch x seq rows per linear; the (K, N) of the linears
 # whose input needs a gradient and their count in one backward (all but
 # layer 0's wq, wk and wv, which read the frozen embedding)
@@ -218,10 +227,13 @@ T_SHAPES = {(2048, 2048): 2 * 22 - 1, (2048, 256): 2 * 22 - 2, (2048, 5632): 2 *
 PER_BACKWARD = sum(T_SHAPES.values())  # 152
 # Llama-2-7B's (K, N) and its QLoRA backward's M (batch 1 x seq 1024)
 T_SHAPES_7B, M_TRAIN_7B = ((4096, 4096), (4096, 11008), (11008, 4096)), 1024
-# adapter leaves per step by blocks of 256: A of wq and wv and B of wq
-# (2048 x 8 or 8 x 2048: 64 blocks), B of wv (8 x 256: 8 blocks)
-ADAM_LEAVES = {64: 3 * 22, 8: 22}
+# the adapter leaves of one QLoRA step: A of wq and wv (2048 x 8) and B of
+# wq (8 x 2048), 64 blocks of 256 each, and B of wv (8 x 256, 8 blocks),
+# per layer; the one-leaf op's sizes (an adapter's and a full-parameter
+# leaf's blocks)
+ADAM_SHAPES = [(2048, 8), (8, 2048), (2048, 8), (8, 256)] * 22
 ADAM_BLOCKS = {"adapter_64": 64, "adapter_8": 8, "w_up_2048x5632": 2048 * 5632 // 256}
+ADAM_WD = 1e-2  # the multi-leaf check also runs AdamW's decay (QLoRA's default is 0)
 TRAIN_LR = 1e-3  # the reference's own QLoRA step test (tests/test_parallel.py:99)
 # step-1 lora_b gradients, kernel route against plain, rel-L2 per tensor,
 # each held to the floor that the plain route summed in another order
@@ -254,13 +266,16 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # a decode step's 155 calls at M=8 (int8, nf4a); its matmul_8bit_t and
 # matmul_4bit_t a QLoRA backward's 152 calls at M=2048 (int8, nf4); its
 # matmul_int4c, matmul_int8_fused and matmul_int8 (64x64 wmma s8 tiles, no
-# split-K, no pipeline) a decode step's 155 calls at M=8; and per call (µs)
-# at the shapes named. Printed on a line of their own, apart from the
-# kernels line's measured times.
+# split-K, no pipeline) a decode step's 155 calls at M=8; its
+# adam8bit_update (one 256-thread block per quantization block, one launch
+# per leaf) a QLoRA step's 88 adapter leaves; and per call (µs) at the
+# shapes named (quantize_blockwise: one warp per vector, the window's K).
+# Printed on a line of their own, apart from the kernels line's measured
+# times.
 EARLIER_MS = {"flash_bwd_dq": 0.2697, "flash_bwd_dkv": 0.7539, "flash_fwd": 0.1999,
               "matmul_8bit": 23.588, "matmul_4bit": 20.954, "matmul_8bit_t": 79.827,
               "matmul_4bit_t": 67.866, "matmul_int4c": 10.977, "matmul_int8_fused": 8.832,
-              "matmul_int8": 5.251}
+              "matmul_int8": 5.251, "adam8bit_update": 0.484}
 EARLIER_US = {
     "matmul_8bit": {"M8_2048x5632": 120.4, "M8_5632x2048": 361.4, "M2048_2048x5632": 784.4},
     "matmul_4bit": {"M8_2048x5632": 105.3},
@@ -269,6 +284,7 @@ EARLIER_US = {
     "matmul_int4c": {"M8_2048x5632": 58.6},
     "matmul_int8_fused": {"M8_2048x5632": 65.5},
     "matmul_int8": {"M8_2048x5632": 29.0},
+    "quantize_blockwise": {"window_8x8": 4.1},
 }
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
@@ -631,11 +647,25 @@ def int8_kernel_checks(dev, work):
     return per_step, per_call, max_err
 
 
+def _kv_rows(gen, dev, n_rows):
+    """Destination rows in a KV_PAGES-page pool of 16: unique, except that
+    every 7th repeats a row of the null page 0, as bucket padding and
+    inactive slots do."""
+    perm = torch.randperm((KV_PAGES - 1) * 16, generator=gen, device=dev)[:n_rows] + 16
+    return torch.where(torch.arange(n_rows, device=dev) % 7 == 6, perm % 16, perm)
+
+
 def quantize_checks(dev, work):
-    """quantize_blockwise (int8_sym, block 64) at the int8 KV writes,
-    bit for bit; µs per call with inputs rotated past the L2."""
+    """quantize_blockwise (int8_sym, block 64) at the int8 KV writes, bit
+    for bit, µs per call; then the fused K+V write into the int8 pool
+    (``serve.kvcache.write_rows``) at the prefill and window shapes
+    against quantize_kv plus index_put, equal outside the null page 0
+    (whose rows repeat; attention never reads it), µs per call, inputs
+    rotated past the L2, beside the unfused route (two calls of the op and
+    four index_put scatters). Returns the window write's (kernel, plain) ms,
+    the op's µs at the window's K and the largest difference."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    times, max_err = {}, 0.0
+    op_us, max_err = {}, 0.0
     for name, shape in KV_WRITES.items():
         x = (torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
         x[0, 0] = 0.0  # zero vectors: scale 1, codes 0
@@ -647,16 +677,11 @@ def quantize_checks(dev, work):
               f"quantize_blockwise {name} not bit-exact: {err}")
         max_err = max(max_err, err)
         xs = copies_past_l2(x)
-
-        def run(uk):
-            return lambda i: quantize.quantize_blockwise(xs[i % len(xs)][0], fmt="int8_sym",
-                                                         block=64, use_kernel=uk)
-        ms, plain_ms = time_ms(run(True), 100), time_ms(run(False), 100)
-        times[name] = (ms, plain_ms)
-        if name == "window_8x8":
-            add_work(work, "quantize_blockwise", nbytes(x, *out), 3 * x.numel())
+        ms = time_ms(lambda i: quantize.quantize_blockwise(xs[i % len(xs)][0], fmt="int8_sym",
+                                                           block=64), 100)
+        op_us[name] = ms * 1e3
         emit(kernel_check=dict(kernel="quantize_blockwise", fmt="int8_sym", shape=list(shape),
-                               max_abs_err=err, tol=0.0, us=ms * 1e3, plain_us=plain_ms * 1e3))
+                               max_abs_err=err, tol=0.0, us=ms * 1e3))
     # the codebook branch, which the serve path does not take
     x = torch.randn((4096 * 64,), generator=gen, device=dev)
     for fmt in ("nf4", "nf4a", "fp4"):
@@ -664,7 +689,52 @@ def quantize_checks(dev, work):
         ref = quantize.quantize_blockwise(x, fmt=fmt, block=64, use_kernel=False)
         check(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
               f"quantize_blockwise {fmt} not bit-exact")
-    return times, max_err
+
+    cfg = llama.LlamaConfig.tinyllama_1b()
+    write_ms = {}
+    for name in ("prefill_256", "window_8x8"):
+        shape = KV_WRITES[name]
+        n_rows = math.prod(shape[1:-2])
+        k, v = ((torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
+                .reshape(cfg.n_layers, n_rows, *shape[-2:]) for _ in range(2))
+        k[:, 3, 1] = 0.0
+        v[:, 5] = 0.0
+        rows = _kv_rows(gen, dev, n_rows)
+        pools = {uk: kvcache.init_pool(cfg, KV_PAGES, 16, kv_quant=True, device=dev)
+                 for uk in (True, False)}
+        for uk, pool in pools.items():
+            kvcache.write_rows(pool, rows, k, v, use_kernel=uk)
+        err = max((pools[True][t][:, 1:].float() - pools[False][t][:, 1:].float())
+                  .abs().max().item() for t in pools[True])
+        check(all(torch.equal(pools[True][t][:, 1:], pools[False][t][:, 1:])
+                  for t in pools[True]),
+              f"kv write {name}: the pool outside page 0 differs from quantize_kv + index_put "
+              f"by {err}")
+        max_err = max(max_err, err)
+        sets = copies_past_l2(k, v)
+
+        def run(uk):
+            return lambda i: kvcache.write_rows(pools[uk], rows, *sets[i % len(sets)],
+                                                use_kernel=uk)
+
+        def unfused(i):  # the route before the fused write: two op calls, four scatters
+            flat = {t: x.view(cfg.n_layers, KV_PAGES * 16, *x.shape[3:])
+                    for t, x in pools[True].items()}
+            for t, x in zip(("k", "v"), sets[i % len(sets)]):
+                codes, scale = kvcache.quantize_kv(x)
+                flat[t][:, rows] = codes
+                flat[f"{t}_scale"][:, rows] = scale
+        write_ms[name] = (time_ms(run(True), 100), time_ms(run(False), 20))
+        unfused_us = time_ms(unfused, 50) * 1e3
+        if name == "window_8x8":
+            n_vec = 2 * k.numel() // 64
+            add_work(work, "quantize_blockwise", nbytes(k, v, rows) + n_vec * (64 + 4),
+                     3 * 2 * k.numel())
+        emit(kernel_check=dict(kernel="quantize_blockwise", write="kv_int8_pool", kv=name,
+                               shape=list(k.shape), pool_pages=KV_PAGES, max_abs_err=err,
+                               tol=0.0, us=write_ms[name][0] * 1e3,
+                               plain_us=write_ms[name][1] * 1e3, unfused_us=unfused_us))
+    return write_ms["window_8x8"], op_us["window_8x8"], max_err
 
 
 def int8_decode_routes(dev, cfg, params):
@@ -703,7 +773,8 @@ def serve_closed_trace(dev, cfg, params):
     its prefill and 15 more from two 8-step windows (the last one's
     overshoot trimmed). The design thus implies 8 prefills and 2 windows:
     matmul_int8_fused launches 155 x (8 + 2 x 8) forwards, and
-    quantize_blockwise 2 (K and V) x (8 prefill writes + 2 window writes)."""
+    quantize_blockwise one (K and V together) x (8 prefill writes + 2
+    window writes)."""
     trace = serve_bench.make_trace(8, 24.0, serve_bench.MAX_PROMPT, 16, cfg.vocab_size, seed=0)
     outs, kernel_counts = {}, None
     for use_kernel in (None, False):
@@ -730,7 +801,7 @@ def serve_closed_trace(dev, cfg, params):
         expected = {k: 0 for k in counts}
         if use_kernel is None:
             expected["matmul_int8_fused"] = PER_FORWARD * (8 + 2 * 8)
-            expected["quantize_blockwise"] = 2 * (8 + 2)
+            expected["quantize_blockwise"] = 8 + 2
             kernel_counts = counts
         check(counts == expected, f"closed trace use_kernel={use_kernel}: launches {counts}, "
                                   f"expected {expected}")
@@ -823,21 +894,76 @@ def transposed_checks(dev, work):
     return per_step, per_call, max_err
 
 
+def _adam_state(nb, dev):
+    return {"m_codes": torch.zeros((nb, 256), dtype=torch.int8, device=dev),
+            "m_scale": torch.full((nb, 1), 1e-12, device=dev),
+            "v_codes": torch.zeros((nb, 256), dtype=torch.uint8, device=dev),
+            "v_scale": torch.full((nb, 1), 1e-12, device=dev)}
+
+
 def adam_checks(dev, work):
-    """adam8bit_update over 5 chained steps, kernel and plain version each
-    feeding itself from the same zero state and gradients, one block all
-    zero: bit for bit. µs per call at each leaf size, inputs rotated past
-    the L2. Returns one step's 88 adapter calls in ms, kernel and plain,
-    and the largest difference over all five outputs, sizes and steps."""
+    """The optimizer's multi-leaf step over one QLoRA step's 88 bf16
+    adapter leaves (``ADAM_SHAPES``), one launch, against its plain version
+    over 5 chained steps, each route feeding itself, with and without
+    decay: every p and state tensor bit for bit (one leaf's first gradient
+    block all zero); ms per step, inputs rotated past the L2. Then the
+    one-leaf op (``adam8bit_update``) bit for bit over 5 steps at
+    ``ADAM_BLOCKS``. Returns the step's ms (kernel, plain) and the largest
+    difference."""
     gen = torch.Generator(device=dev).manual_seed(5)
     lr = torch.tensor(TRAIN_LR, device=dev)  # on the device, as the optimizer passes it
-    times, max_err = {}, 0.0
+    max_err = 0.0
+
+    def leaves(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        params = [(torch.randn(s, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+                  for s in ADAM_SHAPES]
+        return params, [_adam_state(-(-p.numel() // 256), dev) for p in params]
+
+    for wd in (0.0, ADAM_WD):
+        runs = {uk: leaves(0) for uk in (True, False)}
+        for step in range(1, 6):
+            grads = [(torch.randn(s, generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+                     for s in ADAM_SHAPES]
+            grads[0].view(-1)[:256] = 0.0
+            count = torch.tensor(float(step), device=dev)
+            scalars = torch.stack([lr, 1.0 - 0.9 ** count, 1.0 - 0.999 ** count])
+            for uk, (params, states) in runs.items():
+                adam8bit.adam8bit_step(params, grads, states, scalars, lr=TRAIN_LR,
+                                       weight_decay=wd, use_kernel=uk)
+            pairs = list(zip(runs[True][0], runs[False][0])) + [
+                (sa[k], sb[k]) for sa, sb in zip(runs[True][1], runs[False][1])
+                for k in adam8bit.STATE_KEYS]
+            err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+            max_err = max(max_err, err)
+            check(all(torch.equal(a, b) for a, b in pairs),
+                  f"adam8bit_step wd {wd} step {step} not bit-exact: err {err}")
+        emit(kernel_check=dict(kernel="adam8bit_update", step="multi_leaf", leaves=len(ADAM_SHAPES),
+                               dtype="bf16", weight_decay=wd, steps=5, max_abs_err=max_err,
+                               tol=0.0))
+    # (params, states, grads) sets, together more than the L2
+    set_bytes = 2 * nbytes(*runs[True][0]) + nbytes(*(t for st in runs[True][1]
+                                                      for t in st.values()))
+    sets = [(*leaves(i), [g.clone() for g in grads])
+            for i in range(math.ceil(2 * L2_BYTES / set_bytes))]
+
+    # the kernel through a LeafTable per set, as the optimizer keeps one
+    tables = [adam8bit.LeafTable(p, st) for p, st, _ in sets]
+    ms = time_ms(lambda i: tables[i % len(sets)].step(sets[i % len(sets)][2], scalars,
+                                                       lr=TRAIN_LR), 50)
+    plain_ms = time_ms(lambda i: adam8bit.adam8bit_step_reference(
+        sets[i % len(sets)][0], sets[i % len(sets)][2], sets[i % len(sets)][1], scalars,
+        lr=TRAIN_LR), 5)
+    params, states, grads = sets[0]
+    state_bytes = nbytes(*(t for st in states for t in st.values()))
+    add_work(work, "adam8bit_update", nbytes(*grads) + 2 * nbytes(*params) + 2 * state_bytes,
+             20 * sum(p.numel() for p in params))
+    emit(kernel_check=dict(kernel="adam8bit_update", step="multi_leaf", leaves=len(ADAM_SHAPES),
+                           ms=ms, plain_ms=plain_ms, sets=len(sets)))
+
     for name, nb in ADAM_BLOCKS.items():
+        state = {uk: list(_adam_state(nb, dev).values()) for uk in (True, False)}
         leaf_err = 0.0
-        state = {uk: [torch.zeros((nb, 256), dtype=torch.int8, device=dev),
-                      torch.full((nb, 1), 1e-12, device=dev),
-                      torch.zeros((nb, 256), dtype=torch.uint8, device=dev),
-                      torch.full((nb, 1), 1e-12, device=dev)] for uk in (True, False)}
         for step in range(1, 6):
             g = torch.randn((nb, 256), generator=gen, device=dev) * 1e-3
             g[0] = 0.0
@@ -845,31 +971,19 @@ def adam_checks(dev, work):
             bc1, bc2 = 1.0 - 0.9 ** count, 1.0 - 0.999 ** count
             outs = {uk: adam8bit.adam8bit_update(g, *state[uk], lr, bc1, bc2, use_kernel=uk)
                     for uk in (True, False)}
-            same = all(a.dtype == b.dtype and torch.equal(a, b)
-                       for a, b in zip(outs[True], outs[False]))
             err = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(outs[True], outs[False]))
             leaf_err = max(leaf_err, err)
-            check(same, f"adam8bit_update {name} step {step} not bit-exact: err {err}")
+            check(all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(outs[True], outs[False])),
+                  f"adam8bit_update {name} step {step} not bit-exact: err {err}")
             check(torch.count_nonzero(outs[True][0][0]).item() == 0,
                   f"adam8bit_update {name}: the all-zero block moved")
             state = {uk: list(outs[uk][1:]) for uk in (True, False)}
-        xs = copies_past_l2(g, *state[True])
-
-        def run(uk):
-            return lambda i: adam8bit.adam8bit_update(*xs[i % len(xs)], lr, bc1, bc2,
-                                                      use_kernel=uk)
-        ms, plain_ms = time_ms(run(True), 100), time_ms(run(False), 100)
-        times[nb] = (ms, plain_ms)
-        if nb in ADAM_LEAVES:  # ~20 flops an element: bound by bytes
-            add_work(work, "adam8bit_update", nbytes(*xs[0], *outs[True]), 20 * nb * 256,
-                     ADAM_LEAVES[nb])
         max_err = max(max_err, leaf_err)
         emit(kernel_check=dict(kernel="adam8bit_update", leaf=name, blocks=nb, steps=5,
-                               max_abs_err=leaf_err, tol=0.0, us=ms * 1e3,
-                               plain_us=plain_ms * 1e3))
-    per_step = [sum(n * times[nb][i] for nb, n in ADAM_LEAVES.items()) for i in (0, 1)]
-    return per_step, max_err
+                               max_abs_err=leaf_err, tol=0.0))
+    return (ms, plain_ms), max_err
 
 
 def _split_sum(a, w):
@@ -953,7 +1067,7 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
         expected = dict.fromkeys(_build.launches, 0)
         if route is None:
             expected.update({kernels[0]: per_forward, kernels[1]: PER_BACKWARD,
-                             "adam8bit_update": 4 * cfg.n_layers})
+                             "adam8bit_update": 1})
         for i, c in enumerate(counts):
             check(c == expected, f"qlora {fmt} route {route} step {i + 1}: launches {c}, "
                                  f"expected {expected}")
@@ -1145,7 +1259,7 @@ def qlora_flash_path(dev, cfg, base):
                 grads = _adapter_grads(adapters)
         expected = dict.fromkeys(_build.launches, 0)
         expected.update(matmul_4bit=per_forward, matmul_4bit_t=PER_BACKWARD,
-                        adam8bit_update=4 * cfg.n_layers)
+                        adam8bit_update=1)
         if route == "flash":
             expected.update(dict.fromkeys(FLASH_KERNELS, cfg.n_layers))
         for i, c in enumerate(counts):
@@ -1540,7 +1654,7 @@ def main():
         int8_step, int8_per_call, int8_err = int8_kernel_checks(dev, work)
         per_step.update(int8_step)
         max_err.update(int8_err)
-        q_times, max_err["quantize_blockwise"] = quantize_checks(dev, work)
+        q_ms, q_op_us, max_err["quantize_blockwise"] = quantize_checks(dev, work)
 
     cfg = llama.LlamaConfig.tinyllama_1b()
     dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
@@ -1612,7 +1726,6 @@ def main():
     at = "one decode step's calls at M=8 (nf4a for matmul_4bit), ms"
     i8_prefill = ("one prefill forward's 155 calls at M=1024 as [kernel, plain, dense], dense: "
                   "torch._int_mm of the int8 activations and the codes, which takes M > 16 only)")
-    q_ms, q_plain_ms = q_times["window_8x8"]
     flash_at = ("one call at TinyLlama-1.1B's QLoRA shape (B=2, S=T=1024, 32 heads, 4 KV "
                 "heads, hd 64, bf16), ms; library: ")
     sdpa = "SDPA (is_causal, enable_gqa) "
@@ -1625,12 +1738,14 @@ def main():
     measured["matmul_int4c"] = per_step["matmul_int4c"][0]
     for name in ("matmul_int8_fused", "matmul_int8"):
         measured[name] = per_step[name][0]
+    measured["adam8bit_update"] = adam_step[0]
     emit(earlier_times=dict(
         note="PERF.md's times of the designs before the Hopper redesigns, at the same work, "
              "not measured in this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},
         per_call_us=EARLIER_US, measured_ms=measured,
         measured_per_call_us={**mm4_per_call, **eight_per_call, **int8_per_call,
-                              "matmul_4bit_t": t_per_call}))
+                              "matmul_4bit_t": t_per_call,
+                              "quantize_blockwise": {"window_8x8": q_op_us}}))
     emit(kernels=[
         entry("matmul_4bit", "matmul_4bit.cu", "quanta_tpu/ops/matmul.py:204",
               launches["matmul_4bit"], *per_step["matmul_4bit"][:2], "bf16",
@@ -1658,8 +1773,11 @@ def main():
               "(prefill_forward_ms: " + i8_prefill,
               prefill_forward_ms=per_step["matmul_int8_prefill"]),
         entry("quantize_blockwise", "quantize.cu", "quanta_tpu/ops/quantize.py:65",
-              launches["quantize_blockwise"], q_ms, q_plain_ms, "f32",
-              "one call at a window's KV write (22 x 8 x 8 x 4 x 64 bf16), ms"),
+              launches["quantize_blockwise"], *q_ms, "f32",
+              "one window's K+V write into the int8 pool (K and V 22 x 8 x 8 x 4 x 64 bf16, "
+              "one launch; plain: quantize_kv and index_put), ms; library: none, no PyTorch "
+              "call turns blockwise absmax into codes (op_us: the op quantize_blockwise alone "
+              "on the window's K)", op_us=q_op_us),
         entry("matmul_4bit_t", "matmul_4bit_t.cu", "quanta_tpu/ops/matmul.py:423",
               train_launches["matmul_4bit_t"], *t_step[:2], "bf16",
               "one QLoRA backward's 152 calls at M=2048, bf16 g, nf4, ms; library: none "
@@ -1667,7 +1785,9 @@ def main():
               dense_control_ms=t_step[2]),
         entry("adam8bit_update", "adam8bit.cu", "quanta_tpu/ops/adam8bit.py:72",
               train_launches["adam8bit_update"], *adam_step, "f32",
-              "one QLoRA step's 88 adapter calls (66 of 64 blocks, 22 of 8), ms"),
+              "one QLoRA step's optimizer over its 88 bf16 adapter leaves (66 of 64 blocks, "
+              "22 of 8) in one launch, parameters updated in place, ms; library: none, "
+              "torch's Adam keeps f32 state"),
         entry("flash_fwd", "flash_fwd.cu", "quanta_tpu/ops/attention.py:189",
               launches["flash_fwd"], flash_ms["flash_fwd_ms"], flash_ms["flash_fwd_plain_ms"],
               "bf16", flash_at + sdpa + "forward", flash_ms["sdpa_fwd_ms"]),

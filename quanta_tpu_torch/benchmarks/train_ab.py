@@ -1,7 +1,7 @@
 """Time QLoRA train steps of two checkouts of this repository, in turns.
 
     python -m quanta_tpu_torch.benchmarks.train_ab DIR_A DIR_B [--rounds 2] [--decode nf4a] [--kernels]
-        [--serve llm_int8] [--no-train]
+        [--serve llm_int8] [--optim] [--closed] [--no-train]
 
 One subprocess a run, in the order A, B, B, A (two rounds), each started in
 its checkout's root, so that it imports that checkout's ``quanta_tpu_torch``,
@@ -33,8 +33,20 @@ ms): one line ``{"dir": ..., "run": i, "kernels": {...}}`` a run. With
 weights (``serve_bench.run_one`` at 11 of 22 layers: 16 Poisson requests
 at 24 req/s, 48 new tokens, 8 slots, multi_step 8, and one steady
 window's profile): one line ``{"dir": ..., "run": i, "serve": {...}}`` a
-run. ``--no-train`` leaves the train rows out. Comparing two versions
-holds only within one call, on one card.
+run. With ``--optim`` it times the optimizer of the ``tinyllama nf4`` row
+(b4 x s512, 8-bit Adam over the 88 adapter leaves): ``opt.step()``'s host
+ms between two ``torch.cuda.synchronize()`` calls, over 10 steps after 2
+(and, of that, the ms until ``opt.step()`` returns), the same for 10 calls
+back to back after the last step (the host's core kept busy, no device
+wait before each), its ``adam8bit_update`` launches, and the device
+operations and device ms of one profiled ``opt.step()``: one line ``{"dir": ..., "run": i,
+"optim": {...}}`` a run. With ``--closed`` it runs ``chip_smoke.py``'s
+closed serve trace through the kernels (full TinyLlama-1.1B, llm_int8
+weights, int8 KV, 8 requests all submitted at once, 8 slots, multi_step
+8), once to warm up and once counted: launches by kernel, windows,
+admissions, seconds: one line ``{"dir": ..., "run": i, "closed":
+{...}}`` a run. ``--no-train`` leaves the train rows out. Comparing two
+versions holds only within one call, on one card.
 """
 
 from __future__ import annotations
@@ -104,6 +116,94 @@ m = serve_bench.run_one(params, cfg, fmt_name=%r, n_requests=16, rate=24.0, max_
 m["window"] = serve_bench.window_profile(params, cfg, multi_step=8)
 print(json.dumps({k: m[k] for k in ("throughput_tok_s", "ttft_p50_ms", "ttft_p99_ms",
                                     "serve_seconds", "window")}))
+"""
+
+
+OPTIM_CHILD = """
+import json, statistics, time, torch
+from torch.profiler import ProfilerActivity, profile
+from quanta_tpu_torch import nn as qnn, train
+from quanta_tpu_torch.benchmarks import train_bench
+from quanta_tpu_torch.models import llama
+from quanta_tpu_torch.ops import _build
+from quanta_tpu_torch.optim import Adam8bit
+dev = torch.device("cuda")
+cfg = llama.LlamaConfig.tinyllama_1b()
+dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+base = qnn.quantize_params(dense, mode="nf4")
+del dense
+params = train_bench.with_lora(base)
+opt = Adam8bit(qnn.lora_parameters(params), lr=1e-4)
+data = train_bench.make_batch(cfg, 4, 512, dev)
+host_ms, enqueue_ms, launches, prof = [], [], [], {}
+optimizer_step = opt.step
+def timed_step():
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    if prof.get("on"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            optimizer_step()
+            torch.cuda.synchronize()
+        ev = [e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+        prof.update(device_ops=len(ev), device_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3)
+        return
+    optimizer_step()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    host_ms.append((time.perf_counter() - t0) * 1e3)
+    enqueue_ms.append((t1 - t0) * 1e3)
+    launches.append(_build.launches["adam8bit_update"])
+opt.step = timed_step
+step = train.make_qlora_train_step(cfg, opt)
+for _ in range(12):
+    step(params, data)
+steps = len(host_ms)
+for _ in range(10):  # back to back, the gradients of the last step, no device wait before
+    timed_step()
+back_to_back = host_ms[steps:]
+del host_ms[steps:], enqueue_ms[steps:]
+for _ in range(2):  # the first profile of a process pays the tracer's start-up
+    prof["on"] = True
+    step(params, data)
+print(json.dumps({"opt_step_host_ms": statistics.median(host_ms[2:]),
+                  "opt_step_host_ms_all": host_ms[2:],
+                  "opt_step_enqueue_ms": statistics.median(enqueue_ms[2:]),
+                  "opt_step_back_to_back_ms": statistics.median(back_to_back),
+                  "adam8bit_update_launches": launches[-1],
+                  "opt_step_device_ops": prof["device_ops"],
+                  "opt_step_device_ms": prof["device_ms"]}))
+"""
+
+
+CLOSED_CHILD = """
+import json, time, torch
+from quanta_tpu_torch import nn as qnn
+from quanta_tpu_torch.benchmarks import serve_bench
+from quanta_tpu_torch.models import llama
+from quanta_tpu_torch.ops import _build
+from quanta_tpu_torch.serve import Engine, Request
+dev = torch.device("cuda")
+cfg = llama.LlamaConfig.tinyllama_1b()
+dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+params = qnn.quantize_params(dense, mode="llm_int8")
+del dense
+trace = serve_bench.make_trace(8, 24.0, serve_bench.MAX_PROMPT, 16, cfg.vocab_size, seed=0)
+for run in range(2):
+    eng = Engine(params, cfg, n_slots=8, page_size=16,
+                 prefill_buckets=serve_bench.PREFILL_BUCKETS, kv_quant=True, multi_step=8)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=16) for i, (_, p) in enumerate(trace)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+m = eng.metrics()
+print(json.dumps({"launches": {k: v for k, v in _build.launches.items() if v},
+                  "windows": m["decode_steps"], "admissions": m["admissions"],
+                  "seconds": seconds, "tokens": sum(len(r.output) for r in done)}))
 """
 
 
@@ -201,6 +301,10 @@ def main(argv=None):
                     help="first time matmul_4bit_t, matmul_int4c and the LLM.int8 pair "
                          "in each checkout")
     ap.add_argument("--serve", metavar="FMT", help="last the timed serve row on FMT weights")
+    ap.add_argument("--optim", action="store_true",
+                    help="then time opt.step() of the tinyllama nf4 row")
+    ap.add_argument("--closed", action="store_true",
+                    help="then count the closed serve trace's launches")
     ap.add_argument("--no-train", action="store_true", help="leave the train rows out")
     args = ap.parse_args(argv)
     order = [args.dir_a, args.dir_b]
@@ -209,6 +313,10 @@ def main(argv=None):
         jobs.append(("rows", CHILD % (ROWS,)))
     if args.decode:
         jobs.append(("decode", DECODE_CHILD % args.decode))
+    if args.optim:
+        jobs.append(("optim", OPTIM_CHILD))
+    if args.closed:
+        jobs.append(("closed", CLOSED_CHILD))
     if args.serve:
         jobs.append(("serve", SERVE_CHILD % (args.serve, args.serve)))
     for key, script in jobs:

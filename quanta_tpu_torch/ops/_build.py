@@ -60,9 +60,13 @@ _SIGNATURES = {
     # x, codes, scale, midpoints, n, block, n_blocks, n_mids, stream
     "qt_quantize_blockwise_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     "qt_quantize_blockwise_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
-    # g, m_codes, m_scale, v_codes, v_scale, (lr, bc1, bc2), upd, m_codes', m_scale',
-    # v_codes', v_scale', n_blocks, b1, b2, 1 - b1, 1 - b2, eps, stream
-    "qt_adam8bit_update": [_P] * 11 + [_I, _F, _F, _F, _F, _F, _P],
+    # K, V, rows, k codes, v codes, k scales, v scales, L, R, nkv, hd, pool rows, stream
+    "qt_kv_write_int8_f32": [_P] * 7 + [_I] * 4 + [_L, _P],
+    "qt_kv_write_int8_bf16": [_P] * 7 + [_I] * 4 + [_L, _P],
+    # leaves (host array of ops.adam8bit.AdamLeaf), n_leaves, (lr, bc1, bc2) on the device,
+    # b1, b2, 1 - b1, 1 - b2, eps, lr * weight_decay, stream
+    "qt_adam8bit_step": [_P, _I, _P] + [_F] * 6 + [_P],
+    "qt_adam8bit_table_leaves": [],
     # q, k, v, q_start, kv_len, out, lse (or null), B, Sq, T, nh, nkv, hd, causal, scale, stream
     "qt_flash_fwd_bf16": [_P] * 7 + [_I] * 7 + [_F, _P],
     "qt_flash_fwd_f32": [_P] * 7 + [_I] * 7 + [_F, _P],

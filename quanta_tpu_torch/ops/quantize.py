@@ -14,10 +14,11 @@ blocks and returns ``(codes (n_blocks, block), scale (n_blocks, 1) f32)``:
     uint8, with the registry's f32 midpoints (a value on a midpoint takes
     the lower level, as the JAX kernel's strict compare does).
 
-Its production caller is the int8 KV-cache write (``serve/kvcache.py``,
-block = head_dim). Dispatch is that of every wrapper
-(``_build.use_kernel_for``): the kernel for a CUDA tensor, the plain
-version for a CPU one.
+Its production caller is the int8 KV cache (``serve/kvcache.py``, block =
+head_dim), whose writes take :func:`write_kv_int8`: K and V quantized by
+the same rule straight into rows of the pool, in one launch. Dispatch is
+that of every wrapper (``_build.use_kernel_for``): the kernel for a CUDA
+tensor, the plain version for a CPU one.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ _EPS = 1e-12
 # input dtype -> C entry point of csrc/quantize.cu
 _ENTRY = {torch.float32: "qt_quantize_blockwise_f32",
           torch.bfloat16: "qt_quantize_blockwise_bf16"}
+_KV_ENTRY = {torch.float32: "qt_kv_write_int8_f32", torch.bfloat16: "qt_kv_write_int8_bf16"}
+_KV_HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # hd = 8 lanes' values times a power of two
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,6 +111,64 @@ def quantize_blockwise(
         _build.check(rc, "quantize_blockwise")
         _build.launches["quantize_blockwise"] += 1
     return codes, scale
+
+
+def write_kv_int8_reference(k, v, rows, k_codes, v_codes, k_scale, v_scale) -> None:
+    """Plain version of :func:`write_kv_int8`: ``quantize_blockwise`` per
+    head_dim vector, then an index_put of codes and scales by row."""
+    for x, codes, scale in ((k, k_codes, k_scale), (v, v_codes, v_scale)):
+        c, s = quantize_blockwise_reference(x, fmt="int8_sym", block=x.shape[-1])
+        codes[:, rows] = c.reshape(x.shape)
+        scale[:, rows] = s.reshape(x.shape[:-1])
+
+
+def write_kv_int8(k: torch.Tensor, v: torch.Tensor, rows: torch.Tensor, k_codes: torch.Tensor,
+                  v_codes: torch.Tensor, k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                  use_kernel: bool | None = None) -> None:
+    """Quantize K and V per head_dim vector (``fmt="int8_sym"``, block =
+    hd) into rows of an int8 KV pool, IN PLACE.
+
+    k, v: (L, R, nkv, hd) f32 or bf16; rows: (R,) int64, the pool row of
+    each r (page * page_size + offset); k_codes, v_codes: (L, P, nkv, hd)
+    int8 and k_scale, v_scale: (L, P, nkv) f32, the pool's P rows. Vector
+    (l, r, h) lands in row rows[r]. Where several r name one row, it ends
+    up holding one of them (the plain version: the last) or, on the
+    kernel, a mix of them: the serve path sends only the null page's rows
+    twice, and attention never reads them.
+    """
+    if not _build.use_kernel_for(use_kernel, k):
+        return write_kv_int8_reference(k, v, rows, k_codes, v_codes, k_scale, v_scale)
+    n_layers, n_rows, nkv, hd = k.shape
+    pool_rows = k_codes.shape[1]
+    entry = _KV_ENTRY.get(k.dtype)
+    if entry is None or v.dtype != k.dtype:
+        raise TypeError(f"the int8 KV write kernel takes f32 or bf16 K and V, got {k.dtype}, "
+                        f"{v.dtype}")
+    if hd not in _KV_HEAD_DIMS:
+        raise ValueError(f"the int8 KV write kernel takes head_dim in {_KV_HEAD_DIMS}, got {hd}")
+    if v.shape != k.shape or rows.shape != (n_rows,) or rows.dtype != torch.int64 or \
+            k_codes.shape != (n_layers, pool_rows, nkv, hd) or v_codes.shape != k_codes.shape or \
+            k_scale.shape != k_codes.shape[:-1] or v_scale.shape != k_scale.shape:
+        raise ValueError("write_kv_int8: K, V (L, R, nkv, hd), rows (R,) int64, codes "
+                         "(L, P, nkv, hd), scales (L, P, nkv)")
+    if (k_codes.dtype, v_codes.dtype, k_scale.dtype, v_scale.dtype) != (
+            torch.int8, torch.int8, torch.float32, torch.float32):
+        raise TypeError("write_kv_int8 writes int8 codes and f32 scales")
+    pool = (k_codes, v_codes, k_scale, v_scale)
+    if not all(t.is_contiguous() for t in pool):
+        raise ValueError("write_kv_int8 writes into a contiguous pool")
+    k, v, rows = k.contiguous(), v.contiguous(), rows.contiguous()
+    dev = k.device
+    if any(t.device != dev for t in (v, rows, *pool)):
+        raise ValueError("write_kv_int8: every operand must be on one device")
+    if not k.numel():
+        return None
+    rc = getattr(_build.library(), entry)(
+        k.data_ptr(), v.data_ptr(), rows.data_ptr(), *(t.data_ptr() for t in pool), n_layers,
+        n_rows, nkv, hd, pool_rows, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "write_kv_int8")
+    _build.launches["quantize_blockwise"] += 1
+    return None
 
 
 def dequantize_blockwise(codes: torch.Tensor, scale: torch.Tensor, *, fmt: str = "nf4"):

@@ -10,12 +10,13 @@ requantizes per block:
     range where a linear 8-bit code would round small entries to zero.
 
 Two routes, as in the JAX package. The kernel route
-(``ops.adam8bit.adam8bit_update``, ``csrc/adam8bit.cu``) fuses the whole
-step into one pass per parameter and is taken for every CUDA parameter
-(the JAX package's "TPU and at least 16K elements" rule was a TPU tiling
-threshold). The plain route is the JAX package's XLA path in torch ops
-and runs on the CPU, or anywhere with ``use_kernel=False``. They differ
-only in the order of the bias-correction arithmetic.
+(``ops.adam8bit.adam8bit_step``, ``csrc/adam8bit.cu``) fuses the whole
+step, the weight decay and the parameter update into one launch over the
+leaves that share a device and a step count, and is taken for every CUDA
+parameter (the JAX package's "TPU and at least 16K elements" rule was a
+TPU tiling threshold). The plain route is the JAX package's XLA path in
+torch ops and runs on the CPU, or anywhere with ``use_kernel=False``.
+They differ only in the order of the bias-correction arithmetic.
 
 Each parameter is stepped in its own dtype: a bf16 adapter takes a bf16
 update, as ``upd.astype(g.dtype)`` and ``optax.apply_updates`` do.
@@ -28,23 +29,13 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from quanta_tpu_torch.ops import _build
-from quanta_tpu_torch.ops.adam8bit import adam8bit_update
+from quanta_tpu_torch.ops.adam8bit import BLOCK  # noqa: F401 (the state's block size)
+from quanta_tpu_torch.ops.adam8bit import STATE_KEYS, LeafTable
+from quanta_tpu_torch.ops.adam8bit import blockify as _blockify
 
 _EPS = 1e-12
-BLOCK = 256
-
-
-def _blockify(x: torch.Tensor):
-    flat = x.reshape(-1).to(torch.float32)
-    n = flat.numel()
-    nb = -(-n // BLOCK)
-    pad = nb * BLOCK - n
-    if pad:
-        flat = F.pad(flat, (0, pad))
-    return flat.reshape(nb, BLOCK), n
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -94,6 +85,20 @@ class Adam8bit(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
                                       weight_decay=weight_decay))
         self.use_kernel = use_kernel
+        self._tables = {}  # (group index, device) -> the kernel's LeafTable
+
+    def load_state_dict(self, state_dict):
+        """``torch.optim.Optimizer.load_state_dict``, the 8-bit state keeping
+        its dtypes: torch casts every state tensor of a floating parameter
+        to the parameter's dtype (int8 codes to f32, and the f32 scales of a
+        bf16 adapter to bf16, which rounds them)."""
+        saved = state_dict["state"]
+        ids = [i for g in state_dict["param_groups"] for i in g["params"]]
+        super().load_state_dict(state_dict)
+        for i, p in zip(ids, (p for g in self.param_groups for p in g["params"])):
+            if i in saved:
+                for k in STATE_KEYS:
+                    self.state[p][k] = saved[i][k].to(device=p.device, copy=True)
 
     @staticmethod
     def _init_state(p: torch.Tensor) -> dict:
@@ -103,16 +108,16 @@ class Adam8bit(torch.optim.Optimizer):
         return {"step": 0, "m_codes": mc, "m_scale": ms, "v_codes": vc, "v_scale": vs}
 
     @staticmethod
-    def _scalars(lr, b1, b2, step, device):
-        """lr, bc1 and bc2 as f32 on the device. ``bc = 1 - b**step`` is an
-        f32 power, as JAX computes it; the three go up in one pinned copy
-        that does not wait for the device."""
+    def _scalars(lr, b1, b2, step, device) -> torch.Tensor:
+        """(lr, bc1, bc2) as one f32 (3,) tensor on the device. ``bc = 1 -
+        b**step`` is an f32 power, as JAX computes it; the three go up in
+        one pinned copy that does not wait for the device."""
         count = torch.tensor(float(step), dtype=torch.float32)
         f32 = [torch.tensor(v, dtype=torch.float32) for v in (lr, b1, b2)]
         host = torch.stack([f32[0], 1.0 - f32[1] ** count, 1.0 - f32[2] ** count])
         if device.type == "cuda":
             host = host.pin_memory()
-        return host.to(device, non_blocking=True).unbind()
+        return host.to(device, non_blocking=True)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -120,46 +125,55 @@ class Adam8bit(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for group in self.param_groups:
+        for gi, group in enumerate(self.param_groups):
             lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
             b1, b2 = group["betas"]
-            scalars = {}  # (step, device) -> (lr, bc1, bc2) f32 on the device
+            leaves = {}  # (step, device) -> (parameters, gradients, states), stepped together
             for p in group["params"]:
-                if p.grad is None:
+                g = p.grad
+                if g is None:
                     continue
                 st = self.state[p]
                 if not st:
                     st.update(self._init_state(p))
                 st["step"] += 1
-                key = (st["step"], p.device)
-                if key not in scalars:
-                    scalars[key] = self._scalars(lr, b1, b2, st["step"], p.device)
-                lr_t, bc1, bc2 = scalars[key]
-                upd = self._update(p.grad, st, lr, lr_t, bc1, bc2, b1, b2, eps)
-                if wd:
-                    upd = upd - lr * wd * p.to(torch.float32)
-                p.add_(upd.to(p.dtype))
+                ps, grads, states = leaves.setdefault((st["step"], p.device), ([], [], []))
+                ps.append(p)
+                grads.append(g)
+                states.append(st)
+            for (count, device), (ps, grads, states) in leaves.items():
+                scalars = self._scalars(lr, b1, b2, count, device)
+                if _build.use_kernel_for(self.use_kernel, grads[0]):
+                    table = self._tables.get((gi, device))
+                    if table is None or not table.holds(ps, states):
+                        table = self._tables[(gi, device)] = LeafTable(ps, states)
+                    table.step(grads, scalars, lr=lr, weight_decay=wd, b1=b1, b2=b2, eps=eps)
+                    continue
+                _, bc1, bc2 = scalars.unbind()
+                for p, g, st in zip(ps, grads, states):
+                    if g.is_sparse or g.shape != p.shape:
+                        raise ValueError(f"Adam8bit takes a dense gradient of the parameter's "
+                                         f"shape {tuple(p.shape)}, got {g.layout} "
+                                         f"{tuple(g.shape)}")
+                    upd = self._plain_update(g, st, lr, bc1, bc2, b1, b2, eps)
+                    if wd:
+                        upd = upd - lr * wd * p.to(torch.float32)
+                    p.add_(upd.to(p.dtype))
         return loss
 
-    def _update(self, g, st, lr, lr_t, bc1, bc2, b1, b2, eps) -> torch.Tensor:
-        """One leaf's f32 update; replaces its quantized state."""
-        if _build.use_kernel_for(self.use_kernel, g):
-            gb, n = _blockify(g)
-            updb, mc, ms, vc, vs = adam8bit_update(
-                gb, st["m_codes"], st["m_scale"], st["v_codes"], st["v_scale"],
-                lr_t, bc1, bc2, b1=b1, b2=b2, eps=eps, use_kernel=True)
-            upd = updb.reshape(-1)[:n].reshape(g.shape)
-        else:
-            g32 = g.to(torch.float32)
-            m = _deq_m(st["m_codes"], st["m_scale"], g.shape)
-            v = _deq_v(st["v_codes"], st["v_scale"], g.shape)
-            m = b1 * m + (1.0 - b1) * g32
-            v = b2 * v + (1.0 - b2) * g32 * g32
-            m_hat = m / bc1
-            v_hat = v / bc2
-            upd = -lr * m_hat / (torch.sqrt(v_hat) + eps)
-            mc, ms = _quant_m(m)
-            vc, vs = _quant_v(v)
+    @staticmethod
+    def _plain_update(g, st, lr, bc1, bc2, b1, b2, eps) -> torch.Tensor:
+        """One leaf's f32 update on the plain route; replaces its state."""
+        g32 = g.to(torch.float32)
+        m = _deq_m(st["m_codes"], st["m_scale"], g.shape)
+        v = _deq_v(st["v_codes"], st["v_scale"], g.shape)
+        m = b1 * m + (1.0 - b1) * g32
+        v = b2 * v + (1.0 - b2) * g32 * g32
+        m_hat = m / bc1
+        v_hat = v / bc2
+        upd = -lr * m_hat / (torch.sqrt(v_hat) + eps)
+        mc, ms = _quant_m(m)
+        vc, vs = _quant_v(v)
         st.update(m_codes=mc, m_scale=ms, v_codes=vc, v_scale=vs)
         return upd
 

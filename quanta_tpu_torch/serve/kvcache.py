@@ -18,11 +18,13 @@ The int8 pool (``kv_quant=True``) keeps int8 codes with one f32 scale per
 (token, kv-head) vector. It has ONE quantize rule, that of
 ``ops.quantize.quantize_blockwise`` with ``fmt="int8_sym"`` and block =
 head_dim: scale = 1 if absmax <= 1e-12 else absmax / 127, codes
-clip(round(x / scale), -127, 127). On CUDA every write launches that
-kernel: in eager PyTorch one launch is cheaper than the ~5 ops of the
-plain version. (The JAX package has two rules: its kernel's, for tensors
-of 2**18 values or more on a TPU, and an XLA one, absmax / 127 + 1e-12
-without the clip, elsewhere; the two agree to one code step.)
+clip(round(x / scale), -127, 127). On CUDA a prompt's or a window's K and
+V go into the pool through one launch of ``ops.quantize.write_kv_int8``,
+which quantizes straight into the pool's rows: in eager PyTorch one
+launch is cheaper than the ~6 ops of the plain version. (The JAX package
+has two rules: its kernel's, for tensors of 2**18 values or more on a
+TPU, and an XLA one, absmax / 127 + 1e-12 without the clip, elsewhere; the
+two agree to one code step.)
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from quanta_tpu_torch.ops.quantize import quantize_blockwise
+from quanta_tpu_torch.ops.quantize import quantize_blockwise, write_kv_int8
 
 
 def init_pool(cfg, n_pages: int, page_size: int, kv_quant: bool = False,
@@ -125,6 +127,26 @@ def write_token_layer(pool_a, layer: int, page_table, positions, kv_new,
     return pool_a
 
 
+def write_rows(pool: dict, rows: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               use_kernel: Optional[bool] = None) -> dict:
+    """Write K and V (n_layers, R, nkv, hd) into pool rows, IN PLACE.
+
+    rows: (R,) int64, ``page * page_size + offset`` of each r. A quantized
+    pool takes int8 codes per (token, head) vector, through one
+    ``write_kv_int8`` (one launch on CUDA). Where several r name one row
+    (the null page), attention never reads it.
+    """
+    n_layers, n_pages, page = pool["k"].shape[:3]
+    flat = {name: t.view(n_layers, n_pages * page, *t.shape[3:]) for name, t in pool.items()}
+    if not is_quantized(pool):
+        flat["k"][:, rows] = k.to(flat["k"].dtype)
+        flat["v"][:, rows] = v.to(flat["v"].dtype)
+        return pool
+    write_kv_int8(k, v, rows, flat["k"], flat["v"], flat["k_scale"], flat["v_scale"],
+                  use_kernel=use_kernel)
+    return pool
+
+
 def write_prefill(pool: dict, pages: torch.Tensor, k_seq: torch.Tensor, v_seq: torch.Tensor,
                   *, use_kernel: Optional[bool] = None) -> dict:
     """Write a full prompt's KV into the given pages, IN PLACE.
@@ -133,22 +155,9 @@ def write_prefill(pool: dict, pages: torch.Tensor, k_seq: torch.Tensor, v_seq: t
     k_seq/v_seq: (n_layers, S_pad, nkv, hd) with S_pad == len(pages) *
     page. A quantized pool takes int8 codes per (token, head) vector.
     """
-    n_pages = pages.shape[0]
-    n_layers, s_pad = k_seq.shape[:2]
-    page = s_pad // n_pages
-
-    def paged(x):
-        return x.reshape(n_layers, n_pages, page, *x.shape[2:])
-
-    if not is_quantized(pool):
-        pool["k"][:, pages] = paged(k_seq.to(pool["k"].dtype))
-        pool["v"][:, pages] = paged(v_seq.to(pool["v"].dtype))
-        return pool
-    for name, seq in (("k", k_seq), ("v", v_seq)):
-        codes, scale = quantize_kv(seq, use_kernel=use_kernel)
-        pool[name][:, pages] = paged(codes)
-        pool[f"{name}_scale"][:, pages] = paged(scale)
-    return pool
+    page = pool["k"].shape[2]
+    rows = (pages.long()[:, None] * page + torch.arange(page, device=pages.device)).reshape(-1)
+    return write_rows(pool, rows, k_seq, v_seq, use_kernel=use_kernel)
 
 
 @dataclasses.dataclass

@@ -299,13 +299,9 @@ def decode_multi_step(
     # resolve to the always-masked null page 0
     tpos = pos_safe[:, None] + step_iota[None, :].to(pos_safe.dtype)
     page_idx = table_safe.gather(1, torch.div(tpos, page_size, rounding_mode="floor").long())
-    offset = tpos % page_size
-    for name, side in (("k", side_k), ("v", side_v)):
-        if quantized:
-            codes, scale = kvcache.quantize_kv(side, use_kernel=use_kernel)
-            pool[f"{name}_scale"][:, page_idx, offset] = scale
-            side = codes
-        pool[name][:, page_idx, offset] = side.to(pool[name].dtype)
+    rows = (page_idx * page_size + tpos % page_size).reshape(-1).long()
+    kvcache.write_rows(pool, rows, side_k.reshape(n_layers, -1, *side_shape[3:]),
+                       side_v.reshape(n_layers, -1, *side_shape[3:]), use_kernel=use_kernel)
 
     positions = torch.where(active, positions + n_steps, positions)
     return torch.stack(toks), positions, pool

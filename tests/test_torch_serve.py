@@ -21,7 +21,10 @@ Tolerances, with their reasons:
     identical.
 """
 
+import ctypes
 import json
+import math
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +34,7 @@ import torch
 
 from quanta_tpu import nn as jnn
 from quanta_tpu.models import llama as jllama
+from quanta_tpu.ops import quantize as jquantize
 from quanta_tpu.serve import kvcache as jkv
 from quanta_tpu.serve import runner as jrunner
 from quanta_tpu_torch import interop
@@ -38,6 +42,8 @@ from quanta_tpu_torch import nn as tnn
 from quanta_tpu_torch.benchmarks import serve_bench
 from quanta_tpu_torch.metrics import MetricsRecorder, device_memory_stats
 from quanta_tpu_torch.models import llama as tllama
+from quanta_tpu_torch.ops import _build
+from quanta_tpu_torch.ops import quantize as tquantize
 from quanta_tpu_torch.serve import Engine, PageAllocator, Request, SamplingParams
 from quanta_tpu_torch.serve import kvcache as tkv
 from quanta_tpu_torch.serve import runner as trunner
@@ -226,6 +232,88 @@ def test_quantize_kv_matches_both_jax_rules():
     assert tkv.dequantize_kv(*z, torch.float32).abs().max().item() == 0.0
     xb = torch.from_numpy(x).to(torch.bfloat16)
     assert torch.equal(tkv.quantize_kv(xb)[0], tkv.quantize_kv(xb.float())[0])
+
+
+def test_int8_pool_rows_match_jax_kernel_rule():
+    """``write_rows`` into an int8 pool (the plain version of the fused KV
+    write on the CPU) against JAX's kernel rule: ``quantize_blockwise(...,
+    interpret=True)`` codes and scales placed by row with numpy. Rows on
+    page 0 repeat (inactive slots and bucket padding write the null page),
+    so page 0 is left out: the writers that share its rows need not agree
+    on what it holds, and attention never reads it."""
+    page, n_pages = 8, 6
+    L, nkv, hd = JCFG.n_layers, JCFG.n_kv_heads, JCFG.head_dim
+    rows = np.asarray([4 * page + 3, 2, 9, 2, 5 * page + 7, 0, 1 * page, 2], np.int64)
+    k, v = (_kv_inputs(seed, (L, len(rows), nkv, hd)) for seed in (8, 9))
+    k[:, 2, 1] = 0.0  # a zero vector: scale 1, codes 0
+    pool = tkv.write_rows(tkv.init_pool(TCFG, n_pages, page, kv_quant=True),
+                          torch.from_numpy(rows), torch.from_numpy(k), torch.from_numpy(v))
+    for name, x in (("k", k), ("v", v)):
+        jc, js = jquantize.quantize_blockwise(jnp.asarray(x), fmt="int8_sym", block=hd,
+                                              interpret=True)
+        want_c = np.zeros((L, n_pages * page, nkv, hd), np.int8)
+        want_s = np.zeros((L, n_pages * page, nkv), np.float32)
+        want_c[:, rows] = np.asarray(jc).reshape(x.shape)
+        want_s[:, rows] = np.asarray(js).reshape(x.shape[:-1])
+        got_c = pool[name].reshape(L, -1, nkv, hd)[:, page:].numpy()
+        got_s = pool[f"{name}_scale"].reshape(L, -1, nkv)[:, page:].numpy()
+        _assert_kv_codes(got_c, got_s, want_c[:, page:], want_s[:, page:], exact_rule=True)
+    assert (pool["k_scale"][:, 1, 1, 1] == 1.0).all() and (pool["k"][:, 1, 1, 1] == 0).all()
+
+
+def _view(ptr: int, shape, dtype) -> torch.Tensor:
+    """The tensor behind a data pointer (a CPU tensor here)."""
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return torch.frombuffer((ctypes.c_char * nbytes).from_address(ptr),
+                            dtype=dtype).reshape(shape)
+
+
+class FakeQuantKernels:
+    """Stands in for ``_build.library()`` on the serve path: the int8 KV
+    write's C entry points run the plain version on the tensors behind the
+    pointers."""
+
+    def __getattr__(self, name):
+        if not name.startswith("qt_kv_write_int8_"):
+            raise AttributeError(name)
+        dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+
+        def write(k, v, rows, kc, vc, ks, vs, n_layers, n_rows, nkv, hd, pool_rows, _stream):
+            kv, codes, scales = (n_layers, n_rows, nkv, hd), (n_layers, pool_rows, nkv, hd), \
+                (n_layers, pool_rows, nkv)
+            tquantize.write_kv_int8_reference(
+                _view(k, kv, dtype), _view(v, kv, dtype), _view(rows, (n_rows,), torch.int64),
+                _view(kc, codes, torch.int8), _view(vc, codes, torch.int8),
+                _view(ks, scales, torch.float32), _view(vs, scales, torch.float32))
+            return 0
+        return write
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+def test_engine_kv8_kernel_route_launches(tparams):
+    """An int8-KV engine on the kernel routes (``FakeQuantKernels``): each
+    prefill and each window writes K and V through one ``quantize_blockwise``
+    launch, so a run counts admissions + windows; the tokens are the plain
+    route's."""
+    prompts = _prompts([3, 11, 20, 7])
+    outs = {}
+    with mock.patch.object(_build, "use_kernel_for", lambda uk, t: uk is not False), \
+            mock.patch.object(_build, "library", lambda: FakeQuantKernels()), \
+            mock.patch.object(torch.cuda, "current_stream", lambda dev=None: _Stream()):
+        for use_kernel in (None, False):
+            _build.reset_launches()
+            outs[use_kernel], eng = _serve(tparams, prompts, 6, kv_quant=True,
+                                           prefill_buckets=(8, 16, 32), multi_step=4,
+                                           use_kernel=use_kernel)
+            m = eng.metrics()
+            expected = dict.fromkeys(_build.launches, 0)
+            if use_kernel is None:
+                expected["quantize_blockwise"] = m["admissions"] + m["decode_steps"]
+            assert dict(_build.launches) == expected
+    assert outs[None] == outs[False] and len(outs[None]) == 4
 
 
 # ------------------------------------------------------------------- runner

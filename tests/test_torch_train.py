@@ -258,6 +258,188 @@ def test_adam8bit_bf16_param_takes_bf16_update():
                                   torch.tensor(-1e-2).to(torch.bfloat16).float().numpy())
 
 
+def _ulps_apart(a, b, dtype):
+    """|a - b| in units of ``dtype``'s spacing at b (f32 or bf16 values)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    spacing = np.abs(np.spacing(b)) * (2.0 ** 16 if dtype == "bfloat16" else 1.0)
+    return np.abs(a - b) / spacing
+
+
+# leaves of a multi-leaf step: ragged against 256 (700, 2560 + 40) and
+# against 8 (15), and one of whole blocks
+STEP_SHAPES = [(700,), (64, 40), (3, 5), (2, 256)]
+
+
+def _step_inputs(shapes, dtype, step):
+    """Gradients in ``dtype``; the first leaf's first block all zero."""
+    out = []
+    for i, s in enumerate(shapes):
+        g = _rand(s, 100 * step + i, 10.0 ** (step - 3)).reshape(-1)
+        if i == 0:
+            g[:256] = 0.0
+        out.append(torch.from_numpy(g.reshape(s)).to(getattr(torch, dtype)))
+    return out
+
+
+def _zero_states(shapes):
+    states = []
+    for s in shapes:
+        mc, ms = toptim._quant_m(torch.zeros(s))
+        vc, vs = toptim._quant_v(torch.zeros(s))
+        states.append(dict(zip(tadam.STATE_KEYS, (mc, ms, vc, vs))))
+    return states
+
+
+def _f32_ulps(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wd", [0.0, 1e-2])
+def test_adam8bit_step_reference_matches_jax(dtype, wd):
+    """The plain multi-leaf step over 3 chained steps against the JAX
+    package, leaf by leaf from the port's state and parameters of each
+    step: its Pallas kernel (interpret), then ``upd - lr * wd * p`` and
+    ``p + upd.astype(p.dtype)``.
+
+    Tolerances: XLA on the CPU contracts the interpreted kernel's
+    ``b * m + c * g`` into FMAs and turns ``/ 127`` into a product with the
+    reciprocal, so its block scales may sit up to 2 f32 ulps from the
+    port's and a code one step away (they are equal where the scales are),
+    and its update within rtol 1e-5 (as
+    ``test_adam8bit_update_reference_matches_jax``). The decay and the add,
+    given the port's update, leave p within 1 ulp of its dtype: XLA may
+    contract the decay's product and difference into one FMA, whose f32
+    result can round to the neighbouring value of p."""
+    lr, b1, b2 = 1e-2, 0.9, 0.999
+    params = [torch.from_numpy(_rand(s, 40 + i)).to(getattr(torch, dtype))
+              for i, s in enumerate(STEP_SHAPES)]
+    states = _zero_states(STEP_SHAPES)
+    for step in range(1, 4):
+        grads = _step_inputs(STEP_SHAPES, dtype, step)
+        bc1 = np.float32(1.0) - np.float32(b1) ** np.float32(step)
+        bc2 = np.float32(1.0) - np.float32(b2) ** np.float32(step)
+        # numpy copies: the port steps in place, and jnp.asarray may share a buffer
+        before = [(p.float().numpy().copy(), [st[k].numpy().copy() for k in tadam.STATE_KEYS])
+                  for p, st in zip(params, states)]
+        upds = [tadam.adam8bit_update_reference(tadam.blockify(g)[0], *(st[k] for k in
+                                                tadam.STATE_KEYS), lr, bc1, bc2)[0]
+                for g, st in zip(grads, states)]
+        tadam.adam8bit_step_reference(params, grads, states,
+                                      torch.tensor([lr, bc1, bc2], dtype=torch.float32), lr=lr,
+                                      weight_decay=wd, b1=b1, b2=b2)
+        for (p0, st0), p, st, g, upd in zip(before, params, states, grads, upds):
+            gb, n = tadam.blockify(g)
+            jupd, *jst = jadam.adam8bit_update(jnp.asarray(gb.numpy()),
+                                               *map(jnp.asarray, st0), np.float32(lr), bc1,
+                                               bc2, interpret=True)
+            np.testing.assert_allclose(upd.numpy(), np.asarray(jupd), rtol=1e-5, atol=1e-7)
+            for codes, scale, jcodes, jscale in ((st["m_codes"], st["m_scale"], *jst[:2]),
+                                                 (st["v_codes"], st["v_scale"], *jst[2:])):
+                ulps = _f32_ulps(scale.numpy(), jscale)
+                assert ulps.max() <= 2
+                diff = np.abs(codes.numpy().astype(np.int32) - np.asarray(jcodes, np.int32))
+                assert diff.max() <= 1 and (diff[ulps[:, 0] == 0] == 0).all()
+            jp = jnp.asarray(p0).astype(getattr(jnp, dtype))
+            ju = jnp.asarray(upd.numpy()).reshape(-1)[:n].reshape(g.shape)
+            if wd:
+                ju = ju - lr * wd * jp.astype(jnp.float32)
+            want = np.asarray((jp + ju.astype(jp.dtype)).astype(jnp.float32))
+            assert _ulps_apart(p.float().numpy(), want, dtype).max() <= 1.0
+        assert np.all(states[0]["m_codes"][0].numpy() == 0)  # the all-zero block
+
+
+def test_adam8bit_kernel_route_steps_in_place(fake_kernels):
+    """The multi-leaf kernel route (``FakeKernels`` running the plain
+    arithmetic over the C entry point's leaf table, capped at 3 leaves a
+    launch) against the plain multi-leaf step: every p and every state
+    tensor equal over 3 chained steps, bf16 and f32 leaves in one call, wd >
+    0, ragged leaves, a transposed (non-contiguous) gradient; 7 leaves make
+    3 launches of one C call. The one-leaf op reads the same table."""
+    shapes = STEP_SHAPES + [(40, 64), (5,), (300,)]
+    dtypes = ["float32", "bfloat16"] * 4
+    runs = {}
+    for route in (True, False):
+        params = [torch.from_numpy(_rand(s, 60 + i)).to(getattr(torch, d))
+                  for i, (s, d) in enumerate(zip(shapes, dtypes))]
+        states = _zero_states(shapes)
+        _build.reset_launches()
+        with mock.patch.object(FakeKernels, "table_leaves", 3):
+            for step in range(1, 4):
+                grads = [g.to(p.dtype) for g, p in
+                         zip(_step_inputs(shapes, "float32", step), params)]
+                grads[4] = grads[4].T.contiguous().T  # (40, 64) with (1, 40) strides
+                assert not grads[4].is_contiguous()
+                scalars = torch.tensor([1e-2, 1 - 0.9 ** step, 1 - 0.999 ** step])
+                tadam.adam8bit_step(params, grads, states, scalars, lr=1e-2,
+                                    weight_decay=1e-2, use_kernel=route)
+        assert _build.launches["adam8bit_update"] == (9 if route else 0)
+        runs[route] = (params, states)
+    for p, q in zip(runs[True][0], runs[False][0]):
+        assert p.dtype == q.dtype and torch.equal(p, q)
+    for a, b in zip(runs[True][1], runs[False][1]):
+        assert all(torch.equal(a[k], b[k]) for k in tadam.STATE_KEYS)
+    # the one-leaf op: fresh outputs, the update out, no parameter
+    g = torch.from_numpy(_rand((5, 256), 7))
+    st = list(_zero_states([(5, 256)])[0].values())
+    outs = [tadam.adam8bit_update(g, *st, 1e-3, 0.1, 0.001, use_kernel=uk) for uk in (True, False)]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert _build.launches["adam8bit_update"] == 1
+
+
+def test_adam8bit_groups_leaves_by_step_count(fake_kernels):
+    """Adam8bit on the kernel route makes one C call per (device, step
+    count): a leaf that missed a step goes in a second call; a sparse
+    gradient is refused on either route."""
+    ps = [torch.zeros(300, requires_grad=True), torch.zeros(40, requires_grad=True)]
+    opt = toptim.Adam8bit(ps, lr=1e-2)
+    ps[0].grad = torch.ones(300)
+    opt.step()
+    ps[1].grad = torch.ones(40)
+    _build.reset_launches()
+    opt.step()
+    assert [opt.state[p]["step"] for p in ps] == [2, 1]
+    assert _build.launches["adam8bit_update"] == 2
+    for use_kernel in (None, False):
+        opt = toptim.Adam8bit([ps[1]], lr=1e-2, use_kernel=use_kernel)
+        ps[1].grad = torch.ones(40).to_sparse()
+        with pytest.raises(ValueError, match="dense gradient"):
+            opt.step()
+
+
+def test_adam8bit_keeps_its_leaf_table_while_it_holds(fake_kernels):
+    """The optimizer reuses its leaf table from step to step, and builds a
+    new one when a parameter's storage or the state tensors change (here
+    ``p.data = ...`` and ``load_state_dict``, which keeps the state's int8,
+    uint8 and f32 dtypes on bf16 and f32 leaves); the parameters then step
+    as the plain multi-leaf step steps them."""
+    ps = [torch.from_numpy(_rand(s, 70 + i)).to(dtype).requires_grad_()
+          for i, (s, dtype) in enumerate(zip(STEP_SHAPES, [torch.float32, torch.bfloat16] * 2))]
+    ref = [p.detach().clone() for p in ps]
+    ref_states = _zero_states(STEP_SHAPES)
+    opt = toptim.Adam8bit(ps, lr=1e-2)
+    tables = []
+    for step in range(1, 5):
+        grads = [g.to(p.dtype) for g, p in zip(_step_inputs(STEP_SHAPES, "float32", step), ps)]
+        for p, g in zip(ps, grads):
+            p.grad = g
+        if step == 3:
+            ps[1].data = ps[1].data.clone()  # new storage: the old table would write the old
+        if step == 4:
+            opt.load_state_dict(opt.state_dict())  # new state tensors
+        opt.step()
+        tables.append(opt._tables[(0, torch.device("cpu"))])
+        scalars = toptim.Adam8bit._scalars(1e-2, 0.9, 0.999, step, torch.device("cpu"))
+        tadam.adam8bit_step_reference(ref, grads, ref_states, scalars, lr=1e-2)
+        for p, q in zip(ps, ref):
+            assert torch.equal(p.detach(), q)
+    assert tables[0] is tables[1] and tables[2] is not tables[1] and tables[3] is not tables[2]
+    for st, want in zip(opt.state.values(), ref_states):
+        assert all(st[k].dtype == want[k].dtype and torch.equal(st[k], want[k])
+                   for k in tadam.STATE_KEYS)
+
+
 # --------------------------------------------------------------- LoRA
 
 
@@ -474,19 +656,38 @@ class FakeKernels:
                 return lambda *a: fn(dtype, *a)
         raise AttributeError(name)
 
-    def qt_adam8bit_update(self, g, mc, ms, vc, vs, scalars, upd, mco, mso, vco, vso, nb,
-                           b1, b2, c1, c2, eps, _stream):
+    table_leaves = 128  # leaves one launch takes, as in csrc/adam8bit.cu
+
+    def qt_adam8bit_table_leaves(self):
+        return self.table_leaves
+
+    def qt_adam8bit_step(self, leaves, n_leaves, scalars, b1, b2, c1, c2, eps, lr_wd, _stream):
+        """The plain arithmetic over the leaf table, in the kernel's order:
+        the update, the decay and the add where p is given, the update out
+        where asked, the new state in place."""
         assert (c1, c2) == (1.0 - b1, 1.0 - b2)
-        f32, rows, cols = torch.float32, (nb, 256), (nb, 1)
+        f32, i8, u8 = torch.float32, torch.int8, torch.uint8
         lr, bc1, bc2 = _view(scalars, (3,), f32)
-        res = tadam.adam8bit_update_reference(
-            _view(g, rows, f32), _view(mc, rows, torch.int8), _view(ms, cols, f32),
-            _view(vc, rows, torch.uint8), _view(vs, cols, f32), lr, bc1, bc2,
-            b1=b1, b2=b2, eps=eps)
-        outs = (_view(upd, rows, f32), _view(mco, rows, torch.int8), _view(mso, cols, f32),
-                _view(vco, rows, torch.uint8), _view(vso, cols, f32))
-        for o, r in zip(outs, res):
-            o.copy_(r)
+        for leaf in (tadam.AdamLeaf * n_leaves).from_address(leaves):
+            n, nb = leaf.n, -(-leaf.n // 256)
+            rows, cols = (nb, 256), (nb, 1)
+            g = _view(leaf.g, (n,), torch.bfloat16 if leaf.g_bf16 else f32)
+            state = [_view(leaf.m_codes, rows, i8), _view(leaf.m_scale, cols, f32),
+                     _view(leaf.v_codes, rows, u8), _view(leaf.v_scale, cols, f32)]
+            upd, *new = tadam.adam8bit_update_reference(tadam.blockify(g)[0], *state, lr, bc1,
+                                                        bc2, b1=b1, b2=b2, eps=eps)
+            upd = upd.reshape(-1)[:n]
+            if leaf.p:
+                p = _view(leaf.p, (n,), torch.bfloat16 if leaf.p_bf16 else f32)
+                if lr_wd:
+                    upd = upd - lr_wd * p.to(f32)
+                p.add_(upd.to(p.dtype))
+            if leaf.upd:
+                _view(leaf.upd, (n,), f32).copy_(upd)
+            outs = [_view(leaf.m_codes_out, rows, i8), _view(leaf.m_scale_out, cols, f32),
+                    _view(leaf.v_codes_out, rows, u8), _view(leaf.v_scale_out, cols, f32)]
+            for o, t in zip(outs, new):
+                o.copy_(t)
         return 0
 
 
@@ -564,8 +765,8 @@ def test_qlora_kernel_route_launches(fake_kernels):
     """One QLoRA step on the kernel routes: every quantized linear launches
     ``matmul_4bit`` once; ``matmul_4bit_t`` runs for each whose input needs
     a gradient (all but layer 0's wq, wk and wv, which see the frozen
-    embedding); one ``adam8bit_update`` per adapter tensor. The result is
-    the plain route's."""
+    embedding); one ``adam8bit_update`` a step, over every adapter tensor.
+    The result is the plain route's."""
     cfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
     dense = tllama.init_params(torch.Generator().manual_seed(0), cfg)
     base = tnn.quantize_params(dense, mode="nf4", min_size=1024)
@@ -583,7 +784,7 @@ def test_qlora_kernel_route_launches(fake_kernels):
         expected = dict.fromkeys(_build.launches, 0)
         if route is None:
             expected.update(matmul_4bit=2 * per_forward, matmul_4bit_t=2 * (per_forward - 3),
-                            adam8bit_update=2 * 4 * cfg.n_layers)
+                            adam8bit_update=2)
         assert dict(_build.launches) == expected
         trees[route] = ttrain.extract_adapters(params)
     np.testing.assert_allclose(losses[None], losses[False], rtol=1e-5)
@@ -617,7 +818,7 @@ def test_qlora_8bit_kernel_route_launches(fake_kernels, fmt):
         expected = dict.fromkeys(_build.launches, 0)
         if route is None:
             expected.update(matmul_8bit=per_forward, matmul_8bit_t=per_forward - 3,
-                            adam8bit_update=4 * cfg.n_layers)
+                            adam8bit_update=1)
         assert dict(_build.launches) == expected
         grads[route] = [ad[name]["b"].grad.clone() for ad in ttrain.extract_adapters(params)
                         for name in ("wq", "wv")]
