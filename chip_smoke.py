@@ -159,7 +159,37 @@ and the script exits non-zero (nothing is caught):
      loss below 2.5), the int8 and nf8 perplexities through the kernels
      within 1e-4 relative of ``use_kernel=False`` on the same trees, and
      the gates of the 8-bit rows (int8, nf8, llm_int8, w8a8-*) hold at
-     <= 0.1; the other rows are printed.
+     <= 0.1; the other rows are printed;
+ 19. GPT-2 small's kernels: ``matmul_4bit`` (nf4a, bf16 x at M in {8,
+     1024}, f32 x at M = 8) and ``matmul_int8_fused`` (f32 x at M in {8,
+     256}) against their plain versions at GPT-2's four (K, N) (768 x
+     2304, 768 x 768, 768 x 3072, 3072 x 768) under phase 3's and phase
+     4's rules (2 bf16 ulps of max|plain|, f32 1e-5 of it; LLM.int8 bit for
+     bit), the bf16 and int8 outputs bit-identical over two calls, the
+     design per row, timed as in phase 3, and one GPT-2 decode step's 48
+     calls (M = 8) with their bound;
+ 20. HF checkpoints through the port's own safetensors codec: GPT-2 small
+     (12 layers, 768 wide, vocab 50257, 1024 positions, random f32 weights
+     from seed 0) and a TinyLlama-1.1B-width Llama of 2 layers (bf16
+     weights, f32 on disk) saved with ``models.hf.save_gpt2`` /
+     ``save_llama`` into a temporary directory and loaded back onto the
+     card, every tensor bit-identical;
+ 21. that 2-layer Llama quantized to exact nf4 and transcoded to nf4a on
+     the card (``utils.transcode_params``; codes equal to the transcode of
+     a host copy), then greedy decode of 8 prompts of 128 tokens for 16 new
+     ones through ``matmul_4bit`` (16 x 15 launches), prefill logits within
+     phase 5's rel-L2 of ``use_kernel=False``;
+ 22. GPT-2 served: phase 7a's closed trace through ``Engine(arch="gpt2")``
+     on the loaded f32 weights quantized to llm_int8, int8 KV, 8 slots,
+     multi_step 8: tokens identical request by request through the kernels
+     and through ``use_kernel=False``, 48 ``matmul_int8_fused`` launches a
+     forward (4 a layer; the tied head is dense) and one
+     ``quantize_blockwise`` a prefill and a window;
+ 23. GPT-2 in bf16 (``load_gpt2(dtype=bfloat16)``) quantized to nf4a:
+     greedy decode of 8 prompts of 128 tokens for 32 new ones through
+     ``matmul_4bit``'s bf16 designs (32 x 48 launches), prefill logits
+     against ``use_kernel=False`` within phase 5's rel-L2, or phase 15's
+     floor rule where bf16 reordering sets a higher floor.
 
 Then the seconds each phase took, the redesigned kernels' earlier times
 as PERF.md records them (``earlier_times``, beside this run's), the
@@ -188,15 +218,16 @@ import torch
 
 from quanta_tpu_torch import eval as qeval
 from quanta_tpu_torch import nn as qnn
-from quanta_tpu_torch import ptq, train
+from quanta_tpu_torch import profiling, ptq, train
 from quanta_tpu_torch.benchmarks import accuracy_bench, decode_bench, serve_bench, train_bench
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.metrics import MetricsRecorder
-from quanta_tpu_torch.models import llama
+from quanta_tpu_torch.models import gpt2, hf, llama
 from quanta_tpu_torch.ops import _build, adam8bit, attention, int4c, int8mm, matmul, quantize
 from quanta_tpu_torch.optim import Adam8bit
 from quanta_tpu_torch.serve import Engine, Request, kvcache
 from quanta_tpu_torch.state.config import ConfigTree, QuantConfig
+from quanta_tpu_torch.utils import transcode_codebook, transcode_params
 
 # the module: the package attribute ``quanta_tpu_torch.nn.linear`` is the function
 linear_mod = importlib.import_module("quanta_tpu_torch.nn.linear")
@@ -329,12 +360,20 @@ PTQ_PPL_REL = 1e-2
 ACC_STEPS = 900
 ACC_PPL_REL = 1e-4
 ACC_GATED = ("int8", "nf8", "llm_int8", "w8a8-minmax", "w8a8-percentile", "w8a8-entropy")
+# GPT-2 small: the (K, N) of its four linears and their count in one
+# forward (the tied head is dense); the kernel checks' M (nf4a in bf16
+# and f32, LLM.int8 on f32 x); the decode prompts and new tokens
+GPT2_SHAPES = {(768, 2304): 12, (768, 768): 12, (768, 3072): 12, (3072, 768): 12}
+GPT2_MM4 = ((torch.bfloat16, (8, 1024)), (torch.float32, (8,)))
+GPT2_I8_MS = (8, 256)
+GPT2_PROMPT, GPT2_NEW, CONVERT_NEW = 128, 32, 16
 
 
-# the H100 SXM's published rates: device
-# memory, and dense peaks by operand type
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# the H100 SXM's published rates (profiling.H100): device memory, and
+# dense peaks by operand type
+HBM_BYTES_S = profiling.H100.hbm_gbps * 1e9
+PEAK_OPS_S = {"bf16": profiling.H100.bf16_tflops * 1e12,
+              "int8": profiling.H100.int8_tops * 1e12, "f32": profiling.H100.f32_tflops * 1e12}
 
 
 def rel_l2(a, b):
@@ -766,21 +805,21 @@ def int8_decode_routes(dev, cfg, params):
     return launches
 
 
-def serve_closed_trace(dev, cfg, params):
+def serve_closed_trace(dev, cfg, params, arch="llama", per_forward=PER_FORWARD):
     """8 requests, all submitted before Engine.run, so the schedule does
     not depend on speed: every request is admitted in the first step
     (8 slots; the default pool holds them all), takes its first token from
     its prefill and 15 more from two 8-step windows (the last one's
     overshoot trimmed). The design thus implies 8 prefills and 2 windows:
-    matmul_int8_fused launches 155 x (8 + 2 x 8) forwards, and
-    quantize_blockwise one (K and V together) x (8 prefill writes + 2
-    window writes)."""
+    matmul_int8_fused launches ``per_forward`` (155 for TinyLlama, 48 for
+    GPT-2) x (8 + 2 x 8) forwards, and quantize_blockwise one (K and V
+    together) x (8 prefill writes + 2 window writes)."""
     trace = serve_bench.make_trace(8, 24.0, serve_bench.MAX_PROMPT, 16, cfg.vocab_size, seed=0)
     outs, kernel_counts = {}, None
     for use_kernel in (None, False):
         eng = Engine(params, cfg, n_slots=8, page_size=16,
                      prefill_buckets=serve_bench.PREFILL_BUCKETS, kv_quant=True,
-                     multi_step=8, use_kernel=use_kernel)
+                     multi_step=8, use_kernel=use_kernel, arch=arch)
         reqs = [Request(uid=i, prompt=p, max_new_tokens=16) for i, (_, p) in enumerate(trace)]
         torch.cuda.synchronize()
         _build.reset_launches()
@@ -800,16 +839,17 @@ def serve_closed_trace(dev, cfg, params):
               f"windows, {m['preemptions']} preemptions; the design implies 8, 2, 0")
         expected = {k: 0 for k in counts}
         if use_kernel is None:
-            expected["matmul_int8_fused"] = PER_FORWARD * (8 + 2 * 8)
+            expected["matmul_int8_fused"] = per_forward * (8 + 2 * 8)
             expected["quantize_blockwise"] = 8 + 2
             kernel_counts = counts
-        check(counts == expected, f"closed trace use_kernel={use_kernel}: launches {counts}, "
-                                  f"expected {expected}")
-        emit(serve_closed=dict(use_kernel=use_kernel, seconds=wall, launches=counts,
+        check(counts == expected, f"{arch} closed trace use_kernel={use_kernel}: launches "
+                                  f"{counts}, expected {expected}")
+        emit(serve_closed=dict(arch=arch, n_layers=cfg.n_layers, use_kernel=use_kernel,
+                               seconds=wall, launches=counts,
                                prompt_lens=[len(p) for _, p in trace], **m))
     for uid, toks in outs[None].items():
-        check(toks == outs[False][uid], f"closed trace: request {uid}'s tokens through the "
-                                        "kernels differ from the plain path's")
+        check(toks == outs[False][uid], f"{arch} closed trace: request {uid}'s tokens through "
+                                        "the kernels differ from the plain path's")
     return kernel_counts
 
 
@@ -1616,6 +1656,223 @@ def accuracy_phase(dev):
                                   f"{rows[name]['gate']}")
 
 
+def gpt2_kernel_checks(dev):
+    """matmul_4bit (nf4a) and matmul_int8_fused against their plain
+    versions at GPT-2 small's four (K, N), the M of ``GPT2_MM4`` and
+    ``GPT2_I8_MS``, under phase 3's and 4's rules, the design per row, µs
+    per call with the weights rotated past the L2. Returns one GPT-2
+    decode step's calls (M = 8; bf16 x for matmul_4bit) as {kernel:
+    [kernel ms, plain ms, bound ms, bound by]} and the largest errors."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    work = {}
+    step = {"matmul_4bit": [0.0, 0.0], "matmul_int8_fused": [0.0, 0.0]}
+    max_err = {"matmul_4bit": 0.0, "matmul_int8_fused": 0.0}
+    for (k, n), count in GPT2_SHAPES.items():
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        for dtype, ms in GPT2_MM4:
+            qt = codecs.quantize_matmul_weight(w.to(dtype), fmt="nf4a", block_size=64)
+            qts = [dataclasses.replace(qt, codes=c, scale=sc)
+                   for c, sc in copies_past_l2(qt.codes, qt.scale)]
+            for m in ms:
+                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+
+                def run(use_kernel, qs, x=x):
+                    return lambda i: matmul.matmul_quantized(x, qs[i % len(qs)],
+                                                             use_kernel=use_kernel)
+                out, ref = run(None, [qt])(0), run(False, [qt])(0)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = (2 * BF16_ULP if dtype == torch.bfloat16 else 1e-5) * \
+                    ref.float().abs().max().item()
+                name = f"gpt2 matmul_4bit nf4a {dtype} M={m} K={k} N={n}"
+                check(out.shape == ref.shape == (m, n) and torch.isfinite(out).all().item(),
+                      f"{name}: bad output")
+                check(err <= tol, f"{name}: err {err} > {tol}")
+                same = torch.equal(out, run(None, [qt])(0))
+                check(same or dtype == torch.float32, f"{name}: two calls differ")
+                max_err["matmul_4bit"] = max(max_err["matmul_4bit"], err)
+                iters = 50 if m <= 64 else 10
+                row = dict(kernel="matmul_4bit", model="gpt2", fmt="nf4a",
+                           dtype=str(dtype).removeprefix("torch."), M=m, K=k, N=n,
+                           K_pad=2 * qt.codes.shape[0], max_abs_err=err, tol=tol,
+                           us=time_ms(run(None, qts), iters) * 1e3,
+                           plain_us=time_ms(run(False, qts), iters) * 1e3,
+                           bit_identical_over_two_calls=same,
+                           design=(matmul.matmul_4bit_design(m, n, 2 * qt.codes.shape[0])
+                                   if dtype == torch.bfloat16 else "f32 FMA"))
+                if m == 8 and dtype == torch.bfloat16:
+                    step["matmul_4bit"][0] += count * row["us"] / 1e3
+                    step["matmul_4bit"][1] += count * row["plain_us"] / 1e3
+                    add_work(work, "matmul_4bit", nbytes(x, qt.codes, qt.scale, out),
+                             2 * m * k * n, count)
+                emit(kernel_check=row)
+        qw = int8mm.quantize_int8_weight(w)
+        ws = copies_past_l2(qw.codes, qw.scale)
+        for m in GPT2_I8_MS:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            x[:, qw.outlier_idx[:4].long()] *= 20.0  # systematic outlier features
+            y_out = x.index_select(1, qw.outlier_idx) @ qw.w_outlier.float()
+            xa = x.abs()
+            xa[:, qw.outlier_idx] = 0.0
+            rs = torch.clamp(xa.amax(dim=1) / 127.0, min=1e-12)
+
+            def run_i8(use_kernel, ws, x=x, rs=rs, y_out=y_out):
+                return lambda i: int8mm.matmul_int8_fused(
+                    x, ws[i % len(ws)][0], rs, ws[i % len(ws)][1], y_out, use_kernel=use_kernel)
+            out = run_i8(None, [(qw.codes, qw.scale)])(0)
+            ref = run_i8(False, [(qw.codes, qw.scale)])(0)
+            err = (out - ref).abs().max().item()
+            name = f"gpt2 matmul_int8_fused M={m} K={k} N={n}"
+            check(torch.isfinite(out).all().item(), f"{name}: non-finite")
+            check(torch.equal(out, ref), f"{name}: not bit-exact: {err}")
+            same = torch.equal(out, run_i8(None, [(qw.codes, qw.scale)])(0))
+            check(same, f"{name}: two calls differ")
+            max_err["matmul_int8_fused"] = max(max_err["matmul_int8_fused"], err)
+            iters = 50 if m <= 32 else 10
+            ms_, plain_ms = time_ms(run_i8(None, ws), iters), time_ms(run_i8(False, ws), iters)
+            emit(kernel_check=dict(kernel="matmul_int8_fused", model="gpt2", fmt="llm_int8", M=m,
+                                   K=k, N=n, max_abs_err=err, tol=0.0, us=ms_ * 1e3,
+                                   plain_us=plain_ms * 1e3, bit_identical_over_two_calls=same,
+                                   design=int8mm.matmul_int8_design(m, n, k, fused=True)))
+            if m == 8:
+                step["matmul_int8_fused"][0] += count * ms_
+                step["matmul_int8_fused"][1] += count * plain_ms
+                add_work(work, "matmul_int8_fused", nbytes(x, qw.codes, rs, qw.scale, y_out, out),
+                         2 * m * k * n, count)
+    for name, kind in (("matmul_4bit", "bf16"), ("matmul_int8_fused", "int8")):
+        step[name] += list(bound(work[name], kind))
+    emit(gpt2_decode_step_kernels={
+        "note": "one GPT-2 small decode step's 48 calls at M=8 (nf4a bf16 x; llm_int8 f32 x) "
+                "as [kernel ms, plain ms, bound ms, bound by]", **step})
+    return step, max_err
+
+
+def _tensors(tree):
+    """Every tensor of a dense tree, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+def hf_round_trips(dev):
+    """GPT-2 small (f32) and a 2-layer TinyLlama-width Llama (bf16) saved in
+    the HF layout through the port's safetensors codec and loaded back
+    onto the card, every tensor bit-identical. Returns {name: (params,
+    cfg)} of the loaded trees, GPT-2 also in bf16 (``gpt2_small_bf16``)."""
+    models = {"gpt2_small": (gpt2, gpt2.GPT2Config.small(), hf.save_gpt2, hf.load_gpt2),
+              "tinyllama_2_layers": (llama, dataclasses.replace(llama.LlamaConfig.tinyllama_1b(),
+                                                                n_layers=2),
+                                     hf.save_llama, hf.load_llama)}
+    loaded = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (mod, cfg, save, load) in models.items():
+            params = mod.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+            path = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            save(params, cfg, path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back, back_cfg = load(path, dtype=cfg.dtype, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            check(back_cfg == cfg, f"hf {name}: config {back_cfg} != {cfg}")
+            want, got = _tensors(params), _tensors(back)
+            check(len(got) == len(want) and all(
+                g.dtype == w.dtype and g.device == w.device and torch.equal(g, w)
+                for g, w in zip(got, want)), f"hf {name}: a tensor differs after the round trip")
+            emit(hf_round_trip=dict(model=name, tensors=len(got), n_layers=cfg.n_layers,
+                                    dtype=str(cfg.dtype).removeprefix("torch."),
+                                    bytes_on_disk=os.path.getsize(
+                                        os.path.join(path, "model.safetensors")),
+                                    save_s=save_s, load_s=load_s, bit_identical=True))
+            loaded[name] = (back, back_cfg)
+            if name == "gpt2_small":
+                loaded["gpt2_small_bf16"] = load(path, dtype=torch.bfloat16, device=dev)
+            del params
+    return loaded
+
+
+def _decode_with_launches(fwd_mod, params, prompt, cfg, new, kernel, per_forward, tag):
+    """Greedy decode with the launch counts reset just before and read just
+    after; checks the tokens' shape and range and that only ``kernel``
+    ran, ``new x per_forward`` times. Returns (tokens, counts, seconds)."""
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fwd_mod.greedy_decode(params, prompt, cfg, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    s = prompt.shape[1]
+    check(out.shape == (prompt.shape[0], s + new) and torch.equal(out[:, :s], prompt)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"{tag}: bad output")
+    expected = dict.fromkeys(counts, 0)
+    expected[kernel] = new * per_forward
+    check(counts == expected, f"{tag}: launches {counts}, expected {expected}")
+    return out, counts, wall
+
+
+def _prefill_logits_vs_plain(fwd_mod, params, prompt, cfg, tag):
+    """Prefill logits through the kernels against ``use_kernel=False``:
+    phase 5's rel-L2, or 1.5 times the floor that the plain route summed
+    in another order sets (+2e-3) where that floor is higher (phase 15)."""
+    with torch.no_grad():
+        lk, _ = fwd_mod.forward(params, prompt, cfg)
+        lp, _ = fwd_mod.forward(params, prompt, cfg, use_kernel=False)
+        with reordered_plain():
+            lr, _ = fwd_mod.forward(params, prompt, cfg, use_kernel=False)
+    check(torch.isfinite(lk).all().item(), f"{tag}: non-finite logits")
+    rel, floor = rel_l2(lk, lp), rel_l2(lr, lp)
+    tol = max(NF4_REL_L2, GRAD_FLOOR_X * floor + GRAD_FLOOR_ABS)
+    check(rel <= tol, f"{tag}: prefill logits rel-L2 {rel} > {tol} (floor {floor})")
+    return dict(prefill_logits_rel_l2=rel, tol=tol, reordered_plain_rel_l2=floor)
+
+
+def transcode_decode(dev, params, cfg):
+    """The loaded Llama quantized to exact nf4 and transcoded to nf4a on the
+    card, then greedy decode through matmul_4bit. Returns its launches."""
+    nf4 = qnn.quantize_params(params, mode="nf4")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nf4a = transcode_params(nf4)
+    torch.cuda.synchronize()
+    transcode_s = time.perf_counter() - t0
+    pairs = [(a, b) for a, b in zip(_tensors(nf4), _tensors(nf4a)) if hasattr(a, "codebook")]
+    check(len(pairs) == 7 * cfg.n_layers + 1 and all(
+        b.codebook == "nf4a" and b.scale is a.scale and b.codes.device == a.codes.device
+        and torch.equal(b.codes.cpu(), transcode_codebook(dataclasses.replace(
+            a, codes=a.codes.cpu())).codes) for a, b in pairs),
+          "transcode: a leaf is not the nf4a transcode of its nf4 codes")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, GPT2_PROMPT), dtype=np.int32)).to(dev)
+    _, counts, wall = _decode_with_launches(llama, nf4a, prompt, cfg, CONVERT_NEW, "matmul_4bit",
+                                            7 * cfg.n_layers + 1, "transcoded nf4a decode")
+    emit(transcode_decode=dict(n_layers=cfg.n_layers, leaves=len(pairs), transcode_s=transcode_s,
+                               greedy_s=wall, launches=counts,
+                               **_prefill_logits_vs_plain(llama, nf4a, prompt, cfg,
+                                                          "transcoded nf4a")))
+    return counts
+
+
+def gpt2_nf4a_decode(dev, params, cfg):
+    """GPT-2 small in bf16 quantized to nf4a: greedy decode through
+    matmul_4bit's bf16 designs, prefill logits against the plain route.
+    Returns its launches."""
+    qparams = qnn.quantize_params(params, mode="nf4a")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (8, GPT2_PROMPT), dtype=np.int32)).to(dev)
+    out, counts, wall = _decode_with_launches(gpt2, qparams, prompt, cfg, GPT2_NEW, "matmul_4bit",
+                                              4 * cfg.n_layers, "gpt2 nf4a decode")
+    plain = gpt2.greedy_decode(qparams, prompt, cfg, max_new_tokens=GPT2_NEW, use_kernel=False)
+    agree = (plain[:, GPT2_PROMPT:] == out[:, GPT2_PROMPT:]).float().mean().item()
+    emit(gpt2_decode=dict(fmt="nf4a", dtype="bfloat16", n_layers=cfg.n_layers, greedy_s=wall,
+                          launches=counts, token_agreement_vs_plain=agree,
+                          **_prefill_logits_vs_plain(gpt2, qparams, prompt, cfg,
+                                                     "gpt2 nf4a")))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1664,7 +1921,7 @@ def main():
         params["llm_int8"] = qnn.quantize_params(dense, mode="llm_int8")
         launches.update(int8_decode_routes(dev, cfg, params["llm_int8"]))
         serve_counts = serve_closed_trace(dev, cfg, params["llm_int8"])
-        launches["matmul_int8_fused"] = serve_counts["matmul_int8_fused"]
+        launches["matmul_int8_fused"] += serve_counts["matmul_int8_fused"]
         launches["quantize_blockwise"] = serve_counts["quantize_blockwise"]
         cut_cfg = dataclasses.replace(cfg, n_layers=TIMED_DEPTH)
         cut = {fmt: {**p, "layers": p["layers"][:TIMED_DEPTH]} for fmt, p in params.items()}
@@ -1713,6 +1970,25 @@ def main():
         cli_round_trip(qeval.ByteTokenizer().decode(eval_ids[:40_000]))
     with timed("18 accuracy bench"):
         accuracy_phase(dev)
+
+    with timed("19 gpt2 kernel checks"):
+        gpt2_step, gpt2_err = gpt2_kernel_checks(dev)
+        for name, err in gpt2_err.items():
+            max_err[name] = max(max_err[name], err)
+    with timed("20 hf round trips"):
+        loaded = hf_round_trips(dev)
+    with timed("21 convert on the card"):
+        launches["matmul_4bit"] += transcode_decode(
+            dev, *loaded.pop("tinyllama_2_layers"))["matmul_4bit"]
+    with timed("22 gpt2 serve"):
+        gparams, gcfg = loaded.pop("gpt2_small")
+        gpt2_counts = serve_closed_trace(dev, gcfg, qnn.quantize_params(gparams, mode="llm_int8"),
+                                         arch="gpt2", per_forward=4 * gcfg.n_layers)
+        for k in ("matmul_int8_fused", "quantize_blockwise"):
+            launches[k] += gpt2_counts[k]
+    with timed("23 gpt2 nf4a decode"):
+        launches["matmul_4bit"] += gpt2_nf4a_decode(dev, *loaded.pop("gpt2_small_bf16"))[
+            "matmul_4bit"]
     emit(phase_seconds=phase_s)
 
     def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,
@@ -1724,6 +2000,8 @@ def main():
                 "library_ms": library_ms, "at": at, **extra}
 
     at = "one decode step's calls at M=8 (nf4a for matmul_4bit), ms"
+    gpt2_at = ("gpt2_step_ms: one GPT-2 small decode step's 48 calls at M=8 as [kernel, plain, "
+               "bound, bound by]")
     i8_prefill = ("one prefill forward's 155 calls at M=1024 as [kernel, plain, dense], dense: "
                   "torch._int_mm of the int8 activations and the codes, which takes M > 16 only)")
     flash_at = ("one call at TinyLlama-1.1B's QLoRA shape (B=2, S=T=1024, 32 heads, 4 KV "
@@ -1752,9 +2030,10 @@ def main():
               at + "; library: none, no PyTorch call dequantizes blockwise 4-bit codes inside "
               "a GEMM (dense_control_ms: cuBLAS torch.matmul of the dequantized bf16 weights; "
               "qlora_forward_ms: one QLoRA forward's 155 calls at M=2048, nf4, as [kernel, "
-              "plain, dense])",
+              "plain, dense]; " + gpt2_at + ", nf4a, bf16 x)",
               dense_control_ms=per_step["matmul_4bit"][2],
-              qlora_forward_ms=per_step["matmul_4bit_qlora_forward"]),
+              qlora_forward_ms=per_step["matmul_4bit_qlora_forward"],
+              gpt2_step_ms=gpt2_step["matmul_4bit"]),
         entry("matmul_int4c", "int4c.cu", "quanta_tpu/ops/int4c.py:116",
               launches["matmul_int4c"], *per_step["matmul_int4c"], "int8",
               at + "; library: none, no PyTorch call unpacks 4-bit codes or applies row and "
@@ -1765,8 +2044,10 @@ def main():
         entry("matmul_int8_fused", "int8mm.cu", "quanta_tpu/ops/int8mm.py:167",
               launches["matmul_int8_fused"], *per_step["matmul_int8_fused"], "int8",
               at + "; library: none, no PyTorch call quantizes rows of f32 x, applies row and "
-              "column scales or adds the outlier partial (prefill_forward_ms: " + i8_prefill,
-              prefill_forward_ms=per_step["matmul_int8_fused_prefill"]),
+              "column scales or adds the outlier partial (" + gpt2_at + ", f32 x; "
+              "prefill_forward_ms: " + i8_prefill,
+              prefill_forward_ms=per_step["matmul_int8_fused_prefill"],
+              gpt2_step_ms=gpt2_step["matmul_int8_fused"]),
         entry("matmul_int8", "int8mm.cu", "quanta_tpu/ops/int8mm.py:235",
               launches["matmul_int8"], *per_step["matmul_int8"], "int8",
               at + "; library: none, torch._int_mm takes no row or column scales "

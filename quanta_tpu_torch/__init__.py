@@ -10,16 +10,20 @@ Layers (bottom-up):
   ops       hand-written CUDA kernels (csrc/) + plain-torch versions
   nn        ``linear`` dispatch over weight leaves, ``quantize_params``, LoRA
   optim     blockwise 8-bit Adam(W)
-  models    Llama decoder, KV-cached greedy decode
+  models    Llama and GPT-2 decoders, KV-cached greedy decode, HF checkpoint
+            interchange (its own safetensors codec)
   train     QLoRA fine-tuning steps (frozen 4-bit or 8-bit base, LoRA, 8-bit Adam)
   serve     continuous-batching engine over a paged (optionally int8) KV cache
-  state     QuantConfig / ConfigTree: three-tier quantization configuration
+  state     QuantConfig / ConfigTree: three-tier quantization configuration;
+            the QuantizationState registry
   calib     activation statistics, range reduction, activation fake-quant
   ptq       whole-model post-training quantization under a ConfigTree
   eval      perplexity over a token stream
-  utils     tree checkpoints in the JAX package's .npz format
+  utils     .qtn / .npz tensors and tree checkpoints in the JAX package's
+            formats; precision conversion and codebook transcoding
   cli       ``python -m quanta_tpu_torch`` (quantize / eval / generate / ...)
   metrics   counters, gauges and timers the engine records into
+  profiling the H100's published rates, rooflines, CUDA-event timing, traces
   interop   JAX parameter trees -> torch parameter trees (duck-typed)
 """
 

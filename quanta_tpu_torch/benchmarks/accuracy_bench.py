@@ -7,7 +7,9 @@ and defaults: pretrain a byte-level Llama (dim 512, 8 layers, 8 heads, GQA
 deterministic local corpus (``benchmarks/corpus.py``) with
 ``train.make_train_step`` and ``optim.Adam8bit`` (lr 3e-4); quantize its
 weights into every serving format (int8, nf8, llm_int8, nf4a, nf4, int4,
-fp4, int4c, blocks of 64) and into W8A8 (int8 weights and 8-bit
+fp4, int4c, blocks of 64), the nf4 tree transcoded to nf4a
+(``utils.transcode_params``: the imported-QLoRA path, gated as 4-bit)
+and W8A8 (int8 weights and 8-bit
 fake-quantized activations, calibrated by minmax, percentile and entropy
 on 8 held-in batches); measure held-out perplexity on the first 200,000
 bytes of the eval split with ``eval.ppl_table``. Gates: delta <= 0.1 at
@@ -15,9 +17,7 @@ bytes of the eval split with ``eval.ppl_table``. Gates: delta <= 0.1 at
 
 The quantized rows run through the kernels on a CUDA device
 (``use_kernel=None``): the model is f32, so its int8, nf8 and W8A8 rows
-reach ``matmul_8bit``'s f32 entry point. The ``nf4->nf4a`` row of the JAX
-bench waits for ``utils/convert.py`` (ROADMAP Queue 1) and is left out;
-the output says so.
+reach ``matmul_8bit``'s f32 entry point.
 
 The pretrained model is cached under ``~/.cache/quanta_tpu_torch``, keyed
 by its hyperparameters and a hash of the corpus (``--no-cache``: neither
@@ -48,14 +48,13 @@ from quanta_tpu_torch.benchmarks import corpus as corpus_mod
 from quanta_tpu_torch.models import llama
 from quanta_tpu_torch.optim import Adam8bit
 from quanta_tpu_torch.state.config import ConfigTree, QuantConfig
-from quanta_tpu_torch.utils import serialization
+from quanta_tpu_torch.utils import serialization, transcode_params
 
 FORMATS = ("int8", "nf8", "llm_int8", "nf4a", "nf4", "int4", "fp4", "int4c")
 W8A8 = ("minmax", "percentile", "entropy")
 GATE = {"int8": 0.1, "nf8": 0.1, "llm_int8": 0.1,
-        "nf4a": 0.5, "nf4": 0.5, "int4": 0.5, "fp4": 0.5, "int4c": 0.5,
+        "nf4a": 0.5, "nf4": 0.5, "int4": 0.5, "fp4": 0.5, "int4c": 0.5, "nf4->nf4a": 0.5,
         "w8a8-minmax": 0.1, "w8a8-percentile": 0.1, "w8a8-entropy": 0.1}
-LEFT_OUT = {"nf4->nf4a": "needs utils/convert.py's transcode_params (ROADMAP Queue 1)"}
 LR = 3e-4
 
 
@@ -106,10 +105,12 @@ def pretrain(cfg, train_ids, *, steps: int, batch: int, device, log_every: int =
 
 
 def build_variants(params, cfg, train_ids, device) -> dict:
-    """The unquantized model, every weight format and the W8A8 rows."""
+    """The unquantized model, every weight format, nf4 transcoded to nf4a
+    and the W8A8 rows."""
     variants = {"bf16": params}  # the JAX bench's name for the unquantized row
     for fmt in FORMATS:
         variants[fmt] = qnn.quantize_params(params, mode=fmt, block_size=64, min_size=4096)
+    variants["nf4->nf4a"] = transcode_params(variants["nf4"])
     batches = list(make_batches(train_ids, 8, cfg.max_seq_len, 8, device, seed=123))
     stats = calib.collect_stats(lambda p, b: llama.forward(p, b["inputs"], cfg)[0], params,
                                 batches)
@@ -141,8 +142,7 @@ def markdown(rows, result) -> str:
         ok = "" if r["pass"] is None else ("yes" if r["pass"] else "**NO**")
         gate = "-" if r["gate"] is None else r["gate"]
         lines.append(f"| {r['format']} | {r['ppl']:.4f} | {r['delta']:+.4f} | {gate} | {ok} |")
-    lines += ["", "Left out: " + "; ".join(f"{k} ({v})" for k, v in LEFT_OUT.items()), ""]
-    return "\n".join(lines)
+    return "\n".join(lines + [""])
 
 
 def run(*, steps: int = 3000, dim: int = 512, layers: int = 8, seq: int = 256,
@@ -176,7 +176,7 @@ def run(*, steps: int = 3000, dim: int = 512, layers: int = 8, seq: int = 256,
               "dim": dim, "layers": layers, "seq": seq, "batch": batch, "steps": steps,
               "final_loss": final_loss, "train_s": train_s,
               "eval_s": time.perf_counter() - t1, "eval_tokens": len(eval_ids),
-              "rows": rows, "gate_failures": n_fail, "left_out": LEFT_OUT}
+              "rows": rows, "gate_failures": n_fail}
     return result, variants, eval_ids, cfg
 
 

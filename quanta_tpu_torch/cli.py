@@ -1,16 +1,16 @@
 """Command-line interface: quantize / eval / generate / serve / finetune /
-bench (port of ``quanta_tpu/cli.py``).
+bench / convert (port of ``quanta_tpu/cli.py``).
 
 Every subcommand is a thin orchestration over the library layers. The
 commands run on the CUDA device; ``--cpu`` asks for the CPU, and without a
 CUDA device and without ``--cpu`` a command fails and says so.
 Checkpoints are the JAX package's ``.npz`` format (``utils/serialization``)
 with the model configuration beside them in ``<ckpt>.config.json``, so a
-checkpoint written by either CLI is read by the other.
+checkpoint written by either CLI is read by the other. ``--model`` reads
+an HF checkpoint directory (Llama or GPT-2, ``models/hf.py``).
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: ``--model`` (HF checkpoint import) and GPT-2 checkpoints (Queue 1
-item 11), ``convert`` (item 12) and ``bench kernels`` (item 14).
+item: ``bench kernels`` (item 14).
 
 Usage:  python -m quanta_tpu_torch <command> --help
 """
@@ -36,7 +36,6 @@ TOY_PRESETS = {
     "small": (2048, 512, 4, 8, 8, 1024, 512),
     "tinyllama": (32000, 2048, 22, 32, 4, 5632, 2048),
 }
-_HF = "HF checkpoint import is not ported yet (ROADMAP Queue 1 item 11)"
 
 
 def _device(args):
@@ -60,15 +59,17 @@ def _cfg_to_json(cfg, arch: str) -> dict:
 
 def _cfg_from_json(d: dict):
     from quanta_tpu_torch.interop import to_torch_dtype
-    from quanta_tpu_torch.models.llama import LlamaConfig
 
     d = dict(d)
     arch = d.pop("__arch__", "llama")
-    if arch != "llama":
-        raise NotImplementedError(f"{arch} checkpoints: the architecture is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
     d["dtype"] = to_torch_dtype(d["dtype"])
-    return LlamaConfig(**d), arch
+    if arch == "llama":
+        from quanta_tpu_torch.models.llama import LlamaConfig
+
+        return LlamaConfig(**d), arch
+    from quanta_tpu_torch.models.gpt2 import GPT2Config
+
+    return GPT2Config(**d), arch
 
 
 def load_model(args, device):
@@ -77,27 +78,46 @@ def load_model(args, device):
 
     from quanta_tpu_torch.interop import to_torch_dtype
 
-    if getattr(args, "model", None):
-        raise NotImplementedError(_HF)
+    dtype = to_torch_dtype(args.dtype) if getattr(args, "dtype", None) else None
     if getattr(args, "ckpt", None):
         from quanta_tpu_torch.utils import serialization
 
         with open(args.ckpt + ".config.json") as f:
             cfg, arch = _cfg_from_json(json.load(f))
-        return serialization.load_checkpoint(args.ckpt, device=device), cfg, arch, None
+        params = serialization.load_checkpoint(args.ckpt, device=device)
+        return params, cfg, arch, getattr(args, "model", None)
+    if getattr(args, "model", None):
+        from quanta_tpu_torch.models import hf
+
+        with open(os.path.join(args.model, "config.json")) as f:
+            mt = json.load(f).get("model_type", "llama")
+        if mt == "gpt2":
+            params, cfg = hf.load_gpt2(args.model, dtype=dtype or torch.float32, device=device)
+            return params, cfg, "gpt2", args.model
+        params, cfg = hf.load_llama(args.model, dtype=dtype or torch.bfloat16, device=device)
+        return params, cfg, "llama", args.model
     # toy preset (random init): demos, smoke runs and the TinyLlama geometry
     from quanta_tpu_torch.models import llama
 
     v, d, n_layers, h, kv, hid, s = TOY_PRESETS[args.toy]
     cfg = llama.LlamaConfig(vocab_size=v, dim=d, n_layers=n_layers, n_heads=h, n_kv_heads=kv,
-                            hidden_dim=hid, max_seq_len=s,
-                            dtype=to_torch_dtype(args.dtype) if args.dtype else torch.bfloat16)
+                            hidden_dim=hid, max_seq_len=s, dtype=dtype or torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return llama.init_params(gen, cfg, device=device), cfg, "llama", None
 
 
+def _forward_for(arch: str):
+    if arch == "gpt2":
+        from quanta_tpu_torch.models import gpt2
+
+        return gpt2.forward
+    from quanta_tpu_torch.models import llama
+
+    return llama.forward
+
+
 def _add_model_args(p, ckpt=True):
-    p.add_argument("--model", help="HF checkpoint dir (not ported yet)")
+    p.add_argument("--model", help="HF checkpoint dir (safetensors)")
     if ckpt:
         p.add_argument("--ckpt", help=".npz checkpoint (from `quantize`)")
     p.add_argument("--toy", choices=sorted(TOY_PRESETS), default="tiny",
@@ -145,7 +165,6 @@ def cmd_quantize(args):
     import torch
 
     from quanta_tpu_torch import ptq
-    from quanta_tpu_torch.models import llama
     from quanta_tpu_torch.state.config import ConfigTree, QuantConfig
     from quanta_tpu_torch.utils import serialization
 
@@ -164,7 +183,8 @@ def cmd_quantize(args):
         n = min(args.calib_batches, max(1, len(toks) // seq))
         batches = [torch.from_numpy(toks[i * seq:(i + 1) * seq][None, :]).to(dev)
                    for i in range(n)]
-        calib_kw = dict(forward=lambda p, b: llama.forward(p, b, cfg)[0], calib_batches=batches)
+        fwd = _forward_for(arch)
+        calib_kw = dict(forward=lambda p, b: fwd(p, b, cfg)[0], calib_batches=batches)
         log(f"calibrating on {n} x {seq}-token batches from {args.calib_text}")
     qparams = ptq.quantize_model(params, tree, **calib_kw)
     serialization.save_checkpoint(qparams, args.out)
@@ -179,10 +199,10 @@ def cmd_eval(args):
     from quanta_tpu_torch import eval as qeval
 
     dev = _device(args)
-    params, cfg, _, model_dir = load_model(args, dev)
+    params, cfg, arch, model_dir = load_model(args, dev)
     tokens, _ = _tokens_from_text(args.text, model_dir)
-    ppl = qeval.perplexity(params, tokens, cfg, seq_len=min(args.seq_len, cfg.max_seq_len - 1),
-                           batch=args.batch)
+    ppl = qeval.perplexity(params, tokens, cfg, forward=_forward_for(arch),
+                           seq_len=min(args.seq_len, cfg.max_seq_len - 1), batch=args.batch)
     print(json.dumps({"perplexity": round(ppl, 4), "tokens": int(len(tokens))}))
 
 
@@ -194,7 +214,9 @@ def cmd_generate(args):
     from quanta_tpu_torch.models import llama
 
     dev = _device(args)
-    params, cfg, _, model_dir = load_model(args, dev)
+    params, cfg, arch, model_dir = load_model(args, dev)
+    if arch != "llama":
+        raise SystemExit("generate currently drives the Llama decode loop")
     tok = qeval.load_tokenizer(model_dir)
     ids = torch.from_numpy(np.asarray(tok.encode(args.prompt), np.int32)[None, :]).to(dev)
     t0 = time.perf_counter()
@@ -212,7 +234,9 @@ def cmd_serve(args):
     from quanta_tpu_torch.serve.engine import Engine, Request
 
     dev = _device(args)
-    params, cfg, _, model_dir = load_model(args, dev)
+    params, cfg, arch, model_dir = load_model(args, dev)
+    if arch != "llama":
+        raise SystemExit("serve currently drives the Llama decode loop")
     tok = qeval.load_tokenizer(model_dir)
     if args.prompts:
         with open(args.prompts) as f:
@@ -249,7 +273,9 @@ def cmd_finetune(args):
 
     dev = _device(args)
     args.out = _norm_npz(args.out)
-    params, cfg, _, model_dir = load_model(args, dev)
+    params, cfg, arch, model_dir = load_model(args, dev)
+    if arch != "llama":
+        raise SystemExit("finetune currently drives the Llama train step")
     if not getattr(args, "ckpt", None):
         params = qnn.quantize_params(params, mode=args.fmt, block_size=args.block_size)
     params = train.add_lora(params, torch.Generator(device=dev).manual_seed(args.seed + 1),
@@ -286,8 +312,20 @@ def cmd_bench(args):
 
 
 def cmd_convert(args):
-    raise NotImplementedError("precision conversion of single tensors is not ported yet "
-                              "(utils/convert.py, ROADMAP Queue 1 item 12)")
+    from quanta_tpu_torch.state.config import QuantConfig
+    from quanta_tpu_torch.utils import convert, serialization
+
+    qt = serialization.load_quantized_tensor(args.src, device=_device(args))
+    if args.transcode:
+        # same-bit-width codebook remap (no fp round trip): the imported
+        # QLoRA path, exact NF4 -> nf4a
+        out = convert.transcode_codebook(qt, target=args.fmt)
+    else:
+        c = QuantConfig.from_mode(args.fmt, block_size=args.block_size)
+        out = convert.convert_precision(qt, bits=c.bits, scheme=c.scheme, codebook=c.codebook,
+                                        block_size=args.block_size)
+    serialization.save_quantized_tensor(out, args.out)
+    log(f"{args.src} ({qt.bits}-bit) -> {args.out} ({out.bits}-bit {args.fmt})")
 
 
 # ----------------------------------------------------------------- parser
@@ -358,12 +396,14 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--cpu", action="store_true", help="run on the CPU (accuracy only)")
     b.set_defaults(fn=cmd_bench)
 
-    c = sub.add_parser("convert", help="precision-convert a tensor (not ported yet)")
+    c = sub.add_parser("convert", help="precision-convert a .qtn / .npz tensor")
     c.add_argument("src")
     c.add_argument("--bits", type=int, required=True)
     c.add_argument("--fmt", default="nf4")
     c.add_argument("--block-size", type=int, default=64)
-    c.add_argument("--transcode", action="store_true")
+    c.add_argument("--transcode", action="store_true",
+                   help="same-bit-width codebook remap (no fp round trip), e.g. imported "
+                        "exact-NF4 -> nf4a")
     c.add_argument("--out", required=True)
     c.add_argument("--cpu", action="store_true")
     c.set_defaults(fn=cmd_convert)

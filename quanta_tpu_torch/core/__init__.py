@@ -14,6 +14,12 @@ from quanta_tpu_torch.core.packing import (
     unpack_split_k,
 )
 from quanta_tpu_torch.core.qtensor import QuantizedTensor
+from quanta_tpu_torch.core.tensor_ops import (
+    quantized_add,
+    quantized_matmul,
+    quantized_mul,
+    quantized_relu,
+)
 
 __all__ = [
     "QuantizedTensor",
@@ -28,4 +34,8 @@ __all__ = [
     "unpack_nibbles",
     "pack_split_k",
     "unpack_split_k",
+    "quantized_add",
+    "quantized_mul",
+    "quantized_matmul",
+    "quantized_relu",
 ]

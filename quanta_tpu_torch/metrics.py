@@ -7,7 +7,7 @@ Port of ``quanta_tpu/metrics.py``; the serving ``Engine`` takes a
 Usage:
     rec = MetricsRecorder(path="metrics.jsonl")   # path optional
     rec.count("output_tokens", 32)
-    rec.gauge("bytes_in_use", device_memory_stats().get("bytes_in_use", 0.0))
+    rec.gauge("device_gb", device_memory_gb())
     with rec.timer("decode_step"):
         ...
     rec.emit(step=12)          # one JSON line with counters+gauges+timers
@@ -40,6 +40,11 @@ def device_memory_stats(device=None) -> Dict[str, float]:
     out = {name: float(stats[key]) for key, name in _STATS.items() if key in stats}
     out["bytes_limit"] = float(torch.cuda.get_device_properties(device).total_memory)
     return out
+
+
+def device_memory_gb(device=None) -> float:
+    """Bytes in use on the CUDA device, in GB (0.0 on the CPU)."""
+    return device_memory_stats(device).get("bytes_in_use", 0.0) / 1e9
 
 
 def _pct(sorted_vals, q: float) -> float:

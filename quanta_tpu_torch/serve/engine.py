@@ -94,7 +94,7 @@ def _params_device(params) -> torch.device:
 
 class Engine:
     """Single-device continuous-batching engine over a (possibly
-    quantized) Llama parameter tree."""
+    quantized) Llama or GPT-2 parameter tree (``arch``)."""
 
     def __init__(
         self,
@@ -118,7 +118,7 @@ class Engine:
         multi_step: int = 1,
         arch: str = "llama",
     ):
-        runner.get_arch(arch)  # raises for an architecture not ported
+        runner.get_arch(arch)  # raises for an unknown architecture
         self.params = params
         self.cfg = cfg
         self.arch = arch

@@ -3,7 +3,7 @@
 Port of ``quanta_tpu/serve/runner.py``:
 
   * ``prefill``: one request, its prompt padded to a length bucket, run
-    through the contiguous-cache ``llama.forward``; returns the logits at
+    through the model's contiguous-cache ``forward``; returns the logits at
     the last real prompt token and the per-layer KV, which the engine
     writes into the paged pool.
   * ``decode_step``: one token for every slot, attention reading K/V
@@ -27,7 +27,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from quanta_tpu_torch.models import llama
+from quanta_tpu_torch.models import gpt2, llama
 from quanta_tpu_torch.nn.linear import linear
 from quanta_tpu_torch.serve import kvcache
 from quanta_tpu_torch.serve.sampling import _sample_batch
@@ -81,6 +81,29 @@ def _llama_final(params, h, cfg, lin):
     return lin(h, params["lm_head"])
 
 
+def _gpt2_embed(params, tokens, q_pos, cfg):
+    h = params["wte"][tokens[:, None]]
+    return (h + params["wpe"][q_pos.long()]).to(cfg.dtype)
+
+
+def _gpt2_decode_layer(lp, h, q_pos, cfg, lin, attend):
+    b = h.shape[0]
+    nh, hd = cfg.n_heads, cfg.head_dim
+    x = gpt2.layer_norm(h, lp["ln_1"], cfg.norm_eps)
+    qkv = lin(x, lp["attn_qkv"]["w"], lp["attn_qkv"]["b"])
+    q, k, v = (t.reshape(b, 1, nh, hd) for t in qkv.chunk(3, dim=-1))
+    attn = attend(q, k, v)
+    h = h + lin(attn.reshape(b, 1, -1), lp["attn_out"]["w"], lp["attn_out"]["b"])
+    x = gpt2.layer_norm(h, lp["ln_2"], cfg.norm_eps)
+    x = gpt2._gelu_new(lin(x, lp["mlp_fc"]["w"], lp["mlp_fc"]["b"]))
+    return h + lin(x, lp["mlp_out"]["w"], lp["mlp_out"]["b"])
+
+
+def _gpt2_final(params, h, cfg, lin):
+    h = gpt2.layer_norm(h, params["ln_f"], cfg.norm_eps)
+    return lin(h, params["wte"].T)  # tied head
+
+
 ARCHS = {
     "llama": ServeArch(
         forward=llama.forward,
@@ -89,14 +112,18 @@ ARCHS = {
         decode_layer=_llama_decode_layer,
         final_logits=_llama_final,
     ),
+    "gpt2": ServeArch(
+        forward=gpt2.forward,
+        init_cache=gpt2.init_cache,
+        embed=_gpt2_embed,
+        decode_layer=_gpt2_decode_layer,
+        final_logits=_gpt2_final,
+    ),
 }
 
 
 def get_arch(arch: str) -> ServeArch:
-    """The ``ServeArch`` of a model family; GPT-2 waits for its model."""
-    if arch == "gpt2":
-        raise NotImplementedError(
-            "arch='gpt2' is not ported yet: models/gpt2.py is ROADMAP Queue 1 item 11")
+    """The ``ServeArch`` of a model family."""
     if arch not in ARCHS:
         raise ValueError(f"unknown serving architecture {arch!r}; have {tuple(ARCHS)}")
     return ARCHS[arch]

@@ -54,3 +54,12 @@ def _sample_batch(
     noise = torch.empty_like(logits).exponential_(generator=generator)
     drawn = (logits / temp - noise.log()).argmax(dim=-1).to(torch.int32)
     return torch.where(temperature > 0, drawn, greedy)
+
+
+def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
+           params: SamplingParams) -> torch.Tensor:
+    """Sample one token per row of ``logits`` (B, V) under one shared
+    ``SamplingParams``."""
+    temps = torch.full((logits.shape[0],), params.temperature, dtype=torch.float32,
+                       device=logits.device)
+    return _sample_batch(logits, generator, temps, top_k=params.top_k)

@@ -1,6 +1,7 @@
-"""Quantization configuration (port of quanta_tpu/state; the per-tensor
-``QuantizationState`` registry is not ported yet: ROADMAP Queue 1)."""
+"""Quantization configuration and the per-tensor registry (port of
+quanta_tpu/state)."""
 
 from quanta_tpu_torch.state.config import ConfigTree, QuantConfig
+from quanta_tpu_torch.state.registry import QuantizationState, tensor_params
 
-__all__ = ["QuantConfig", "ConfigTree"]
+__all__ = ["QuantConfig", "ConfigTree", "QuantizationState", "tensor_params"]

@@ -1,8 +1,18 @@
-"""Checkpoints of whole parameter trees (port of the tree part of
-``quanta_tpu/utils/serialization.py``).
+"""Persistence of quantized tensors and whole parameter trees (port of
+``quanta_tpu/utils/serialization.py``); every file is in the JAX package's
+format, so what either package writes the other reads.
 
-One ``.npz`` file in the JAX package's format, so a checkpoint written by
-either package loads in the other: the ``__tree__`` entry is JSON (version
+Single tensors, two formats:
+
+- ``.qtn``: ``QTN1``, an 8-byte little-endian header length, the JSON
+  metadata (bits, scheme, codebook, shape, dtype, block size, packing and
+  the dtype and shape of every payload array), then the raw bytes of the
+  codes, the scales and the zero points. The header is the JAX package's
+  JSON, key for key, so the two write the same bytes.
+- ``.npz``: the same metadata under ``__meta__`` beside ``codes``,
+  ``scale`` and ``zero_point``.
+
+Trees: one ``.npz`` file; the ``__tree__`` entry is JSON (version
 3) with one metadata entry per leaf path ('/'-joined keys) and the kind of
 every container (dict, list, tuple; empty ones too); each leaf's arrays
 are stored under ``<path>.<field>``. Leaf kinds: ``qtensor``
@@ -12,9 +22,6 @@ are stored under ``<path>.<field>``. Leaf kinds: ``qtensor``
 hold bfloat16, so a bf16 tensor is stored as its uint16 bits with
 ``view_dtype: "bfloat16"`` in its entry. A ``TapWeight`` is saved as the
 weight it wraps: taps are calibration-time instrumentation, not state.
-
-The single-tensor ``.qtn`` / ``.npz`` functions of the JAX module are not
-ported yet (they wait for ``utils/convert.py``, ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from quanta_tpu_torch.nn.lora import LoRAWeight
 from quanta_tpu_torch.ops.int4c import Int4cWeight
 from quanta_tpu_torch.ops.int8mm import Int8Weight
 
+_MAGIC = b"QTN1"
 
 def dtype_name(dtype: torch.dtype) -> str:
     """A torch dtype's name as the JAX package writes it ("bfloat16")."""
@@ -84,6 +92,77 @@ def _from_meta(m: Dict[str, Any], codes, scale, zp, device=None) -> QuantizedTen
         block_size=m["block_size"],
         packed=m["packed"],
     )
+
+
+# ------------------------------------------------------------------- .qtn
+
+
+def _read_array(f, shape, dtype: str) -> np.ndarray:
+    dt = np.dtype(dtype)
+    count = int(np.prod(shape))  # np.prod([]) == 1.0: a scalar
+    return np.frombuffer(f.read(count * dt.itemsize), dtype=dt).reshape(shape)
+
+
+def save_qtn(qt: QuantizedTensor, path: str) -> None:
+    meta = json.dumps(_meta(qt)).encode()
+    with open(path, "wb") as f:
+        f.write(_MAGIC)
+        f.write(len(meta).to_bytes(8, "little"))
+        f.write(meta)
+        f.write(np.ascontiguousarray(_np(qt.codes)).tobytes())
+        f.write(np.ascontiguousarray(_np(qt.scale)).tobytes())
+        if qt.zero_point is not None:
+            f.write(np.ascontiguousarray(_np(qt.zero_point)).tobytes())
+
+
+def load_qtn(path: str, device=None) -> QuantizedTensor:
+    with open(path, "rb") as f:
+        if f.read(4) != _MAGIC:
+            raise ValueError(f"{path}: not a .qtn file")
+        n = int.from_bytes(f.read(8), "little")
+        m = json.loads(f.read(n))
+        codes = _read_array(f, m["codes_shape"], m["codes_dtype"])
+        scale = _read_array(f, m["scale_shape"], m.get("scale_dtype", "float32"))
+        zp = _read_array(f, m["zp_shape"], m["zp_dtype"]) if m["has_zp"] else None
+    return _from_meta(m, codes, scale, zp, device)
+
+
+# ------------------------------------------------------------------- .npz
+
+
+def save_npz(qt: QuantizedTensor, path: str) -> None:
+    arrays = {"codes": _np(qt.codes), "scale": _np(qt.scale)}
+    if qt.zero_point is not None:
+        arrays["zero_point"] = _np(qt.zero_point)
+    np.savez(path, __meta__=json.dumps(_meta(qt)), **arrays)
+
+
+def load_npz(path: str, device=None) -> QuantizedTensor:
+    with np.load(path, allow_pickle=False) as z:
+        m = json.loads(str(z["__meta__"]))
+        return _from_meta(m, z["codes"], z["scale"], z["zero_point"] if m["has_zp"] else None,
+                          device)
+
+
+def save_quantized_tensor(qt: QuantizedTensor, path: str) -> None:
+    """Save by extension: ``.qtn`` or ``.npz``."""
+    if path.endswith(".qtn"):
+        save_qtn(qt, path)
+    elif path.endswith(".npz"):
+        save_npz(qt, path)
+    else:
+        raise ValueError(f"unsupported extension: {path} (use .qtn or .npz)")
+
+
+def load_quantized_tensor(path: str, device=None) -> QuantizedTensor:
+    if path.endswith(".qtn"):
+        return load_qtn(path, device)
+    if path.endswith(".npz"):
+        return load_npz(path, device)
+    raise ValueError(f"unsupported extension: {path} (use .qtn or .npz)")
+
+
+# -------------------------------------------------------- tree checkpoints
 
 
 def _flatten_tree(tree):

@@ -45,6 +45,8 @@ from quanta_tpu_torch.ops import int4c as tint4c
 from quanta_tpu_torch.ops import int8mm as tint8
 from quanta_tpu_torch.ops import matmul as tmm
 from quanta_tpu_torch.ops import quantize as tquant
+from quanta_tpu_torch.models import gpt2 as tgpt2
+from quanta_tpu_torch.models import hf as thf
 from quanta_tpu_torch.models import llama as tllama
 from quanta_tpu_torch.optim import Adam8bit
 from quanta_tpu_torch.serve import Engine, Request
@@ -410,7 +412,8 @@ def _kv_write_case(cuda, shape, seed):
     return k.reshape(n_layers, n_rows, nkv, hd), v.reshape(n_layers, n_rows, nkv, hd), rows
 
 
-@pytest.mark.parametrize("shape", [(22, 256, 4, 64), (22, 8, 8, 4, 64), (3, 40, 2, 128)])
+@pytest.mark.parametrize("shape", [(22, 256, 4, 64), (22, 8, 8, 4, 64), (3, 40, 2, 128),
+                                   (12, 256, 12, 64), (12, 8, 8, 12, 64)])
 def test_kv_write_int8_matches_quantize_and_index_put(cuda, shape):
     """The fused K+V write into the int8 pool (one launch) against
     ``quantize_kv`` plus ``index_put`` by row, at a prefill's and a
@@ -1275,3 +1278,93 @@ def test_matmul_int8_fused_rounds_ties_to_even(cuda, m):
     assert (x / rs[:, None] % 1 == 0.5).all()
     _i8_check(x, codes, rs, torch.rand(n, generator=g, device=cuda) * 0.01,
               torch.zeros((m, n), device=cuda))
+
+
+# ------------------------------------------------------------------ GPT-2
+# GPT-2 small's linears (K, N), each with a bias: attn_qkv, attn_out,
+# mlp_fc, mlp_out. The 4-bit layout pads K = 768 to 1024; LLM.int8 keeps
+# K = 768, new ground for its split-K decode (TinyLlama's least K is 2048).
+GPT2_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+
+
+@pytest.mark.parametrize("dtype,m", [(torch.bfloat16, 8), (torch.bfloat16, 64),
+                                     (torch.bfloat16, 1024), (torch.float32, 8),
+                                     (torch.float32, 64)], ids=lambda v: str(v).split(".")[-1])
+@pytest.mark.parametrize("k,n", GPT2_SHAPES)
+def test_gpt2_matmul_4bit_with_bias(cuda, k, n, dtype, m):
+    """nf4a at GPT-2's shapes: the kernel within 2 bf16 ulps (f32: 1e-5) of
+    max|plain|, one launch, the same bits on a second call; the linear's
+    bias is added after the kernel, as on the plain route."""
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    qt = tcore.quantize_matmul_weight((torch.randn((k, n), generator=g, device=cuda) * 0.02)
+                                      .to(dtype), fmt="nf4a", block_size=64)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    b = (torch.randn(n, generator=g, device=cuda) * 0.1).to(dtype)
+    before = _build.launches["matmul_4bit"]
+    out = tmm.matmul_quantized(x, qt)
+    assert _build.launches["matmul_4bit"] == before + 1
+    ref = tmm.matmul_quantized(x, qt, use_kernel=False)
+    assert out.dtype == ref.dtype == dtype and out.shape == ref.shape == (m, n)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, dtype)
+    assert torch.equal(tnn.linear(x, qt, b), out + b)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64, 256, 1024])
+@pytest.mark.parametrize("k,n", GPT2_SHAPES)
+def test_gpt2_matmul_int8_fused_with_bias(cuda, k, n, m):
+    """LLM.int8 at GPT-2's shapes, f32 x: both entry points bit for bit
+    against their plain versions, and the linear with its bias equal to
+    the plain route's."""
+    qw, x, rs, y_out = _i8_operands(cuda, m, k, n, seed=k + n + m)
+    _i8_check(x, qw.codes, rs, qw.scale, y_out)
+    b = torch.randn(n, generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    before = _build.launches["matmul_int8_fused"]
+    out = tnn.linear(x, qw, b)
+    assert _build.launches["matmul_int8_fused"] == before + 1
+    assert torch.equal(out, tnn.linear(x, qw, b, use_kernel=False))
+
+
+def test_tiny_gpt2_engine_llm_int8_kv8_kernels_match_plain(cuda):
+    """GPT-2 through the engine (``arch="gpt2"``), LLM.int8 weights and the
+    int8 pool: the plain path's tokens, 4 L fused int8 GEMMs a forward (the
+    tied head stays dense) and one K+V pool write a prefill and a window."""
+    cfg = tgpt2.GPT2Config.tiny(dim=256, n_heads=4, max_seq_len=128)
+    dense = tgpt2.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    params = tnn.quantize_params(dense, mode="llm_int8")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 33, 9)]
+    outs = {}
+    for use_kernel in (None, False):
+        eng = Engine(params, cfg, n_slots=2, page_size=8, prefill_buckets=(16, 32, 64),
+                     kv_quant=True, multi_step=4, use_kernel=use_kernel, arch="gpt2")
+        _build.reset_launches()
+        done = eng.run([Request(uid=i, prompt=p, max_new_tokens=10)
+                        for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        outs[use_kernel] = {r.uid: r.output for r in done}
+        m = eng.metrics()
+        expected = dict.fromkeys(_build.launches, 0)
+        if use_kernel is None:
+            expected["matmul_int8_fused"] = 4 * cfg.n_layers * (m["admissions"]
+                                                                + 4 * m["decode_steps"])
+            expected["quantize_blockwise"] = m["admissions"] + m["decode_steps"]
+        assert dict(_build.launches) == expected
+    assert outs[None] == outs[False]
+    assert all(len(o) == 10 for o in outs[None].values())
+
+
+def test_safetensors_codec_on_cuda_tensors(cuda, tmp_path):
+    """The port's safetensors codec writes CUDA tensors and reads them back
+    onto the card, bit for bit, in every dtype it reads."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((5, 7), generator=g, device=cuda)
+    tensors = {"f32": x, "f16": x.half(), "bf16": x.bfloat16(), "t": x.T,
+               "i8": (x * 40).to(torch.int8), "u8": (x.abs() * 40).to(torch.uint8),
+               "i32": (x * 1e6).to(torch.int32), "i64": (x * 1e12).to(torch.int64)}
+    path = str(tmp_path / "cuda.safetensors")
+    thf.write_safetensors(tensors, path)
+    back = thf.read_safetensors(path, device=cuda)
+    assert sorted(back) == sorted(tensors)
+    for k, t in tensors.items():
+        assert back[k].device.type == "cuda" and back[k].dtype == t.dtype, k
+        assert torch.equal(back[k], t), k

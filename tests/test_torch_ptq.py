@@ -349,8 +349,34 @@ def test_cli_round_trip_and_jax_checkpoint(tmp_path, capsys):
     out = _stdout_json(capsys)
     assert out["tokens"] == ref["tokens"]
     np.testing.assert_allclose(out["perplexity"], ref["perplexity"], rtol=1e-4)
-    for argv, item in ((["quantize", "--cpu", "--model", "x", "--out", ck], "item 11"),
-                       (["convert", "x", "--bits", "8", "--out", ck], "item 12"),
-                       (["bench", "kernels"], "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            tcli.main(argv)
+    # convert, on a .qtn the JAX package wrote: the JAX CLI's file, byte for byte
+    src = str(tmp_path / "w.qtn")
+    w = np.random.default_rng(3).standard_normal((256, 128)).astype(np.float32)
+    jser.save_qtn(jcore.quantize_matmul_weight(jnp.asarray(w), fmt="nf4"), src)
+    for argv in (["--bits", "8", "--fmt", "int8"], ["--bits", "4", "--fmt", "nf4a", "--transcode"]):
+        outs = [str(tmp_path / f"{side}.qtn") for side in ("j", "t")]
+        for cli, out in zip((jcli, tcli), outs):
+            cli.main(["convert", src, *argv, "--out", out, "--cpu"])
+        assert open(outs[0], "rb").read() == open(outs[1], "rb").read(), argv
+    # quantize --model, on HF directories (Llama, GPT-2): the JAX CLI's checkpoint
+    from quanta_tpu_torch.models import gpt2 as tgpt2
+    from quanta_tpu_torch.models import hf as thf
+
+    gen = torch.Generator().manual_seed(4)
+    gcfg = tgpt2.GPT2Config.tiny()
+    for name, save, params, cfg in (
+            ("llama", thf.save_llama, tllama.init_params(gen, TCFG), TCFG),
+            ("gpt2", thf.save_gpt2, tgpt2.init_params(gen, gcfg), gcfg)):
+        model = str(tmp_path / f"hf_{name}")
+        save(params, cfg, model)
+        cks = [str(tmp_path / f"{side}_{name}.npz") for side in ("j", "t")]
+        for cli, out in zip((jcli, tcli), cks):
+            cli.main(["quantize", "--cpu", "--model", model, "--fmt", "nf4a", "--out", out])
+        got, want = _arrays(tser.load_checkpoint(cks[1])), _arrays(jser.load_checkpoint(cks[0]))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{name} {k}")
+        configs = [json.load(open(ck + ".config.json")) for ck in cks]
+        assert configs[0] == configs[1] and configs[1]["__arch__"] == name
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tcli.main(["bench", "kernels"])

@@ -397,11 +397,6 @@ def test_decode_step_writes_and_tracks_window(tparams):
                                **TOL)
 
 
-def test_gpt2_arch_not_ported(tparams):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        Engine(tparams, TCFG, arch="gpt2")
-
-
 # ------------------------------------------------------------------- engine
 
 
