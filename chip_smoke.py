@@ -189,7 +189,39 @@ and the script exits non-zero (nothing is caught):
      greedy decode of 8 prompts of 128 tokens for 32 new ones through
      ``matmul_4bit``'s bf16 designs (32 x 48 launches), prefill logits
      against ``use_kernel=False`` within phase 5's rel-L2, or phase 15's
-     floor rule where bf16 reordering sets a higher floor.
+     floor rule where bf16 reordering sets a higher floor;
+ 24. ``benchmarks.kernel_bench`` at M = 8 and 128: one line a cell (dense
+     bf16, nf4a/nf4/int4 through ``matmul_4bit``, int8 through
+     ``matmul_8bit``, llm_int8 through ``matmul_int8_fused``,
+     ``matmul_int8`` and its plain route, int4c), each with its speedup
+     over dense bf16 and its share of the H100 roofline, none above 105%;
+ 25. Llama-2-7B and Llama-2-13B at full width and depth (``max_seq_len``
+     512), nf4a codes drawn by ``nn.init_quantized_params``: one prefill
+     forward (batch 8 x 128 tokens) with 7 x n_layers + 1 ``matmul_4bit``
+     launches and nothing else, its logits against ``use_kernel=False``
+     by phase 15's rule; then ``model_scale_bench.run_model``: decode and
+     prefill tok/s, the idle share and device ms of a decode step, and
+     the Engine trace (``MODEL_SCALE_REQUESTS`` requests, int8 KV pool),
+     every request finishing, only ``matmul_4bit`` and the int8 KV writes
+     launched;
+ 26. ``train_bench``'s ``llama2-13b nf4`` row (batch 1 x seq 512): per
+     step 7 x 40 + 1 ``matmul_4bit``, 278 ``matmul_4bit_t`` and two
+     ``adam8bit_update`` launches (160 adapter leaves, 128 a launch), the
+     loss finite;
+ 27. tensor parallelism: ``TP_RANKS`` ranks sharing the card over gloo
+     (``parallel.spawn_local`` running ``benchmarks.tp_bench``), each
+     drawing the global Llama-2-13B nf4a tree from one seed and keeping
+     only its shards (``from_global``): rank 0's prefill logits (batch 8
+     x 128) against the single-card forward by phase 15's rule, (5 + 2 x
+     2) x 40 + 1 ``matmul_4bit`` launches per rank per forward,
+     ``tp_greedy_decode`` for 32 tokens with every rank agreeing (and the
+     share equal to the single-card greedy tokens); then the same at 13B
+     width, 2 layers, int8 shards through ``matmul_8bit``. A failing rank
+     fails the phase;
+ 28. one ``engine_sweep`` cell: the llm_int8 64-request trace (rate 40,
+     48 new tokens, int8 KV, ``multi_step`` 8, ``pipeline_depth`` 2) at
+     ``TIMED_DEPTH`` layers: tok/s, TTFT p50/p99, admissions per window,
+     beside the device's window rate, every request admitted.
 
 Then the seconds each phase took, the redesigned kernels' earlier times
 as PERF.md records them (``earlier_times``, beside this run's), the
@@ -219,12 +251,17 @@ import torch
 from quanta_tpu_torch import eval as qeval
 from quanta_tpu_torch import nn as qnn
 from quanta_tpu_torch import profiling, ptq, train
-from quanta_tpu_torch.benchmarks import accuracy_bench, decode_bench, serve_bench, train_bench
+from quanta_tpu_torch.benchmarks import (accuracy_bench, decode_bench, engine_sweep, kernel_bench,
+                                         logits_gate, model_scale_bench, serve_bench, tp_bench,
+                                         train_bench)
+from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, copies_past_l2, time_ms
+from quanta_tpu_torch.benchmarks.logits_gate import rel_l2, reordered_plain
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.metrics import MetricsRecorder
 from quanta_tpu_torch.models import gpt2, hf, llama
 from quanta_tpu_torch.ops import _build, adam8bit, attention, int4c, int8mm, matmul, quantize
 from quanta_tpu_torch.optim import Adam8bit
+from quanta_tpu_torch.parallel import spawn_local
 from quanta_tpu_torch.serve import Engine, Request, kvcache
 from quanta_tpu_torch.state.config import ConfigTree, QuantConfig
 from quanta_tpu_torch.utils import transcode_codebook, transcode_params
@@ -236,10 +273,8 @@ linear_mod = importlib.import_module("quanta_tpu_torch.nn.linear")
 SHAPES = {(2048, 2048): 2 * 22, (2048, 256): 2 * 22, (2048, 5632): 2 * 22,
           (5632, 2048): 22, (2048, 32000): 1}
 PER_FORWARD = 7 * 22 + 1  # quantized linears in one TinyLlama forward
-L2_BYTES = 50 * 2**20
-SLEEP_CYCLES = 10**8  # ~50 ms of SM clock
 BF16_ULP = 2.0 ** -7  # spacing of bf16 values in [1, 2)
-NF4_REL_L2 = 3e-2
+NF4_REL_L2 = logits_gate.REL_L2
 # int8 KV writes of the serve path (L, tokens.., nkv, hd), block = hd = 64:
 # a prefill of 256 tokens, a window of 8 steps x 8 slots (every layer in
 # one call, as the runner writes it), and one layer's window
@@ -258,6 +293,9 @@ T_SHAPES = {(2048, 2048): 2 * 22 - 1, (2048, 256): 2 * 22 - 2, (2048, 5632): 2 *
 PER_BACKWARD = sum(T_SHAPES.values())  # 152
 # Llama-2-7B's (K, N) and its QLoRA backward's M (batch 1 x seq 1024)
 T_SHAPES_7B, M_TRAIN_7B = ((4096, 4096), (4096, 11008), (11008, 4096)), 1024
+# Llama-2-13B's (K, N) with the head, and its QLoRA row's M (b1 x s512,
+# phase 26)
+T_SHAPES_13B, M_TRAIN_13B = ((5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000)), 512
 # the adapter leaves of one QLoRA step: A of wq and wv (2048 x 8) and B of
 # wq (8 x 2048), 64 blocks of 256 each, and B of wv (8 x 256, 8 blocks),
 # per layer; the one-leaf op's sizes (an adapter's and a full-parameter
@@ -273,7 +311,7 @@ TRAIN_LR = 1e-3  # the reference's own QLoRA step test (tests/test_parallel.py:9
 # (deep wv) to ~0.03 (wq, whose gradient passes the softmax backward, where
 # near-flat attention over random weights amplifies 1-ulp differences in
 # dx), so one global bound would be loose on the quiet tensors.
-GRAD_FLOOR_X, GRAD_FLOOR_ABS = 1.5, 2e-3
+GRAD_FLOOR_X, GRAD_FLOOR_ABS = logits_gate.FLOOR_X, logits_gate.FLOOR_ABS
 # flash attention: TinyLlama-1.1B's training shape (GQA, rep 8, hd 64),
 # Llama-2-7B's (MHA, hd 128), a cached prefill of 1024 tokens into 1152
 # slots at q_start 0 and 64 beside a row whose kv_len is 0, the long-prompt
@@ -346,6 +384,13 @@ MM8T_MID_MS = (64, 256)  # matmul_8bit_t: one and two of its 128-row tiles
 FOUR_BIT = ("nf4a", "nf4", "int4", "fp4")
 MM4_MS = (8, 16, 32, 64, 256, M_TRAIN)
 MM4_RAGGED = (2048, 200, 77)
+# phase 25's models' (K, N) (q/k/v/o, gate/up, down, the head), in nf4a,
+# at the decode M, the serve trace's prefill buckets, phase 26's M and the
+# prefill check's M: the split-K decode and wgmma prefill designs at K
+# 4096, 5120, 11008 and 13824 (K_pad 11264 and 14336) and N up to 32000
+MODEL_MM4 = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+             (5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000))
+MODEL_MM4_MS = (8, 64, 256, 512, 1024)
 # matmul_int4c: decode (8 slots), the top of its decode design, and
 # decode_bench's and serve's prefill (batch 8 x 128 tokens)
 I4C_MS = (8, 32, 1024)
@@ -367,6 +412,18 @@ GPT2_SHAPES = {(768, 2304): 12, (768, 768): 12, (768, 3072): 12, (3072, 768): 12
 GPT2_MM4 = ((torch.bfloat16, (8, 1024)), (torch.float32, (8,)))
 GPT2_I8_MS = (8, 256)
 GPT2_PROMPT, GPT2_NEW, CONVERT_NEW = 128, 32, 16
+# model scale (phase 25): the models, the Engine trace's requests here (the
+# bench's own default is 32), the prompts of the prefill check
+MODEL_SCALE = ("llama2-7b", "llama2-13b")
+MODEL_SCALE_REQUESTS = 16
+# tensor parallelism (phase 27): two ranks sharing the card over gloo; the
+# 13B nf4a leg at full width and depth and the int8 leg at 2 layers
+TP_RANKS = 2
+TP_LEGS = (dict(model="13b", fmt="nf4a", new=32), dict(model="13b", fmt="int8", layers=2, new=8))
+TP_TIMEOUT_S = 600
+# the llm_int8 64-request trace (phase 28): one engine_sweep cell
+SWEEP_CELL = dict(fmt="llm_int8", n_requests=64, rate=40.0, max_new=48, multi_step=8,
+                  pipeline_depth=2, kv_quant=True)
 
 
 # the H100 SXM's published rates (profiling.H100): device memory, and
@@ -374,10 +431,6 @@ GPT2_PROMPT, GPT2_NEW, CONVERT_NEW = 128, 32, 16
 HBM_BYTES_S = profiling.H100.hbm_gbps * 1e9
 PEAK_OPS_S = {"bf16": profiling.H100.bf16_tflops * 1e12,
               "int8": profiling.H100.int8_tops * 1e12, "f32": profiling.H100.f32_tflops * 1e12}
-
-
-def rel_l2(a, b):
-    return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
 def nbytes(*tensors):
@@ -410,37 +463,13 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, iters):
-    """Mean device time of one call: CUDA events around ``iters`` calls,
-    after warm-up. ``fn(i)`` takes the call index. The device first spins
-    for ~50 ms, while the host queues every call, so the events time the
-    calls back to back and not the host's Python between them (a wrapper
-    costs ~20-30 µs of host time, more than a small kernel runs)."""
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for i in range(iters):
-        fn(i)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def copies_past_l2(*tensors):
-    """Enough clones of the weight tensors to exceed the L2 cache."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    n = min(1024, max(1, math.ceil(2 * L2_BYTES / nbytes)))
-    return [tuple(t.clone() for t in tensors) for _ in range(n)]
-
-
 def kernel_checks(dev, work):
     """matmul_4bit against its plain version at the five TinyLlama (K, N)
     for M in ``MM4_MS`` (both sides of its decode/prefill split) and at
-    ``MM4_RAGGED``, every 16-entry codebook, within 2 bf16 ulps of
-    max|plain|, bit-identical over two calls, its design per row; and
+    ``MM4_RAGGED``, every 16-entry codebook, and at Llama-2-7B's and
+    -13B's (K, N) for M in ``MODEL_MM4_MS`` in nf4a, within 2 bf16 ulps of
+    max|plain|, bit-identical over two calls, its design per row (split-K
+    decode up to M = 32, wgmma prefill above); and
     matmul_int4c bit for bit at M in ``I4C_MS``, its design per row. µs
     per call with the weights rotated past the L2. Returns ms of one
     decode step's calls (M=8; nf4a for matmul_4bit) as [kernel, plain],
@@ -455,15 +484,19 @@ def kernel_checks(dev, work):
                 "matmul_4bit_qlora_forward": [0.0] * 3, "matmul_int4c_prefill": [0.0] * 3}
     max_err = {"matmul_4bit": 0.0, "matmul_int4c": 0.0}
     per_call = {"matmul_4bit": {}, "matmul_int4c": {}}
-    cases = [(k, n, m) for (k, n) in SHAPES for m in MM4_MS] + [MM4_RAGGED]
-    for k, n, m in cases:
+    cases = ([(k, n, m, FOUR_BIT) for (k, n) in SHAPES for m in MM4_MS]
+             + [(*MM4_RAGGED, FOUR_BIT)]
+             + [(k, n, m, ("nf4a",)) for (k, n) in MODEL_MM4 for m in MODEL_MM4_MS])
+    for k, n, m, fmts in cases:
         count = SHAPES.get((k, n), 0)
         n_codes = -(-n // 128) * 128  # the quantizer pads N to 128; a ragged case cuts it back
         w = (torch.randn((k, n_codes), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         iters = 50 if m <= 64 else 10
-        design = matmul.matmul_4bit_design(m, n, k)
-        for fmt in FOUR_BIT:
+        design = matmul.matmul_4bit_design(m, n, -(-k // 1024) * 1024)  # K_pad: 16 blocks of 64
+        check(design["design"] == ("decode" if m <= 32 else "prefill"),
+              f"matmul_4bit M={m} K={k} N={n}: design {design}")
+        for fmt in fmts:
             qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
             codes, scales = qt.codes[:, :n].contiguous(), qt.scale[:, :n].contiguous()
 
@@ -879,17 +912,19 @@ def serve_rows(cfg, params_by_fmt):
 
 def transposed_checks(dev, work):
     """matmul_4bit_t at the backward's shapes (TinyLlama's at M = 2048,
-    Llama-2-7B's at M = 1024), bf16 g in nf4 and nf4a within 2 bf16 ulps of
-    max|plain| and bit-identical over two calls, its design per row, and
-    one f32 shape; µs per call with the weights rotated past the L2.
+    Llama-2-7B's at M = 1024, Llama-2-13B's at M = 512), bf16 g in nf4 and
+    nf4a within 2 bf16 ulps of max|plain| and bit-identical over two calls,
+    its design per row, and one f32 shape; µs per call with the weights
+    rotated past the L2.
     Returns one TinyLlama backward's calls (nf4) in ms, [kernel, plain,
     dense] (dense: cuBLAS ``g @ W_deq^T`` of the dequantized bf16 weight),
     the µs that ``EARLIER_US`` names, and the largest error."""
     gen = torch.Generator(device=dev).manual_seed(4)
     per_step, per_call, max_err = [0.0] * 3, {}, 0.0
     cases = [(k, n, m, fmt, torch.bfloat16)
-             for (k, n), m in [(s, M_TRAIN) for s in T_SHAPES] + [(s, M_TRAIN_7B)
-                                                                  for s in T_SHAPES_7B]
+             for (k, n), m in ([(s, M_TRAIN) for s in T_SHAPES] + [(s, M_TRAIN_7B)
+                                                                   for s in T_SHAPES_7B]
+                               + [(s, M_TRAIN_13B) for s in T_SHAPES_13B])
              for fmt in ("nf4", "nf4a")]
     cases.append((*F32_SHAPE[:2], M_TRAIN, "nf4", torch.float32))
     for k, n, m, fmt, dtype in cases:
@@ -1024,47 +1059,6 @@ def adam_checks(dev, work):
         emit(kernel_check=dict(kernel="adam8bit_update", leaf=name, blocks=nb, steps=5,
                                max_abs_err=leaf_err, tol=0.0))
     return (ms, plain_ms), max_err
-
-
-def _split_sum(a, w):
-    """a @ w with the reduction split in two halves, each an f32 GEMM, the
-    halves added in f32."""
-    h = w.shape[0] // 2
-    return a[:, :h].float() @ w[:h] + a[:, h:].float() @ w[h:]
-
-
-@contextlib.contextmanager
-def reordered_plain():
-    """The plain versions of the 4-bit and 8-bit matmuls and their
-    transposes, summing in another order (``_split_sum``): the spread
-    between the plain route and this one is the floor that bf16 rounding
-    sets for any two valid orders."""
-    dequant = {4: (matmul._dequant_4bit, lambda codes: 2 * codes.shape[0]),
-               8: (matmul._dequant_8bit, lambda codes: codes.shape[0])}
-
-    def fwd(bits):
-        deq, k_of = dequant[bits]
-
-        def f(x, codes, scales, *, codebook, block=64, out_dtype=None):
-            x = matmul._pad_k(x, k_of(codes))
-            return _split_sum(x, deq(codes, scales, codebook, block, x.dtype).float()).to(
-                out_dtype or x.dtype)
-        return f
-
-    def bwd(bits):
-        deq, _ = dequant[bits]
-
-        def f(g, codes, scales, *, codebook, block=64, out_dtype=None):
-            g = matmul._pad_n(g, codes.shape[1])
-            return _split_sum(g, deq(codes, scales, codebook, block, g.dtype).float().T).to(
-                out_dtype or g.dtype)
-        return f
-
-    with mock.patch.object(matmul, "matmul_4bit_reference", fwd(4)), \
-            mock.patch.object(matmul, "matmul_4bit_t_reference", bwd(4)), \
-            mock.patch.object(matmul, "matmul_8bit_reference", fwd(8)), \
-            mock.patch.object(matmul, "matmul_8bit_t_reference", bwd(8)):
-        yield
 
 
 def _adapter_grads(adapters):
@@ -1395,7 +1389,8 @@ def long_rows(cfg, dense):
         check(_build.launches["flash_fwd"] == 4 * cfg.n_layers,
               f"long_prefill S={seq}: {_build.launches['flash_fwd']} flash launches")
         emit(long_prefill=row)
-    for row in train_bench.long_rows():
+    for row in train_bench.long_rows([r for r in train_bench.LONG_ROWS
+                                      if r[1] != "llama2-13b"]):
         check(math.isfinite(row["loss_step1"]), f"train row {row['name']}: {row['loss_step1']}")
         emit(train_row=row)
 
@@ -1410,7 +1405,9 @@ def train_rows(cfg, bases):
 
 def eight_bit_checks(dev, work):
     """matmul_8bit and matmul_8bit_t against their plain versions at the
-    five TinyLlama (K, N), M in {8, 2048}, every 8-bit format, bf16
+    five TinyLlama (K, N), M in {8, 2048}, every 8-bit format (matmul_8bit
+    also at Llama-2-13B's (K, N), M in {8, 1024}, in int8: phase 27's
+    single-card reference of its int8 leg), bf16
     operands within 2 bf16 ulps of max|plain|, and at ``F32_SHAPE`` in f32
     within 1e-5 of it; matmul_8bit also at ``MM8_MID_MS`` on two of the
     shapes (both sides of its decode/prefill split), matmul_8bit_t at
@@ -1432,13 +1429,15 @@ def eight_bit_checks(dev, work):
     cases = [(k, n, m, torch.bfloat16) for (k, n) in SHAPES for m in (8, M_TRAIN)]
     cases += [(k, n, m, torch.bfloat16) for (k, n) in MM8_MID_SHAPES for m in MM8_MID_MS]
     cases += [(*MM8_RAGGED, torch.bfloat16), (*F32_SHAPE, torch.float32)]
-    for k, n, m, dtype in cases:
+    cases = [(*c, EIGHT_BIT) for c in cases]
+    cases += [(k, n, m, torch.bfloat16, ("int8",)) for (k, n) in MODEL_MM4[4:] for m in (8, 1024)]
+    for k, n, m, dtype, fmts in cases:
         n_codes = -(-n // 128) * 128  # the quantizer pads N to 128; a ragged case cuts it back
         w = (torch.randn((k, n_codes), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         g = torch.randn((m, n), generator=gen, device=dev).to(dtype)
         design = matmul.matmul_8bit_design(m, n, k) if dtype == torch.bfloat16 else None
-        for fmt in EIGHT_BIT:
+        for fmt in fmts:
             qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
             codes, scales = qt.codes[:, :n].contiguous(), qt.scale[:, :n].contiguous()
             for name, fn, a in (("matmul_8bit", matmul.matmul_8bit, x),
@@ -1470,7 +1469,8 @@ def eight_bit_checks(dev, work):
                         row.update(design=design)
                     if fmt == "int8" and f"M{m}_{k}x{n}" in EARLIER_US[name]:
                         per_call[name][f"M{m}_{k}x{n}"] = row["us"]
-                if fmt == "int8" and dtype == torch.bfloat16 and (name, m) in step:
+                if (fmt == "int8" and dtype == torch.bfloat16 and (name, m) in step
+                        and (k, n) in count[name]):
                     wd = matmul._dequant_8bit(qt.codes, qt.scale, None, 64, torch.bfloat16)[:k]
                     dense = [d.T.contiguous() if name == "matmul_8bit_t" else d
                              for (d,) in copies_past_l2(wd)]
@@ -1555,7 +1555,7 @@ def ptq_path(dev, cfg, dense, train_ids, eval_ids):
         # sets a higher floor: the W8A8 fake-quant rounds an activation
         # that moved by one bf16 ulp to the neighbouring level
         floor = rel_l2(lr, lp)
-        tol = max(NF4_REL_L2, GRAD_FLOOR_X * floor + GRAD_FLOOR_ABS)
+        tol = logits_gate.tolerance(floor)
         check(rel <= tol, f"ptq {name}: prefill logits rel-L2 {rel} > {tol} (floor {floor})")
         _build.reset_launches()
         t0 = time.perf_counter()
@@ -1816,17 +1816,9 @@ def _decode_with_launches(fwd_mod, params, prompt, cfg, new, kernel, per_forward
 def _prefill_logits_vs_plain(fwd_mod, params, prompt, cfg, tag):
     """Prefill logits through the kernels against ``use_kernel=False``:
     phase 5's rel-L2, or 1.5 times the floor that the plain route summed
-    in another order sets (+2e-3) where that floor is higher (phase 15)."""
-    with torch.no_grad():
-        lk, _ = fwd_mod.forward(params, prompt, cfg)
-        lp, _ = fwd_mod.forward(params, prompt, cfg, use_kernel=False)
-        with reordered_plain():
-            lr, _ = fwd_mod.forward(params, prompt, cfg, use_kernel=False)
-    check(torch.isfinite(lk).all().item(), f"{tag}: non-finite logits")
-    rel, floor = rel_l2(lk, lp), rel_l2(lr, lp)
-    tol = max(NF4_REL_L2, GRAD_FLOOR_X * floor + GRAD_FLOOR_ABS)
-    check(rel <= tol, f"{tag}: prefill logits rel-L2 {rel} > {tol} (floor {floor})")
-    return dict(prefill_logits_rel_l2=rel, tol=tol, reordered_plain_rel_l2=floor)
+    in another order sets (+2e-3) where that floor is higher (phase 15;
+    ``logits_gate``)."""
+    return logits_gate.prefill_logits_vs_plain(fwd_mod, params, prompt, cfg, tag)[1]
 
 
 def transcode_decode(dev, params, cfg):
@@ -1870,6 +1862,134 @@ def gpt2_nf4a_decode(dev, params, cfg):
                           launches=counts, token_agreement_vs_plain=agree,
                           **_prefill_logits_vs_plain(gpt2, qparams, prompt, cfg,
                                                      "gpt2 nf4a")))
+    return counts
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def kernel_bench_phase():
+    """benchmarks.kernel_bench at M = 8 and 128: one line a cell (its own
+    check: no reading above 105% of its roofline)."""
+    rows = kernel_bench.run()
+    for r in rows:
+        emit(kernel_bench=r)
+    check(len(rows) == len(kernel_bench.MS) * len(kernel_bench.SHAPES) * len(kernel_bench.CELLS),
+          f"kernel bench: {len(rows)} cells")
+
+
+def model_scale(dev):
+    """Llama-2-7B and -13B in nf4a at full width and depth: one prefill
+    forward's launches (7 x n_layers + 1 of matmul_4bit and nothing else)
+    and its logits against the plain route (phase 15's rule), then
+    ``model_scale_bench.run_model``: decode, prefill, idle share and the
+    Engine trace (``MODEL_SCALE_REQUESTS`` requests, int8 KV). Returns the
+    launches of every run."""
+    launches = dict.fromkeys(_build.launches, 0)
+    for name in MODEL_SCALE:
+        cfg = model_scale_bench.model_config(name)
+        params = model_scale_bench.init_model(cfg, "nf4a")
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (8, 128), dtype=np.int32)).to(dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with torch.no_grad():
+            llama.forward(params, prompt, cfg)
+        torch.cuda.synchronize()
+        counts = _nonzero(_build.launches)
+        check(counts == {"matmul_4bit": 7 * cfg.n_layers + 1},
+              f"{name} prefill: launches {counts}, expected {7 * cfg.n_layers + 1} matmul_4bit")
+        per_forward = counts["matmul_4bit"]
+        logits = _prefill_logits_vs_plain(llama, params, prompt, cfg, f"{name} nf4a")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        row = model_scale_bench.run_model(name, "nf4a", n_requests=MODEL_SCALE_REQUESTS,
+                                          params=params)
+        torch.cuda.synchronize()
+        counts = _nonzero(_build.launches)
+        check(set(counts) == {"matmul_4bit", "quantize_blockwise"},
+              f"{name}: launches {counts}: matmul_4bit and the int8 KV writes only")
+        check(row["serve"]["all_finished"] and math.isfinite(row["decode_tok_s"]),
+              f"{name}: the serve trace did not finish every request")
+        counts["matmul_4bit"] += per_forward
+        for k, v in counts.items():
+            launches[k] += v
+        emit(model_scale={**row, "launches": counts, "per_forward_matmul_4bit": per_forward,
+                          **logits})
+        del params
+        torch.cuda.empty_cache()
+    return launches
+
+
+def qlora_13b():
+    """train_bench's ``llama2-13b nf4`` row (b1 x s512), its launches as
+    designed: per step 7 x 40 + 1 matmul_4bit, 3 fewer matmul_4bit_t (layer
+    0's wq, wk, wv read the frozen embedding) and one adam8bit_update per
+    ``qt_adam8bit_table_leaves()`` of the 160 adapter leaves (A and B of wq
+    and wv a layer), over the row's steps (step 1, warm-up, timed and 2
+    profiled)."""
+    rows = [r for r in train_bench.LONG_ROWS if r[1] == "llama2-13b"]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    (row,) = train_bench.long_rows(rows)
+    torch.cuda.synchronize()
+    counts = _nonzero(_build.launches)
+    cfg = train_bench.model_config("llama2-13b")
+    _, _, _, _, _, warmup, steps = rows[0]
+    n = 1 + (warmup - 1) + steps + 2
+    per_fwd = 7 * cfg.n_layers + 1
+    adam_launches = -(-4 * cfg.n_layers // _build.library().qt_adam8bit_table_leaves())
+    expected = {"matmul_4bit": n * per_fwd, "matmul_4bit_t": n * (per_fwd - 3),
+                "adam8bit_update": n * adam_launches}
+    check(counts == expected, f"13B QLoRA: launches {counts}, expected {expected}")
+    check(math.isfinite(row["loss_step1"]), f"13B QLoRA: loss {row['loss_step1']}")
+    emit(train_row={**row, "launches": counts})
+    return counts
+
+
+def tensor_parallel():
+    """``TP_RANKS`` ranks on the card over gloo (``parallel.spawn_local``
+    running ``tp_bench.rank_legs``): each leg's checks run in the ranks
+    (prefill logits against the single-card forward, launches per forward
+    as designed, greedy tokens agreeing across ranks), and a failing rank
+    fails the phase. Returns the launches of every rank's TP runs."""
+    torch.cuda.empty_cache()
+    res = spawn_local(tp_bench.rank_legs, TP_RANKS, TP_LEGS, timeout=TP_TIMEOUT_S)
+    launches = dict.fromkeys(_build.launches, 0)
+    for i, leg in enumerate(TP_LEGS):
+        rows = [r[i] for r in res]
+        for r in rows:
+            for counts in (r["launches_per_forward"], r["decode_launches"]):
+                for k, v in counts.items():
+                    launches[k] += v
+        emit(tensor_parallel={"leg": leg, "ranks": rows})
+    return launches
+
+
+def sweep_cell(dev):
+    """One engine_sweep cell: the llm_int8 64-request trace at TIMED_DEPTH
+    layers (``SWEEP_CELL``), beside the device's own window rate; every
+    request finishes. Returns its launches."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tinyllama_1b(), n_layers=TIMED_DEPTH)
+    dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    params = qnn.quantize_params(dense, mode=SWEEP_CELL["fmt"])
+    del dense
+    rate = engine_sweep.device_window_rate(params, cfg, SWEEP_CELL["multi_step"],
+                                           kv_quant=SWEEP_CELL["kv_quant"])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    row = engine_sweep.cell(params, cfg, device_rate=rate["device_tok_s"], **SWEEP_CELL)
+    torch.cuda.synchronize()
+    counts = _nonzero(_build.launches)
+    check(set(counts) == {"matmul_int8_fused", "quantize_blockwise"},
+          f"llm_int8 64-request trace: launches {counts}")
+    check(row["all_finished"] and row["admissions"] >= SWEEP_CELL["n_requests"]
+          and row["tok_s"] > 0,
+          f"llm_int8 64-request trace: not every request finished with "
+          f"{SWEEP_CELL['max_new']} tokens: {row}")
+    emit(engine_sweep_cell={**SWEEP_CELL, "n_layers": cfg.n_layers, **row,
+                            "window_profile": rate, "launches": counts})
     return counts
 
 
@@ -1989,6 +2109,25 @@ def main():
     with timed("23 gpt2 nf4a decode"):
         launches["matmul_4bit"] += gpt2_nf4a_decode(dev, *loaded.pop("gpt2_small_bf16"))[
             "matmul_4bit"]
+    del loaded, gparams
+    torch.cuda.empty_cache()
+
+    with timed("24 kernel bench"):
+        kernel_bench_phase()
+    with timed("25 model scale"):
+        for k, v in model_scale(dev).items():
+            launches[k] += v
+    with timed("26 qlora 13b"):
+        q13 = qlora_13b()
+        launches["matmul_4bit"] += q13.pop("matmul_4bit")
+        for k, v in q13.items():
+            train_launches[k] += v
+    with timed("27 tensor parallel"):
+        for k, v in tensor_parallel().items():
+            launches[k] += v
+    with timed("28 llm_int8 64 requests"):
+        for k, v in sweep_cell(dev).items():
+            launches[k] += v
     emit(phase_seconds=phase_s)
 
     def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,

@@ -51,6 +51,7 @@ import subprocess
 
 import torch
 
+from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, time_ms
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.ops import attention, int4c, int8mm, matmul
 
@@ -58,22 +59,6 @@ FLASH_SHAPES = {"tinyllama_s1024": (2, 1024, 32, 4, 64), "llama2_7b_s1024": (1, 
 MM8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
 MM8_MS = (8, 16, 32, 64, 256, 1024, 2048)
 MM4T_SHAPES = MM8_SHAPES + [(4096, 4096), (4096, 11008), (11008, 4096)]
-L2_BYTES = 50 * 2**20
-
-
-def time_ms(fn, iters):
-    """Mean device ms of one call of ``fn(i)`` over ``iters`` calls."""
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10**8)
-    start.record()
-    for i in range(iters):
-        fn(i)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def emit(**obj):

@@ -62,8 +62,10 @@ def make_engine(params, cfg, *, n_slots=8, use_kernel=None, kv_quant=False, mult
 
 def run_one(params, cfg, *, fmt_name: str, n_requests: int = 24, rate: float = 16.0,
             max_new: int = 64, n_slots: int = 8, use_kernel=None, kv_quant: bool = False,
-            multi_step: int = 1, pipeline_depth: int = 2, seed: int = 0, recorder=None):
-    """Serve one Poisson trace; returns the engine's metrics dict."""
+            multi_step: int = 1, pipeline_depth: int = 2, seed: int = 0, recorder=None,
+            on_step=None):
+    """Serve one Poisson trace; returns the engine's metrics dict.
+    ``on_step(engine)``, if given, runs after every ``step()``."""
     eng = make_engine(params, cfg, n_slots=n_slots, use_kernel=use_kernel, kv_quant=kv_quant,
                       multi_step=multi_step, pipeline_depth=pipeline_depth, recorder=recorder)
     trace = make_trace(n_requests, rate, max_prompt=MAX_PROMPT, max_new=max_new,
@@ -82,6 +84,8 @@ def run_one(params, cfg, *, fmt_name: str, n_requests: int = 24, rate: float = 1
             eng.submit(Request(uid=next_uid, prompt=prompt, max_new_tokens=max_new))
             next_uid += 1
         eng.step()
+        if on_step is not None:
+            on_step(eng)
         if eng.idle and next_uid < len(trace):
             # nothing seated or in flight: sleep until the next arrival
             time.sleep(max(0.0, trace[next_uid][0] - (time.perf_counter() - t0)))
@@ -93,6 +97,8 @@ def run_one(params, cfg, *, fmt_name: str, n_requests: int = 24, rate: float = 1
     m["kv_pool_mib"] = round(kvcache.pool_bytes(eng.pool) / 2**20, 1)
     m["n_requests"] = n_requests
     m["offered_rate_req_s"] = rate
+    m["all_finished"] = len(eng.finished) == n_requests and all(
+        len(r.output) == max_new for r in eng.finished)
     log(f"{fmt_name:9s} serve: {m['throughput_tok_s']:8.1f} tok/s | "
         f"ttft p50 {m.get('ttft_p50_ms', 0):7.1f} ms | p99 {m.get('ttft_p99_ms', 0):7.1f} ms | "
         f"windows {m['decode_steps']} | preempt {m['preemptions']}")

@@ -7,11 +7,17 @@ linears (``lm_head`` included) as nf4 or nf4a blocks of 64, or dense bf16
 (the control), at batch 4 x seq 512; ``LONG_ROWS``, nf4 bases drawn by
 ``nn.init_quantized_params`` (seed 0): TinyLlama-1.1B at batch 2 x seq
 1024 (through the flash kernels, and through the einsum attention as the
-control that shows what flash does to step memory) and Llama-2-7B (the
+control that shows what flash does to step memory), Llama-2-7B (the
 north star, ``max_seq_len`` 1024) at batch 2 x seq 512 and batch 1 x seq
-1024. Every row: rank-8 bf16 LoRA on ``wq`` and ``wv`` (alpha 16, seed 1);
-blockwise 8-bit Adam at lr 1e-4; random tokens (numpy seed 0), next-token
-cross-entropy.
+1024, and Llama-2-13B (``max_seq_len`` 512) at batch 1 x seq 512;
+``BF16_BASE_ROWS``, the 7B and 13B rows over dense bf16 bases
+(``llama.init_params``, seed 0). The reference's bf16-base rows at this
+scale are XLA compile-only memory plans (``quanta_tpu/benchmarks/
+train_bench.py:306-316``, ``:330-337``), which torch has no counterpart
+of; on an 80 GB card both dense bases fit, so the port runs their steps
+for real and reports their resident and step-peak GiB. Every row: rank-8
+bf16 LoRA on ``wq`` and ``wv`` (alpha 16, seed 1); blockwise 8-bit Adam
+at lr 1e-4; random tokens (numpy seed 0), next-token cross-entropy.
 
 Each row reports:
   - ``step_ms``: the median of CUDA-event times around each of ``steps``
@@ -27,7 +33,7 @@ Each row reports:
 
 ``adam_bytes`` gives the 8-bit Adam bytes per parameter for the adapters
 (allocated) and for every parameter of the tree (counted from shapes),
-against fp32 Adam's 8. The 13B rows are not ported.
+against fp32 Adam's 8.
 
     python -m quanta_tpu_torch.benchmarks.train_bench   # one JSON line
 
@@ -61,6 +67,11 @@ LONG_ROWS = (
     ("tinyllama nf4 s1024 einsum", "tinyllama", 2, 1024, False, 2, 5),
     ("llama2-7b nf4", "llama2-7b", 2, 512, None, 1, 3),
     ("llama2-7b nf4 s1024", "llama2-7b", 1, 1024, None, 1, 3),
+    ("llama2-13b nf4", "llama2-13b", 1, 512, None, 1, 3),
+)
+BF16_BASE_ROWS = (
+    ("llama2-7b bf16-base", "llama2-7b", 2, 512, None, 1, 3),
+    ("llama2-13b bf16-base", "llama2-13b", 1, 512, None, 1, 3),
 )
 FP32_ADAM_BYTES = 8  # m and v in f32
 TOP_OPS = 8
@@ -131,11 +142,14 @@ def profile_step(step, params, batch) -> dict:
 
 def model_config(model: str) -> llama.LlamaConfig:
     """The configuration of a ``LONG_ROWS`` model: the 7B with the
-    reference's ``max_seq_len=1024`` (``train_bench.py:293-297``)."""
+    reference's ``max_seq_len=1024`` and the 13B with its 512
+    (``train_bench.py:293-297``, ``:318-323``)."""
     if model == "tinyllama":
         return llama.LlamaConfig.tinyllama_1b()
     if model == "llama2-7b":
         return dataclasses.replace(llama.LlamaConfig.llama2_7b(), max_seq_len=1024)
+    if model == "llama2-13b":
+        return dataclasses.replace(llama.LlamaConfig.llama2_13b(), max_seq_len=512)
     raise ValueError(f"unknown model {model!r}")
 
 
@@ -203,21 +217,24 @@ def adam_bytes(cfg, rank: int = 8) -> dict:
     }
 
 
-def long_rows() -> list[dict]:
-    """The ``LONG_ROWS``, one base per model, freed before the next."""
+def long_rows(rows=LONG_ROWS, fmt: str = "nf4") -> list[dict]:
+    """``rows`` (``LONG_ROWS`` by default) over ``fmt`` bases (nf4 drawn by
+    ``nn.init_quantized_params``; "bf16" dense from ``llama.init_params``),
+    one base per model, freed before the next."""
     dev = _require_cuda()
-    rows, bases = [], {}
-    for name, model, batch, seq, use_flash, warmup, steps in LONG_ROWS:
+    out, bases = [], {}
+    for name, model, batch, seq, use_flash, warmup, steps in rows:
         cfg = model_config(model)
         if model not in bases:
             bases.clear()
             torch.cuda.empty_cache()
-            bases[model] = qnn.init_quantized_params(torch.Generator(device=dev).manual_seed(0),
-                                                     cfg, mode="nf4", device=dev)
-        rows.append({"name": name, "model": model, "fmt": "nf4",
+            gen = torch.Generator(device=dev).manual_seed(0)
+            bases[model] = (llama.init_params(gen, cfg, device=dev) if fmt == "bf16" else
+                            qnn.init_quantized_params(gen, cfg, mode=fmt, device=dev))
+        out.append({"name": name, "model": model, "fmt": fmt,
                      **bench_qlora(bases[model], cfg, batch=batch, seq=seq, use_flash=use_flash,
                                    warmup=warmup, steps=steps)})
-    return rows
+    return out
 
 
 def main():
@@ -227,7 +244,7 @@ def main():
     rows = [{"name": name, "fmt": fmt, **bench_qlora(quantized(dense, fmt), cfg)}
             for name, fmt in ROWS]
     del dense
-    rows += long_rows()
+    rows += long_rows() + long_rows(BF16_BASE_ROWS, fmt="bf16")
     print(json.dumps({"device": torch.cuda.get_device_name(0), "train": rows,
                       "adam_bytes": adam_bytes(cfg)}))
 

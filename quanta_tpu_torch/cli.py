@@ -9,8 +9,8 @@ with the model configuration beside them in ``<ckpt>.config.json``, so a
 checkpoint written by either CLI is read by the other. ``--model`` reads
 an HF checkpoint directory (Llama or GPT-2, ``models/hf.py``).
 
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: ``bench kernels`` (item 14).
+``bench`` runs a benchmark module (``headline`` is the decode bench, as
+in the JAX CLI; ``kernels``, the default, is the kernel microbench).
 
 Usage:  python -m quanta_tpu_torch <command> --help
 """
@@ -297,15 +297,14 @@ def cmd_finetune(args):
     log(f"saved LoRA adapters -> {args.out}")
 
 
-_BENCHES = {"decode": "quanta_tpu_torch.benchmarks.decode_bench",
-            "serve": "quanta_tpu_torch.benchmarks.serve_bench",
-            "accuracy": "quanta_tpu_torch.benchmarks.accuracy_bench"}
+_BENCHES = {"headline": "quanta_tpu_torch.benchmarks.decode_bench",
+            "decode": "quanta_tpu_torch.benchmarks.decode_bench",
+            "kernels": "quanta_tpu_torch.benchmarks.kernel_bench",
+            "accuracy": "quanta_tpu_torch.benchmarks.accuracy_bench",
+            "serve": "quanta_tpu_torch.benchmarks.serve_bench"}
 
 
 def cmd_bench(args):
-    if args.kind == "kernels":
-        raise NotImplementedError("the kernel microbench is not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
     mod = _BENCHES[args.kind]
     sys.argv = [mod.rsplit(".", 1)[-1], *(["--cpu"] if args.cpu else [])]
     runpy.run_module(mod, run_name="__main__")
@@ -391,8 +390,7 @@ def build_parser() -> argparse.ArgumentParser:
     f.set_defaults(fn=cmd_finetune)
 
     b = sub.add_parser("bench", help="run a benchmark")
-    b.add_argument("kind", choices=["decode", "kernels", "accuracy", "serve"], nargs="?",
-                   default="decode")
+    b.add_argument("kind", choices=list(_BENCHES), nargs="?", default="kernels")
     b.add_argument("--cpu", action="store_true", help="run on the CPU (accuracy only)")
     b.set_defaults(fn=cmd_bench)
 

@@ -262,8 +262,11 @@ def matmul_int8(
 
     # per-row absmax over the inlier features only: the outlier
     # activations are the large ones and would blow the scale
+    # (in place on a fresh tensor; ``index_fill_`` takes the 0 as a kernel
+    # argument, where ``xa[:, idx] = 0.0`` copied it from host memory and
+    # so waited for the device on every call)
     xa = x2.abs()
-    xa[:, qw.outlier_idx] = 0.0  # in place on a fresh tensor
+    xa.index_fill_(1, qw.outlier_idx.long(), 0.0)
     row_scale = torch.clamp(xa.amax(dim=1) / 127.0, min=_EPS)
 
     k_pad = qw.codes.shape[0]

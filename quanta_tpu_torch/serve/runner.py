@@ -323,9 +323,14 @@ def decode_multi_step(
         toks.append(tokens)
 
     # one write of the whole window, every layer at once; inactive slots
-    # resolve to the always-masked null page 0
+    # resolve to the always-masked null page 0: their table row is zeros,
+    # and where the window is longer than a page their positions can run
+    # past the table's width, so the column is clamped (JAX's gather fills
+    # such columns and its scatter drops the writes: the null page is never
+    # read either way)
     tpos = pos_safe[:, None] + step_iota[None, :].to(pos_safe.dtype)
-    page_idx = table_safe.gather(1, torch.div(tpos, page_size, rounding_mode="floor").long())
+    cols = torch.div(tpos, page_size, rounding_mode="floor").long()
+    page_idx = table_safe.gather(1, cols.clamp_(max=table_safe.shape[1] - 1))
     rows = (page_idx * page_size + tpos % page_size).reshape(-1).long()
     kvcache.write_rows(pool, rows, side_k.reshape(n_layers, -1, *side_shape[3:]),
                        side_v.reshape(n_layers, -1, *side_shape[3:]), use_kernel=use_kernel)

@@ -953,6 +953,34 @@ def test_matmul_4bit_bit_identical_over_two_calls(cuda, m, k, n):
     assert torch.equal(first, tmm.matmul_4bit(x, codes, scales, codebook=cb, block=32))
 
 
+# Llama-2-7B's and -13B's (K, N) (q/k/v/o, gate/up, down, the head) at the
+# decode M, the serve trace's prefill buckets, the 13B QLoRA row's M and the
+# model-scale prefill's M, in nf4a with the quantizer's own padding (K 11008 and 13824 pad to
+# 11264 and 14336)
+MODEL_MM4_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+                    (5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000)]
+
+
+@pytest.mark.parametrize("m", [8, 64, 256, 512, 1024])
+def test_matmul_4bit_model_scale_shapes_match_plain(cuda, m):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    for k, n in MODEL_MM4_SHAPES:
+        w = torch.randn((k, n), generator=g, device=cuda) / math.sqrt(k)
+        tq = tcore.quantize_matmul_weight(w, fmt="nf4a", block_size=64)
+        x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+        d = tmm.matmul_4bit_design(m, tq.codes.shape[1], 2 * tq.codes.shape[0])
+        assert d["design"] == ("decode" if m <= 32 else "prefill"), (k, n, d)
+        before = _build.launches["matmul_4bit"]
+        out = tmm.matmul_quantized(x, tq)
+        ref = tmm.matmul_quantized(x, tq, use_kernel=False)
+        torch.cuda.synchronize()
+        assert _build.launches["matmul_4bit"] == before + 1
+        assert out.shape == ref.shape == (m, n)
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= _tol(ref, torch.bfloat16), (k, n, err)
+        assert torch.equal(out, tmm.matmul_quantized(x, tq)), (k, n)
+
+
 # (m, k, n): decode with K2 = 800 packed rows, 50 slices of 16 over a split
 # of 4 (13, 13, 13, 11 slices), and prefill with K2 = 1184, 37 steps of 32
 # packed rows over a split of 8 (5 each, 2 on the last rank)
@@ -1081,6 +1109,23 @@ def test_matmul_4bit_t_ms_take_both_tile_widths(cuda):
     if sms == 132:
         assert tmm.matmul_4bit_t_design(2048, 5632, 2048)["rows"] == 256
         assert tmm.matmul_4bit_t_design(1024, 5632, 2048)["rows"] == 128
+
+
+@pytest.mark.parametrize("fmt", ["nf4", "nf4a"])
+def test_matmul_4bit_t_13b_shapes_match_plain(cuda, fmt):
+    """Llama-2-13B's (K, N) with the head at its QLoRA row's M (b1 x
+    s512), with the quantizer's own padding (13824 pads to 14336)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    for k, n in [(5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000)]:
+        tq = tcore.quantize_matmul_weight(torch.randn((k, n), generator=g, device=cuda) * 0.1,
+                                          fmt=fmt, block_size=64)
+        gr = torch.randn((512, n), generator=g, device=cuda).to(torch.bfloat16)
+        d = tmm.matmul_4bit_t_design(512, tq.codes.shape[1], 2 * tq.codes.shape[0])
+        assert d["design"] == "wgmma"
+        before = _build.launches["matmul_4bit_t"]
+        out = _mm4t_check(gr, tq.codes, tq.scale, tq.codebook, 64)
+        assert _build.launches["matmul_4bit_t"] == before + 1
+        assert torch.equal(out, tmm.matmul_4bit_t(gr, tq.codes, tq.scale, codebook=fmt))
 
 
 @pytest.mark.parametrize("block", [32, 128])
@@ -1368,3 +1413,105 @@ def test_safetensors_codec_on_cuda_tensors(cuda, tmp_path):
     for k, t in tensors.items():
         assert back[k].device.type == "cuda" and back[k].dtype == t.dtype, k
         assert torch.equal(back[k], t), k
+
+
+@pytest.mark.parametrize("route", [{}, {"fused": False}, {"use_kernel": False}],
+                         ids=["fused", "unfused", "plain"])
+def test_matmul_int8_never_waits_for_the_device(cuda, route):
+    """An LLM.int8 decode call queues its work and returns: no copy from
+    host memory and no stream synchronize (the outlier columns' zeroing,
+    an index assignment of a Python 0.0, did both on every call, so the
+    device idled while the host caught up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qw = tint8.quantize_int8_weight(torch.randn((2048, 2048), generator=g, device=cuda))
+    x = torch.randn((8, 2048), generator=g, device=cuda).to(torch.bfloat16)
+    tint8.matmul_int8(x, qw, **route)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tint8.matmul_int8(x, qw, **route)
+    names = {e.name for e in prof.events()}
+    assert not names & {"cudaStreamSynchronize", "cudaMemcpyAsync"}, sorted(names)
+
+
+# ------------------------------------------------ tensor-parallel local shapes
+
+# (K, N) of Llama-2-7B's and -13B's linears and their TP split (1: N, the
+# column-parallel ones; 0: K, the row-parallel ones, whose output runs in
+# two chunks): at tp = 2 the local shapes are new ground for the kernels'
+# designs (13B: w_down's K_loc 6912 pads to 7168, w_gate/w_up's N_loc is
+# 6912, wq/wk/wv's 2560)
+TP_LINEARS = {
+    "7b": {"wq": (4096, 4096, 1), "wo": (4096, 4096, 0), "w_gate": (4096, 11008, 1),
+           "w_down": (11008, 4096, 0), "lm_head": (4096, 32000, 1)},
+    "13b": {"wq": (5120, 5120, 1), "wo": (5120, 5120, 0), "w_gate": (5120, 13824, 1),
+            "w_down": (13824, 5120, 0), "lm_head": (5120, 32000, 1)},
+}
+
+
+@pytest.mark.parametrize("fmt,kernel", [("nf4a", "matmul_4bit"), ("int8", "matmul_8bit")])
+@pytest.mark.parametrize("model", ["7b", "13b"])
+def test_tp_shards_match_plain_at_model_shapes(cuda, model, fmt, kernel):
+    """Each rank's shards from ``from_global`` (tp = 2, row-parallel ones
+    in two chunks) through its kernel at decode and prefill M, within 2
+    bf16 ulps of max|plain|, one launch a call, its design reported."""
+    from quanta_tpu_torch.parallel import from_global
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for name, (k, n, axis) in TP_LINEARS[model].items():
+        w = torch.randn((k, n), generator=g, device=cuda) / math.sqrt(k)
+        sq = from_global(tcore.quantize_matmul_weight(w, fmt=fmt), 2, axis=axis)
+        for rank in range(2):
+            parts = sq.shard(rank, n_chunks=2)
+            for qt in parts if axis == 0 else (parts,):
+                k_loc, n_loc = qt.shape
+                for m in (8, 128):
+                    x = torch.randn((m, k_loc), generator=g, device=cuda).to(torch.bfloat16)
+                    before = _build.launches[kernel]
+                    out = tmm.matmul_quantized(x, qt)
+                    ref = tmm.matmul_quantized(x, qt, use_kernel=False)
+                    torch.cuda.synchronize()
+                    assert _build.launches[kernel] == before + 1
+                    assert out.shape == (m, n_loc) == ref.shape
+                    tol = 2.0 ** -6 * ref.float().abs().max().item()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    assert err <= tol, (model, name, rank, m, err, tol)
+                    if fmt == "nf4a":
+                        k_pad = 2 * qt.codes.shape[0]
+                        design = tmm.matmul_4bit_design(m, qt.codes.shape[1], k_pad)
+                        assert design["design"] == ("decode" if m <= 32 else "prefill")
+
+
+def test_gloo_collectives_take_cuda_tensors(cuda):
+    """Two ranks sharing the card over gloo: the mesh hands its
+    collectives CUDA tensors as they are; the async all-reduces (bf16 and
+    f32 in flight together) and the all-gather come back on the card,
+    right."""
+    import torch_tp_worker
+    from quanta_tpu_torch.parallel import spawn_local
+
+    res = spawn_local(torch_tp_worker.mesh_collectives, 2, 1, 2, "cuda", timeout=120)
+    base = np.arange(6, dtype=np.float32).reshape(2, 3)
+    for out in res:
+        np.testing.assert_array_equal(out["model"]["sum_f32"], 2 * base + 10)
+        np.testing.assert_array_equal(out["model"]["sum_bf16"], 2 * base + 10)
+        np.testing.assert_array_equal(out["model"]["gather"],
+                                      np.concatenate([base, base + 10], 1))
+
+
+def test_tp_two_ranks_on_one_card_match_single_card(cuda):
+    """Two ranks share the card over gloo: a Llama-2-7B-width model of 2
+    layers in nf4a, each rank's shards drawn through ``from_global``; rank
+    0's prefill logits within the rule of the single-card forward, the
+    launches per forward as designed and the greedy tokens agreeing across
+    ranks (checked inside ``tp_bench.rank_main``)."""
+    from quanta_tpu_torch.benchmarks import tp_bench
+    from quanta_tpu_torch.parallel import spawn_local
+
+    leg = dict(model="7b", fmt="nf4a", layers=2, batch=2, prompt_len=16, new=4)
+    rows = [r[0] for r in spawn_local(tp_bench.rank_legs, 2, [leg], timeout=300)]
+    assert [r["rank"] for r in rows] == [0, 1]
+    assert rows[0]["prefill_logits_rel_l2"] <= rows[0]["tol"]
+    for r in rows:
+        assert r["launches_per_forward"] == {"matmul_4bit": (5 + 2 * 2) * 2 + 1}

@@ -440,6 +440,21 @@ def test_engine_multi_step_equals_single(tparams, ms):
         _serve(tparams, prompts, 11, multi_step=1)[0]
 
 
+def test_engine_window_longer_than_a_page(tparams):
+    """A window of more tokens than a page (multi_step 16, pages of 8):
+    the window's write of an inactive slot spans two page columns, more
+    than the narrowest page-table bucket holds; it must land in the null
+    page, as JAX's clamped gather puts it, not index past the table (the
+    port raised here: on the card a device-side assert). ``warm_widths``
+    runs every bucket, the narrowest of one page included, and the served
+    tokens equal per-token stepping's."""
+    prompts = _prompts([3, 9, 14], seed=13)
+    _, eng = _serve(tparams, prompts[:1], 2, multi_step=16)
+    eng.warm_widths(eng.max_pages_per_slot, max_prompt_len=14)
+    assert _serve(tparams, prompts, 20, multi_step=16)[0] == \
+        _serve(tparams, prompts, 20, multi_step=1)[0]
+
+
 def test_engine_multi_step_with_eos(tparams):
     """EOS inside a window: the window's tail is dropped and the output
     trimmed exactly as per-token stepping would."""
@@ -559,7 +574,7 @@ def test_run_one_serves_a_trace_on_cpu(tparams):
     params = tllama.init_params(torch.Generator().manual_seed(0), cfg)
     m = serve_bench.run_one(params, cfg, fmt_name="tiny", n_requests=4, rate=1000.0,
                             max_new=8, n_slots=2, multi_step=4, kv_quant=True)
-    assert m["requests_finished"] == 4 and m["output_tokens"] == 32
+    assert m["requests_finished"] == 4 and m["output_tokens"] == 32 and m["all_finished"]
     pool = tkv.init_pool(cfg, 1 + 2 * 32, 16, kv_quant=True)
     assert m["kv_pool_mib"] == round(tkv.pool_bytes(pool) / 2**20, 1)
     t1 = serve_bench.make_trace(5, 24.0, 250, 48, 32000, seed=0)
