@@ -221,7 +221,29 @@ and the script exits non-zero (nothing is caught):
  28. one ``engine_sweep`` cell: the llm_int8 64-request trace (rate 40,
      48 new tokens, int8 KV, ``multi_step`` 8, ``pipeline_depth`` 2) at
      ``TIMED_DEPTH`` layers: tok/s, TTFT p50/p99, admissions per window,
-     beside the device's window rate, every request admitted.
+     beside the device's window rate, every request admitted;
+ 29. the spec-sharded paths (``parallel.spmd`` over ``shard_params``
+     trees, ``benchmarks.spmd_bench``), ranks sharing the card over gloo
+     through ``parallel.spawn_local``: (a) FSDP QLoRA, Llama-2-7B at full
+     width and depth on a data 2 x model 1 mesh under
+     ``fsdp_param_specs(tp=False)``, nf4 base, bf16 rank-8 LoRA on wq/wv,
+     8-bit Adam, global batch 2 x 512, 3 steps: the step-1 loss within
+     1e-2 of the single card's on the same rows and seed, each step-1
+     ``lora_b`` gradient within phase 9's floor rule of the single
+     card's (the floor also the single card's kernels taking the rows one
+     at a time, a rank's M) and within 2e-3 of that row-at-a-time
+     gradient, the loss falling by step 3, per rank per step 7 x 32 + 1
+     ``matmul_4bit``, 222 ``matmul_4bit_t`` and one ``adam8bit_update``,
+     each rank's weights at most half the single card's plus one leaf and
+     its gathered weights alive at once at most one leaf; (b) config 5's
+     host mesh (dcn 2 x data 1 x model 2, 4 ranks), Llama-2-13B at full
+     width and depth, under ``host_llama_param_specs``:
+     each rank's prefill logits against the single card's rows by phase
+     15's rule, a cached greedy decode with the 'model' ranks agreeing,
+     one QLoRA step whose loss equals a flat data 2 x model 2 mesh's
+     within 1e-5, and an llm_int8 forward at 2 layers through
+     ``matmul_int8_fused`` against the single card by the JAX package's
+     ``_assert_quant_close`` rule. A failing rank fails the phase.
 
 Then the seconds each phase took, the redesigned kernels' earlier times
 as PERF.md records them (``earlier_times``, beside this run's), the
@@ -252,8 +274,8 @@ from quanta_tpu_torch import eval as qeval
 from quanta_tpu_torch import nn as qnn
 from quanta_tpu_torch import profiling, ptq, train
 from quanta_tpu_torch.benchmarks import (accuracy_bench, decode_bench, engine_sweep, kernel_bench,
-                                         logits_gate, model_scale_bench, serve_bench, tp_bench,
-                                         train_bench)
+                                         logits_gate, model_scale_bench, serve_bench, spmd_bench,
+                                         tp_bench, train_bench)
 from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, copies_past_l2, time_ms
 from quanta_tpu_torch.benchmarks.logits_gate import rel_l2, reordered_plain
 from quanta_tpu_torch.core import codecs
@@ -296,6 +318,12 @@ T_SHAPES_7B, M_TRAIN_7B = ((4096, 4096), (4096, 11008), (11008, 4096)), 1024
 # Llama-2-13B's (K, N) with the head, and its QLoRA row's M (b1 x s512,
 # phase 26)
 T_SHAPES_13B, M_TRAIN_13B = ((5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000)), 512
+# phase 29's backward shapes, in nf4: the 13B host mesh's at its M (2 x 128
+# rows a rank; the column-local q/k/v, gate/up and head at model 2, wo and
+# w_down gathered whole), and the 7B FSDP leg's (head too) at a rank's M
+T_SHAPES_SPMD = ([(s, 256) for s in ((5120, 2560), (5120, 6912), (5120, 16000), (5120, 5120),
+                                     (13824, 5120))]
+                 + [(s, 512) for s in T_SHAPES_7B + ((4096, 32000),)])
 # the adapter leaves of one QLoRA step: A of wq and wv (2048 x 8) and B of
 # wq (8 x 2048), 64 blocks of 256 each, and B of wv (8 x 256, 8 blocks),
 # per layer; the one-leaf op's sizes (an adapter's and a full-parameter
@@ -391,6 +419,13 @@ MM4_RAGGED = (2048, 200, 77)
 MODEL_MM4 = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
              (5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000))
 MODEL_MM4_MS = (8, 64, 256, 512, 1024)
+# phase 29's (K, N) and M, in nf4: the 13B host mesh's column-local (K, N)
+# at model 2 (q/k/v, gate/up, the head) and its gathered wo and w_down, at
+# its decode M (2 rows a rank), its prefill and QLoRA M (2 x 128) and 512;
+# the 7B FSDP leg's at a rank's M (1 x 512)
+SPMD_MM4 = ([(kn, (2, 256, 512)) for kn in ((5120, 2560), (5120, 6912), (5120, 16000),
+                                             (5120, 5120), (13824, 5120))]
+            + [(kn, (512,)) for kn in MODEL_MM4[:4]])
 # matmul_int4c: decode (8 slots), the top of its decode design, and
 # decode_bench's and serve's prefill (batch 8 x 128 tokens)
 I4C_MS = (8, 32, 1024)
@@ -424,6 +459,12 @@ TP_TIMEOUT_S = 600
 # the llm_int8 64-request trace (phase 28): one engine_sweep cell
 SWEEP_CELL = dict(fmt="llm_int8", n_requests=64, rate=40.0, max_new=48, multi_step=8,
                   pipeline_depth=2, kv_quant=True)
+# the spec-sharded paths (phase 29): ranks sharing the card over gloo; the
+# FSDP leg at Llama-2-7B's full width and depth, the host-mesh leg at
+# Llama-2-13B's (its llm_int8 forward at 2 layers)
+SPMD_FSDP = dict(batch=2, seq=512, steps=3)
+SPMD_HOST = dict(batch=4, prompt_len=128, new=4, int8_layers=2)
+SPMD_TIMEOUT_S = 600
 
 
 # the H100 SXM's published rates (profiling.H100): device memory, and
@@ -467,7 +508,8 @@ def kernel_checks(dev, work):
     """matmul_4bit against its plain version at the five TinyLlama (K, N)
     for M in ``MM4_MS`` (both sides of its decode/prefill split) and at
     ``MM4_RAGGED``, every 16-entry codebook, and at Llama-2-7B's and
-    -13B's (K, N) for M in ``MODEL_MM4_MS`` in nf4a, within 2 bf16 ulps of
+    -13B's (K, N) for M in ``MODEL_MM4_MS`` in nf4a, and at phase 29's
+    (K, N) and M (``SPMD_MM4``) in nf4, within 2 bf16 ulps of
     max|plain|, bit-identical over two calls, its design per row (split-K
     decode up to M = 32, wgmma prefill above); and
     matmul_int4c bit for bit at M in ``I4C_MS``, its design per row. µs
@@ -486,7 +528,8 @@ def kernel_checks(dev, work):
     per_call = {"matmul_4bit": {}, "matmul_int4c": {}}
     cases = ([(k, n, m, FOUR_BIT) for (k, n) in SHAPES for m in MM4_MS]
              + [(*MM4_RAGGED, FOUR_BIT)]
-             + [(k, n, m, ("nf4a",)) for (k, n) in MODEL_MM4 for m in MODEL_MM4_MS])
+             + [(k, n, m, ("nf4a",)) for (k, n) in MODEL_MM4 for m in MODEL_MM4_MS]
+             + [(k, n, m, ("nf4",)) for (k, n), ms in SPMD_MM4 for m in ms])
     for k, n, m, fmts in cases:
         count = SHAPES.get((k, n), 0)
         n_codes = -(-n // 128) * 128  # the quantizer pads N to 128; a ragged case cuts it back
@@ -912,8 +955,9 @@ def serve_rows(cfg, params_by_fmt):
 
 def transposed_checks(dev, work):
     """matmul_4bit_t at the backward's shapes (TinyLlama's at M = 2048,
-    Llama-2-7B's at M = 1024, Llama-2-13B's at M = 512), bf16 g in nf4 and
-    nf4a within 2 bf16 ulps of max|plain| and bit-identical over two calls,
+    Llama-2-7B's at M = 1024, Llama-2-13B's at M = 512) in nf4 and nf4a,
+    and at phase 29's (``T_SHAPES_SPMD``) in nf4, bf16 g within 2 bf16
+    ulps of max|plain| and bit-identical over two calls,
     its design per row, and one f32 shape; µs per call with the weights
     rotated past the L2.
     Returns one TinyLlama backward's calls (nf4) in ms, [kernel, plain,
@@ -926,6 +970,7 @@ def transposed_checks(dev, work):
                                                                    for s in T_SHAPES_7B]
                                + [(s, M_TRAIN_13B) for s in T_SHAPES_13B])
              for fmt in ("nf4", "nf4a")]
+    cases += [(k, n, m, "nf4", torch.bfloat16) for (k, n), m in T_SHAPES_SPMD]
     cases.append((*F32_SHAPE[:2], M_TRAIN, "nf4", torch.float32))
     for k, n, m, fmt, dtype in cases:
         w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
@@ -1967,6 +2012,30 @@ def tensor_parallel():
     return launches
 
 
+def spec_sharded():
+    """Phase 29: ``spmd_bench``'s two legs, each one spawn of ranks on the
+    card over gloo (``parallel.spawn_local``); the checks run in the ranks
+    and a failing rank fails the phase. Returns the launches of every
+    rank's sharded runs (not those of the single-card references)."""
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(_build.launches, 0)
+    fsdp_cfg = train_bench.model_config("llama2-7b")
+    host_cfg = train_bench.model_config("llama2-13b")
+    legs = (("fsdp", 2, dict(cfg=fsdp_cfg, **SPMD_FSDP)),
+            ("host", 4, dict(cfg=host_cfg, **SPMD_HOST)))
+    for leg, n, kwargs in legs:
+        t0 = time.perf_counter()
+        rows = spawn_local(spmd_bench.rank_leg, n, leg, kwargs, timeout=SPMD_TIMEOUT_S)
+        for r in rows:
+            runs = r["launches_per_step"] if leg == "fsdp" else r["launches"].values()
+            for counts in runs:
+                for k, v in counts.items():
+                    launches[k] += v
+        emit(spec_sharded={"leg": leg, "ranks": n, "seconds": time.perf_counter() - t0,
+                           "rows": rows})
+    return launches
+
+
 def sweep_cell(dev):
     """One engine_sweep cell: the llm_int8 64-request trace at TIMED_DEPTH
     layers (``SWEEP_CELL``), beside the device's own window rate; every
@@ -2128,6 +2197,9 @@ def main():
     with timed("28 llm_int8 64 requests"):
         for k, v in sweep_cell(dev).items():
             launches[k] += v
+    with timed("29 spec-sharded paths"):
+        for k, v in spec_sharded().items():
+            (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
     emit(phase_seconds=phase_s)
 
     def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,

@@ -170,6 +170,32 @@ def _attention(q, k, v, q_positions, kv_len_mask, cfg):
     return out.reshape(b, s, nh, hd)
 
 
+class Layout:
+    """Where ``forward``'s arrays live and how its linears run: on one
+    device, every array whole (this class). ``parallel.spmd``'s layout
+    runs the same forward over a mesh of ranks: weights gathered at use,
+    the heads and the MLP's columns split over ``tp`` ranks, activations
+    made whole before the work that needs them so."""
+
+    tp = 1  # the ranks that split the heads and the MLP's columns
+
+    def array(self, x):
+        """A dense array (the embedding, a norm's weight), whole."""
+        return x
+
+    def linear(self, x, w, use_kernel, local=False):
+        """``x @ w`` for a whole x: the rank's 1/tp of the columns when
+        ``local``, all of them otherwise."""
+        return linear(x, w, use_kernel=use_kernel)
+
+    def whole(self, x):
+        """An activation of the rank's 1/tp of the columns, made whole."""
+        return x
+
+
+ONE_DEVICE = Layout()
+
+
 def forward(
     params: dict,
     tokens: torch.Tensor,
@@ -178,6 +204,7 @@ def forward(
     *,
     use_kernel: Optional[bool] = None,
     use_flash: Optional[bool] = None,
+    layout: Layout = ONE_DEVICE,
 ):
     """Run the decoder.
 
@@ -191,7 +218,9 @@ def forward(
     when S >= ``FLASH_MIN_SEQ`` and the tokens are on CUDA, the einsum
     attention otherwise; single-token decode (S == 1) always takes the
     einsum attention. ``use_kernel`` governs the flash route as it governs
-    the linears: ``False`` runs its plain version.
+    the linears: ``False`` runs its plain version. ``layout``: one
+    device's (:class:`Layout`) or a mesh's (``parallel.spmd``; the cache
+    then holds the rank's KV heads).
 
     Returns (logits (B, S, V) f32, new_cache | None).
     """
@@ -200,8 +229,12 @@ def forward(
     if use_flash is None:
         use_flash = s >= FLASH_MIN_SEQ and tokens.is_cuda
     use_flash = use_flash and s > 1
-    lin = partial(linear, use_kernel=use_kernel)
-    h = params["tok_emb"][tokens].to(cfg.dtype)
+    nh, nkv, hd = cfg.n_heads // layout.tp, cfg.n_kv_heads // layout.tp, cfg.head_dim
+
+    def lin(x, w, local=False):
+        return layout.linear(x, w, use_kernel, local)
+
+    h = layout.array(params["tok_emb"])[tokens].to(cfg.dtype)
     steps = torch.arange(s, device=dev, dtype=torch.int32)
 
     if cache is not None:
@@ -224,10 +257,10 @@ def forward(
         return _attention(q, k_all, v_all, q_positions, kv_len_mask, cfg)
 
     for i, lp in enumerate(params["layers"]):
-        x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q = lin(x, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = lin(x, lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = lin(x, lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        x = rms_norm(h, layout.array(lp["attn_norm"]), cfg.norm_eps)
+        q = lin(x, lp["wq"], local=True).reshape(b, s, nh, hd)
+        k = lin(x, lp["wk"], local=True).reshape(b, s, nkv, hd)
+        v = lin(x, lp["wv"], local=True).reshape(b, s, nkv, hd)
         q = _rope(q, q_positions, cfg.rope_theta)
         k = _rope(k, q_positions, cfg.rope_theta)
 
@@ -240,15 +273,16 @@ def forward(
         else:
             attn = attend(q, k, v)
 
-        h = h + lin(attn.reshape(b, s, -1), lp["wo"])
-        x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-        gate = lin(x, lp["w_gate"])
-        up = lin(x, lp["w_up"])
-        h = h + lin(F.silu(gate.to(torch.float32)).to(up.dtype) * up, lp["w_down"])
+        h = h + lin(layout.whole(attn.reshape(b, s, -1)), lp["wo"])
+        x = rms_norm(h, layout.array(lp["ffn_norm"]), cfg.norm_eps)
+        gate = lin(x, lp["w_gate"], local=True)
+        up = lin(x, lp["w_up"], local=True)
+        act = F.silu(gate.to(torch.float32)).to(up.dtype) * up
+        h = h + lin(layout.whole(act), lp["w_down"])
 
-    h = rms_norm(h, params["norm_f"], cfg.norm_eps)
+    h = rms_norm(h, layout.array(params["norm_f"]), cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = lin(h, params["tok_emb"].T)
+        logits = lin(h, layout.array(params["tok_emb"]).T)
     else:
         logits = lin(h, params["lm_head"])
     logits = logits.to(torch.float32)

@@ -82,10 +82,11 @@ def lora_linear(
 def lora_parameters(tree) -> Iterator[torch.Tensor]:
     """The adapter tensors of a parameter tree, in tree order: the
     trainable leaves of QLoRA, for an optimizer's param groups (the role
-    of the JAX package's ``lora_params_filter`` mask)."""
+    of the JAX package's ``lora_params_filter`` mask). In a sharded tree
+    (``parallel.shard_params``) they are the rank's own slices."""
     if isinstance(tree, LoRAWeight):
-        yield tree.lora_a
-        yield tree.lora_b
+        for t in (tree.lora_a, tree.lora_b):
+            yield getattr(t, "local", t)  # a parallel.sharding.Shard: its local tensor
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from lora_parameters(v)

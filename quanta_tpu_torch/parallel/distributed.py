@@ -1,5 +1,5 @@
-"""Joining ranks into one ``torch.distributed`` job (port of
-``quanta_tpu/parallel/distributed.py:51-99``).
+"""Joining ranks into one ``torch.distributed`` job, and the multi-host
+('dcn', 'data', 'model') mesh (port of ``quanta_tpu/parallel/distributed.py``).
 
 :func:`initialize` wraps ``torch.distributed.init_process_group``: with no
 arguments it reads the environment ``torchrun`` sets (``MASTER_ADDR``,
@@ -17,6 +17,17 @@ collectives' CUDA tensors as they are (``sharding.Mesh``).
 :func:`spawn_local` starts ranks on this host, joins them through
 :func:`initialize` and collects what each returns (the tensor-parallel
 checks and tests run through it).
+
+The host mesh (:func:`make_host_mesh`): a leading 'dcn' axis for the slow
+network between hosts, 'data' and 'model' inside a host. Ranks are laid
+out host-major, so under ``torchrun`` the 'dcn' coordinate is the node;
+an explicit ``dcn`` simulates hosts on one machine, as JAX's reshape
+branch does. Its specs only ever put batch traffic on 'dcn':
+:func:`host_llama_param_specs` replicates weights across hosts and
+tensor-parallelizes them inside one, :func:`host_cache_specs` splits the
+KV cache's batch over ``('dcn', 'data')``, so the only traffic between
+hosts is the data-parallel gradient sum (training) or nothing (serving:
+each host feeds its own rows, :func:`process_batch_slice`).
 """
 
 from __future__ import annotations
@@ -32,6 +43,12 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from quanta_tpu_torch.parallel import sharding as _sh
+
+# the batch ("data-parallel") axes: 'dcn' first, so host boundaries split
+# a batch at its outermost stride
+DP_AXES = _sh.BATCH_AXES
 
 
 def initialize(
@@ -139,3 +156,84 @@ def spawn_local(fn: Callable, nprocs: int, *args, timeout: float = 600.0) -> lis
                 p.join(timeout=10)
         results.close()
     return [out[r] for r in range(nprocs)]
+
+
+def _hosts() -> tuple:
+    """(hosts, this rank's host) of the ``torchrun`` job: ``WORLD_SIZE /
+    LOCAL_WORLD_SIZE`` and ``GROUP_RANK``; (1, 0) outside one."""
+    env = os.environ
+    world = int(env.get("WORLD_SIZE", 1))
+    local = int(env.get("LOCAL_WORLD_SIZE", world))
+    return max(world // max(local, 1), 1), int(env.get("GROUP_RANK", 0))
+
+
+def make_host_mesh(data: int = 1, model: int = 1, dcn: Optional[int] = None) -> _sh.Mesh:
+    """This rank's ('dcn', 'data', 'model') mesh. ``dcn`` defaults to the
+    number of hosts (1 without ``torchrun``); data * model is a host's
+    extent. Ranks are host-major (rank ``r`` on host ``r // (data *
+    model)``), so the 'dcn' axis lands on host boundaries; an explicit
+    ``dcn`` on one machine makes its ranks look like ``dcn`` hosts: the
+    same program, the same collectives."""
+    dcn = dcn or _hosts()[0]
+    return _sh._mesh({"dcn": dcn, "data": data, "model": model})
+
+
+def _retag(spec):
+    """Map a ('data','model') spec onto the host mesh: 'model' stays (TP
+    inside a host); 'data' becomes the combined batch axes."""
+    return _sh.P(*(DP_AXES if part == "data" else part for part in spec))
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, v) for v in specs]
+    return fn(specs)
+
+
+def host_llama_param_specs(cfg, params: Optional[dict] = None) -> dict:
+    """Weights: TP on 'model' inside a host, replicated across 'dcn'."""
+    return _map_specs(_retag, _sh.llama_param_specs(cfg, params))
+
+
+def host_fsdp_param_specs(cfg, params: Optional[dict] = None, tp: bool = True) -> dict:
+    """FSDP weight shards stay inside a host ('data'); 'dcn' only carries
+    the data-parallel gradient sum.
+
+    No retag here on purpose: the inner specs' 'data' axis is the ZeRO-3
+    weight-shard axis, and mapping it to ('dcn', 'data') would make every
+    per-layer weight all-gather cross hosts. The host mesh shares the
+    'data'/'model' axis names, so the inner specs apply directly: weights
+    sharded inside a host, replicated over 'dcn'; only the batch
+    (:func:`host_batch_spec`) and the gradient sum touch 'dcn'."""
+    return _sh.fsdp_param_specs(cfg, params, tp=tp)
+
+
+def host_cache_specs(cfg) -> dict:
+    """KV cache: batch over ('dcn', 'data'), heads over 'model'."""
+    kv = _sh.P(None, DP_AXES, None, "model", None)
+    return {"k": kv, "v": kv, "pos": _sh.P(DP_AXES)}
+
+
+def host_batch_spec():
+    """(B, S) token batches split over ('dcn', 'data')."""
+    return _sh.P(DP_AXES, None)
+
+
+def shard_params_host(params, mesh: _sh.Mesh, cfg=None, specs=None):
+    """This rank's slices of a parameter tree on the host mesh
+    (``host_llama_param_specs`` by default: weights replicated over
+    'dcn')."""
+    if specs is None:
+        specs = host_llama_param_specs(cfg, params)
+    return _sh.shard_params(params, mesh, specs=specs)
+
+
+def process_batch_slice(global_batch: int, mesh: _sh.Mesh) -> slice:
+    """The rows of a global batch that this rank's host owns (a host is
+    JAX's process; each host's serving engine submits its own rows). One
+    host owns them all."""
+    n_hosts, host = _hosts()
+    per = global_batch // n_hosts
+    return slice(host * per, (host + 1) * per)

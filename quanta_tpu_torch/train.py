@@ -25,6 +25,7 @@ import torch
 
 from quanta_tpu_torch.models import llama
 from quanta_tpu_torch.nn.lora import LoRAWeight, init_lora
+from quanta_tpu_torch.parallel import spmd
 
 DEFAULT_TARGETS = ("wq", "wv")
 
@@ -85,11 +86,20 @@ def causal_lm_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def make_train_step(cfg, optimizer: torch.optim.Optimizer, *,
-                    use_kernel: Optional[bool] = None, use_flash: Optional[bool] = None):
+                    use_kernel: Optional[bool] = None, use_flash: Optional[bool] = None,
+                    mesh=None):
     """A training step of the Llama forward over whatever tensors
     ``optimizer`` holds. ``use_kernel`` and ``use_flash`` go to
     ``llama.forward`` (``use_flash=None``: the flash kernels from
     ``llama.FLASH_MIN_SEQ`` tokens on CUDA).
+
+    With ``mesh`` (a ``parallel`` mesh of ranks) the tree is a sharded one
+    (``parallel.shard_params``) and every rank of the mesh runs the step:
+    ``parallel.spmd`` computes the rank's share of the loss on its rows of
+    the global batch, sums the gradients over the batch axes, and the
+    optimizer steps the rank's own slices (the trainable tensors it holds:
+    a sharded tree's local tensors; a weight gathered at use passes its
+    gradient back to them); the loss returned is the global one.
 
     Returns ``step(params, batch) -> loss`` (a 0-dim tensor, left on the
     device); batch is ``{"inputs": (B,S) int, "targets": (B,S) int,
@@ -105,12 +115,23 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, *,
         optimizer.step()
         return loss.detach()
 
-    return step
+    def sharded_step(params, batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = spmd.loss(params, batch, cfg, mesh, use_kernel=use_kernel, use_flash=use_flash)
+        loss.backward()
+        spmd.reduce_gradients(params, mesh)
+        optimizer.step()
+        return spmd.global_loss(loss, mesh)
+
+    return step if mesh is None else sharded_step
 
 
 def make_qlora_train_step(cfg: llama.LlamaConfig, optimizer: torch.optim.Optimizer, *,
-                          use_kernel: Optional[bool] = None, use_flash: Optional[bool] = None):
+                          use_kernel: Optional[bool] = None, use_flash: Optional[bool] = None,
+                          mesh=None):
     """The QLoRA step: the Llama forward over a tree whose only tensors
     that require a gradient are the adapters ``optimizer`` holds
-    (``Adam8bit(nn.lora_parameters(params))``)."""
-    return make_train_step(cfg, optimizer, use_kernel=use_kernel, use_flash=use_flash)
+    (``Adam8bit(nn.lora_parameters(params))``); with ``mesh``, over a
+    sharded tree (:func:`make_train_step`)."""
+    return make_train_step(cfg, optimizer, use_kernel=use_kernel, use_flash=use_flash,
+                           mesh=mesh)

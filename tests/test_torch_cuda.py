@@ -1500,6 +1500,20 @@ def test_gloo_collectives_take_cuda_tensors(cuda):
                                       np.concatenate([base, base + 10], 1))
 
 
+def test_spmd_gather_autograd_on_the_card(cuda):
+    """Two ranks sharing the card over gloo: ``parallel.spmd``'s gather
+    Function on CUDA tensors (forward: the ranks' slices in order;
+    backward: summed over 'data', the rank's own slice over 'model') and
+    an nf4 linear split along K on 'data', gathered at use through
+    ``matmul_4bit`` and, for dx, ``matmul_4bit_t``, against the unsharded
+    linear."""
+    import torch_spmd_worker
+    from quanta_tpu_torch.parallel import spawn_local
+
+    torch_spmd_worker.check_gather_grads(spawn_local(torch_spmd_worker.gather_grads, 2, "cuda",
+                                                     timeout=120))
+
+
 def test_tp_two_ranks_on_one_card_match_single_card(cuda):
     """Two ranks share the card over gloo: a Llama-2-7B-width model of 2
     layers in nf4a, each rank's shards drawn through ``from_global``; rank
