@@ -243,7 +243,27 @@ and the script exits non-zero (nothing is caught):
      one QLoRA step whose loss equals a flat data 2 x model 2 mesh's
      within 1e-5, and an llm_int8 forward at 2 layers through
      ``matmul_int8_fused`` against the single card by the JAX package's
-     ``_assert_quant_close`` rule. A failing rank fails the phase.
+     ``_assert_quant_close`` rule. A failing rank fails the phase;
+ 30. GPT-2 small trained in full (12 x 768, vocab 50257, f32, random
+     weights from seed 0) through ``train.make_train_step(forward=
+     gpt2.forward)``, every one of its 148 leaves (124,439,808 elements)
+     stepped by ``Adam8bit`` at the accuracy bench's lr on a fixed batch of
+     8 x 1024 tokens: one backward's gradients, cloned, leave parameters
+     and 8-bit state bit for bit equal through ``adam8bit_update`` (two
+     launches, 128 leaves a launch) and its plain version, and the state
+     equal and the parameters within 2 f32 ulps through the optimizer's
+     plain route; then 5 steps through the kernels and 5 through
+     ``use_kernel=False`` from the same init, losses within rel 1e-4, the
+     first within 0.5 of ln 50257, the loss falling, 2 ``adam8bit_update``
+     launches a step and nothing else; the step's ms, device-busy share
+     and peak memory, and ``adam8bit_update``'s ms a step at this work
+     against its bound;
+ 31. ``benchmarks.engine_gap_bench`` (nf4a, 8 slots, k 8) at
+     ``GAP_DEPTH`` layers: the contiguous and paged windows' device
+     time, the host loop's window at readback depths 0, 1 and 2 and the
+     link's round trip, every term finite and above 0, the synchronous
+     host window at least the device's and the round trip below it,
+     beside ``serve_bench.window_profile``'s Engine window at that depth.
 
 Then the seconds each phase took, the redesigned kernels' earlier times
 as PERF.md records them (``earlier_times``, beside this run's), the
@@ -261,6 +281,7 @@ import importlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -273,9 +294,10 @@ import torch
 from quanta_tpu_torch import eval as qeval
 from quanta_tpu_torch import nn as qnn
 from quanta_tpu_torch import profiling, ptq, train
-from quanta_tpu_torch.benchmarks import (accuracy_bench, decode_bench, engine_sweep, kernel_bench,
-                                         logits_gate, model_scale_bench, serve_bench, spmd_bench,
-                                         tp_bench, train_bench)
+from quanta_tpu_torch.benchmarks import (accuracy_bench, decode_bench, engine_gap_bench,
+                                         engine_sweep, kernel_bench, logits_gate,
+                                         model_scale_bench, serve_bench, spmd_bench, tp_bench,
+                                         train_bench)
 from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, copies_past_l2, time_ms
 from quanta_tpu_torch.benchmarks.logits_gate import rel_l2, reordered_plain
 from quanta_tpu_torch.core import codecs
@@ -465,6 +487,18 @@ SWEEP_CELL = dict(fmt="llm_int8", n_requests=64, rate=40.0, max_new=48, multi_st
 SPMD_FSDP = dict(batch=2, seq=512, steps=3)
 SPMD_HOST = dict(batch=4, prompt_len=128, new=4, int8_layers=2)
 SPMD_TIMEOUT_S = 600
+# phase 30: GPT-2 small trained in full, b 8 x s 1024, at the accuracy
+# bench's lr (quanta_tpu_torch/benchmarks/accuracy_bench.py)
+GPT2_TRAIN = dict(batch=8, seq=1024, steps=5, lr=accuracy_bench.LR, seed=0)
+GPT2_LEAVES = 4 + 12 * 12  # wte, wpe, ln_f.{w,b}; 12 layers of six {w, b} pairs
+GPT2_ELEMENTS = 124_439_808
+# the optimizer's plain route divides by bc1 in another order than the
+# kernel: parameters within 2 f32 ulps of |p| + lr
+GPT2_REORDER_REL = 2.0 ** -22
+# phase 31's depth: at TIMED_DEPTH (11) layers the phase took 72.7 s on an
+# H100 80GB HBM3 at 700 W, most of it the host issuing profiled and timed
+# windows
+GAP_DEPTH = 8
 
 
 # the H100 SXM's published rates (profiling.H100): device memory, and
@@ -2062,6 +2096,187 @@ def sweep_cell(dev):
     return counts
 
 
+def gpt2_full_train(dev):
+    """Phase 30: full-parameter training of GPT-2 small (``GPT2_TRAIN``)
+    through ``train.make_train_step(forward=gpt2.forward)``, every one of
+    its 148 f32 leaves stepped by ``Adam8bit``. (a) One backward's
+    gradients, cloned, fed to the optimizer's kernel route (two launches of
+    ``adam8bit_update``: 128 leaves a launch), to its plain version
+    (``adam8bit_step_reference``) and to the optimizer's plain route
+    (``Adam8bit(use_kernel=False)``, the JAX package's XLA route): the
+    kernel and its plain version leave parameters and state bit for bit
+    equal; the plain route leaves the state equal and the parameters
+    within ``GPT2_REORDER_REL`` (it divides by bc1 in another order). (b)
+    The main path: 5 steps through the kernels, the launch counts reset
+    just before them and read just after, 2 ``adam8bit_update`` a step and
+    nothing else; then 5 steps through the plain route from the same
+    init: losses within rel 1e-4 (the embedding's backward sums with
+    atomics, so no two backward passes are bitwise alike), the first near
+    ln(vocab), the loss falling. (c) The step's ms (median of steps 2-5),
+    a profiled step's device-busy share, the step's peak memory, and the
+    optimizer's kernel ms a step against its bound. Returns the launches
+    of (b) and #12's row at this work."""
+    torch.cuda.empty_cache()
+    cfg = gpt2.GPT2Config.small()
+    t = GPT2_TRAIN
+    lr = t["lr"]
+    toks = np.random.default_rng(t["seed"]).integers(0, cfg.vocab_size,
+                                                    size=(t["batch"], t["seq"] + 1))
+    toks = torch.from_numpy(toks).to(dev)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def model():
+        params = gpt2.init_params(torch.Generator(device=dev).manual_seed(t["seed"]), cfg,
+                                  device=dev)
+        return params, train.dense_parameters(params)
+
+    def loss_of(params):
+        logits, _ = gpt2.forward(params, batch["inputs"], cfg)
+        return train.causal_lm_loss(logits, batch["targets"])
+
+    # (a) the optimizer's routes on one backward's gradients
+    params, leaves = model()
+    n_elems = sum(p.numel() for p in leaves)
+    check(len(leaves) == GPT2_LEAVES and n_elems == GPT2_ELEMENTS,
+          f"gpt2 small: {len(leaves)} leaves, {n_elems} elements")
+    loss_of(params).backward()
+    grads = [p.grad.clone() for p in leaves]
+    init = [p.detach().clone() for p in leaves]
+    opt = Adam8bit(leaves, lr=lr)
+    _build.reset_launches()
+    opt.step()
+    torch.cuda.synchronize()
+    check(_nonzero(_build.launches) == {"adam8bit_update": 2},
+          f"gpt2 optimizer step: launches {_nonzero(_build.launches)}")
+    ref = [p.clone() for p in init]
+    ref_states = [Adam8bit._init_state(p) for p in ref]
+    adam8bit.adam8bit_step_reference(ref, grads, ref_states,
+                                     Adam8bit._scalars(lr, 0.9, 0.999, 1, dev), lr=lr)
+    pairs = list(zip((p.detach() for p in leaves), ref)) + [
+        (opt.state[p][k], st[k]) for p, st in zip(leaves, ref_states)
+        for k in adam8bit.STATE_KEYS]
+    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    check(all(torch.equal(a, b) for a, b in pairs),
+          f"gpt2 optimizer step: kernel and plain version differ by {err}")
+    xla = [p.clone().requires_grad_() for p in init]
+    for p, g in zip(xla, grads):
+        p.grad = g
+    opt_xla = Adam8bit(xla, lr=lr, use_kernel=False)
+    opt_xla.step()
+    state_equal = all(torch.equal(opt.state[p][k], opt_xla.state[q][k])
+                      for p, q in zip(leaves, xla) for k in adam8bit.STATE_KEYS)
+    diffs = [((a.detach() - b.detach()).abs(), b.detach().abs()) for a, b in zip(xla, leaves)]
+    xla_abs = max(d.max().item() for d, _ in diffs)
+    xla_err = max((d / (GPT2_REORDER_REL * (b + lr))).max().item() for d, b in diffs)
+    del diffs
+    check(state_equal and xla_err <= 1.0,
+          f"gpt2 optimizer step: the plain route's state equal {state_equal}, parameters "
+          f"{xla_abs} apart ({xla_err} of the limit)")
+    emit(kernel_check=dict(kernel="adam8bit_update", step="gpt2_small_full", leaves=len(leaves),
+                           elements=n_elems, max_abs_err=err, tol=0.0,
+                           plain_route_state_equal=state_equal, plain_route_max_abs=xla_abs,
+                           plain_route_rel=GPT2_REORDER_REL))
+
+    # #12 at this work: the step's 148 leaves, the gradients of (a)
+    table = adam8bit.LeafTable(leaves, [opt.state[p] for p in leaves])
+    scalars = Adam8bit._scalars(lr, 0.9, 0.999, 2, dev)
+    adam_ms = time_ms(lambda i: table.step(grads, scalars, lr=lr), 20)
+    adam_plain_ms = time_ms(lambda i: adam8bit.adam8bit_step_reference(
+        ref, grads, ref_states, scalars, lr=lr), 3)
+    state_bytes = nbytes(*(opt.state[p][k] for p in leaves for k in adam8bit.STATE_KEYS))
+    adam_work = [nbytes(*grads) + 2 * nbytes(*leaves) + 2 * state_bytes, 20 * n_elems]
+    adam_bound = bound(adam_work, "f32")
+    del opt, opt_xla, xla, ref, ref_states, grads, init, table, params, leaves
+    torch.cuda.empty_cache()
+
+    # (b) the main path through the kernels, then the plain route
+    runs = {}
+    for route in (None, False):
+        params, leaves = model()
+        opt = Adam8bit(leaves, lr=lr, use_kernel=route)
+        step = train.make_train_step(cfg, opt, forward=gpt2.forward)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        _build.reset_launches()
+        losses, ms = [], []
+        for _ in range(t["steps"]):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            loss = step(params, batch)
+            end.record()
+            end.synchronize()
+            losses.append(loss.item())
+            ms.append(start.elapsed_time(end))
+        counts = _nonzero(_build.launches)
+        runs[route] = dict(losses=losses, step_ms_all=ms, launches=counts,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           resident_gib=base_gib)
+        if route is None:
+            runs[route]["profile"] = train_bench.profile_step(step, params, batch)
+        del params, leaves, opt, step
+        torch.cuda.empty_cache()
+    kern, plain = runs[None], runs[False]
+    check(kern["launches"] == {"adam8bit_update": 2 * t["steps"]},
+          f"gpt2 full training: launches {kern['launches']}")
+    check(plain["launches"] == {}, f"gpt2 plain route launched {plain['launches']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(kern["losses"], plain["losses"])]
+    check(max(rel) <= 1e-4, f"gpt2 full training: loss curves {rel} apart")
+    check(abs(kern["losses"][0] - math.log(cfg.vocab_size)) < 0.5
+          and kern["losses"][-1] < kern["losses"][0] and plain["losses"][-1] < plain["losses"][0],
+          f"gpt2 full training: losses {kern['losses']} / {plain['losses']}")
+    prof = kern.pop("profile")
+    step_ms = statistics.median(kern["step_ms_all"][1:])
+    row = {"model": "gpt2-small", "n_layers": cfg.n_layers, "dim": cfg.dim,
+           "vocab": cfg.vocab_size, "dtype": "float32",
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "batch": t["batch"], "seq": t["seq"], "lr": lr, "leaves": GPT2_LEAVES,
+           "elements": n_elems, "step_ms": step_ms,
+           "tok_s": t["batch"] * t["seq"] / (step_ms / 1e3),
+           "device_busy_share": prof["device_busy_share"], "device_busy_ms": prof["device_busy_ms"],
+           "step_ms_profiled": prof["step_ms_profiled"], "top_device_ms": prof["top_device_ms"],
+           "loss_rel_diff": rel, "kernel": kern, "plain": plain,
+           "adam8bit_update": {"ms": adam_ms, "plain_ms": adam_plain_ms,
+                               "bound_ms": adam_bound[0], "bound_by": adam_bound[1],
+                               "launches_per_step": 2}}
+    emit(gpt2_full_train=row)
+    return kern["launches"], row["adam8bit_update"]
+
+
+def engine_gap(dev):
+    """Phase 31: ``benchmarks.engine_gap_bench`` (nf4a, 8 slots, k 8) at
+    TinyLlama-1.1B's width and ``GAP_DEPTH`` layers, beside
+    ``serve_bench.window_profile``'s window at the same depth (the
+    Engine's own window; the Engine's bookkeeping is what it takes beyond
+    the host loop at depth 2). Every term finite and above 0, the
+    synchronous host window at least the device's, the link's round trip
+    below it; only ``matmul_4bit`` launched. Returns its launches."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tinyllama_1b(), n_layers=GAP_DEPTH)
+    dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    params = qnn.quantize_params(dense, mode="nf4a", block_size=64)
+    del dense
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    r = engine_gap_bench.run(params, cfg, fmt="nf4a")
+    torch.cuda.synchronize()
+    counts = _nonzero(_build.launches)
+    check(set(counts) == {"matmul_4bit"}, f"engine gap: launches {counts}")
+    terms = {k: v for k, v in r.items() if k.endswith("_ms") and not k.endswith("cost_ms")}
+    check(all(math.isfinite(v) and v > 0 for v in terms.values()),
+          f"engine gap: a term is not finite and positive: {terms}")
+    check(r["paged_window_host_d0_ms"] >= r["paged_window_dev_w16_ms"],
+          f"engine gap: the host window is shorter than the device's: {r}")
+    check(r["link_rtt_ms"] < r["paged_window_host_d0_ms"],
+          f"engine gap: the link's round trip exceeds a window: {r}")
+    prof = serve_bench.window_profile(params, cfg, multi_step=r["k"], n_slots=r["n_slots"])
+    emit(engine_gap={"n_layers": cfg.n_layers, **r, "engine_window_ms": prof["window_ms"],
+                     "engine_device_busy_ms": prof["device_busy_ms"],
+                     "engine_bookkeeping_ms": prof["window_ms"] - r["paged_window_host_d2_ms"],
+                     "launches": counts})
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2200,6 +2415,12 @@ def main():
     with timed("29 spec-sharded paths"):
         for k, v in spec_sharded().items():
             (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
+    with timed("30 gpt2 full training"):
+        gpt2_counts, gpt2_adam = gpt2_full_train(dev)
+        train_launches["adam8bit_update"] += gpt2_counts["adam8bit_update"]
+    with timed("31 engine gap"):
+        for k, v in engine_gap(dev).items():
+            launches[k] += v
     emit(phase_seconds=phase_s)
 
     def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,
@@ -2279,7 +2500,9 @@ def main():
               train_launches["adam8bit_update"], *adam_step, "f32",
               "one QLoRA step's optimizer over its 88 bf16 adapter leaves (66 of 64 blocks, "
               "22 of 8) in one launch, parameters updated in place, ms; library: none, "
-              "torch's Adam keeps f32 state"),
+              "torch's Adam keeps f32 state (gpt2_full_step: GPT-2 small's full-parameter step "
+              "over its 148 f32 leaves, 124,439,808 elements, two launches)",
+              gpt2_full_step=gpt2_adam),
         entry("flash_fwd", "flash_fwd.cu", "quanta_tpu/ops/attention.py:189",
               launches["flash_fwd"], flash_ms["flash_fwd_ms"], flash_ms["flash_fwd_plain_ms"],
               "bf16", flash_at + sdpa + "forward", flash_ms["sdpa_fwd_ms"]),

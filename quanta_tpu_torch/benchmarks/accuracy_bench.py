@@ -88,10 +88,7 @@ def pretrain(cfg, train_ids, *, steps: int, batch: int, device, log_every: int =
     """Every parameter trained with 8-bit Adam; returns (params, final loss)."""
     params = llama.init_params(torch.Generator(device=device).manual_seed(0), cfg,
                                device=device)
-    leaves = [params["tok_emb"], params["norm_f"], params["lm_head"]] + [
-        t for lp in params["layers"] for t in lp.values()]
-    for t in leaves:
-        t.requires_grad_()
+    leaves = train.dense_parameters(params)
     step = train.make_train_step(cfg, Adam8bit(leaves, lr=LR))
     t0, loss = time.perf_counter(), None
     for i, b in enumerate(make_batches(train_ids, batch, cfg.max_seq_len, steps, device)):

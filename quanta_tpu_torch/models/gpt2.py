@@ -12,6 +12,11 @@ with as many KV heads as query heads.
 In PyTorch idiom, as the port's Llama: the KV cache is updated in place,
 ``greedy_decode`` is a Python loop, and random init takes an explicit
 ``torch.Generator`` and device.
+
+Without a cache the forward runs under autograd, and
+``train.make_train_step(cfg, optimizer, forward=gpt2.forward)`` trains
+every leaf: ``wte`` takes the gradient of the embedding gather and of the
+tied head.
 """
 
 from __future__ import annotations

@@ -92,6 +92,20 @@ def _params_device(params) -> torch.device:
     return params.device
 
 
+
+def start_readback(toks: torch.Tensor) -> dict:
+    """Start copying a window's tokens to the host without waiting: on CUDA
+    into pinned memory, ``non_blocking``, with an event recorded behind the
+    copy (``{"host", "event"}``; wait on the event, then read the host
+    tensor); elsewhere the tensor itself and no event."""
+    if toks.device.type != "cuda":
+        return {"host": toks, "event": None}
+    host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+    host.copy_(toks, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return {"host": host, "event": event}
+
 class Engine:
     """Single-device continuous-batching engine over a (possibly
     quantized) Llama or GPT-2 parameter tree (``arch``)."""
@@ -205,15 +219,6 @@ class Engine:
         if not self._cuda:
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
-
-    def _start_readback(self, toks: torch.Tensor) -> dict:
-        if not self._cuda:
-            return {"host": toks, "event": None}
-        host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-        host.copy_(toks, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return {"host": host, "event": event}
 
     # ---------------------------------------------------------------- intake
 
@@ -452,7 +457,7 @@ class Engine:
             toks_store, off = torch.cat([tokens_in[None], toks_seq], dim=0), 1
         else:
             toks_store, off = toks_seq, 0
-        readback = self._start_readback(toks_store)
+        readback = start_readback(toks_store)
         self._tok_row = torch.where(next_positions >= 0, toks_seq[-1], self._tok_row)
         for i in cand:
             self.slots[i].seq_len += k

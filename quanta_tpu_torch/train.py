@@ -1,4 +1,5 @@
-"""QLoRA fine-tuning: frozen quantized base + LoRA adapters + 8-bit Adam.
+"""QLoRA fine-tuning: frozen quantized base + LoRA adapters + 8-bit Adam,
+and full-parameter training of any forward (``make_train_step(forward=)``).
 
 Port of ``quanta_tpu/train.py``. The base model's linears are
 ``QuantizedTensor`` leaves (nf4 for the reference's north-star row) that
@@ -85,13 +86,18 @@ def causal_lm_loss(logits: torch.Tensor, targets: torch.Tensor,
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def make_train_step(cfg, optimizer: torch.optim.Optimizer, *,
+def make_train_step(cfg, optimizer: torch.optim.Optimizer, *, forward=None,
                     use_kernel: Optional[bool] = None, use_flash: Optional[bool] = None,
                     mesh=None):
-    """A training step of the Llama forward over whatever tensors
-    ``optimizer`` holds. ``use_kernel`` and ``use_flash`` go to
+    """A training step of ``forward`` over whatever tensors ``optimizer``
+    holds: full-parameter training when it holds every dense leaf of the
+    tree, QLoRA when it holds the adapters.
+
+    ``forward(params, tokens, cfg, *, use_kernel) -> (logits, _)`` is any
+    model's forward (``gpt2.forward`` trains GPT-2), ``llama.forward`` by
+    default. ``use_kernel`` goes to the forward; ``use_flash`` only to
     ``llama.forward`` (``use_flash=None``: the flash kernels from
-    ``llama.FLASH_MIN_SEQ`` tokens on CUDA).
+    ``llama.FLASH_MIN_SEQ`` tokens on CUDA), since no other forward takes it.
 
     With ``mesh`` (a ``parallel`` mesh of ranks) the tree is a sharded one
     (``parallel.shard_params``) and every rank of the mesh runs the step:
@@ -99,13 +105,22 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, *,
     the global batch, sums the gradients over the batch axes, and the
     optimizer steps the rank's own slices (the trainable tensors it holds:
     a sharded tree's local tensors; a weight gathered at use passes its
-    gradient back to them); the loss returned is the global one.
+    gradient back to them); the loss returned is the global one. ``spmd``
+    runs the Llama forward through its layout, so a mesh takes no other
+    ``forward`` (``ValueError``).
 
     Returns ``step(params, batch) -> loss`` (a 0-dim tensor, left on the
     device); batch is ``{"inputs": (B,S) int, "targets": (B,S) int,
     "mask": optional}``.
     """
-    fwd = partial(llama.forward, cfg=cfg, use_kernel=use_kernel, use_flash=use_flash)
+    forward = forward or llama.forward
+    if mesh is not None and forward is not llama.forward:
+        name = f"{getattr(forward, '__module__', '')}.{getattr(forward, '__name__', '')}"
+        raise ValueError(f"make_train_step: a mesh runs llama.forward only, not {name}")
+    if forward is llama.forward:
+        fwd = partial(forward, cfg=cfg, use_kernel=use_kernel, use_flash=use_flash)
+    else:
+        fwd = partial(forward, cfg=cfg, use_kernel=use_kernel)
 
     def step(params, batch):
         optimizer.zero_grad(set_to_none=True)
@@ -124,6 +139,22 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, *,
         return spmd.global_loss(loss, mesh)
 
     return step if mesh is None else sharded_step
+
+
+def dense_parameters(params) -> list:
+    """Every floating tensor of a dense parameter tree, in the tree's order,
+    each made to require a gradient: what full-parameter training hands
+    its optimizer (``interop.from_jax_params`` marks only LoRA adapters)."""
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in dense_parameters(v)]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in dense_parameters(v)]
+    if isinstance(params, torch.Tensor):
+        if not params.is_floating_point():
+            raise TypeError(f"dense_parameters: a {params.dtype} tensor cannot be trained")
+        return [params.requires_grad_()]
+    raise TypeError(f"dense_parameters: a {type(params).__name__} leaf is not dense; "
+                    "train a quantized base through its adapters (nn.lora_parameters)")
 
 
 def make_qlora_train_step(cfg: llama.LlamaConfig, optimizer: torch.optim.Optimizer, *,

@@ -13,7 +13,10 @@ configurations and arithmetic (the timings need the card).
   - the CLI's ``bench``: the JAX CLI's choices and default, and
     ``bench kernels`` on the CPU exits as the other CUDA benches do;
   - ``logits_gate``: the reordered sums, the limit, and the per-linear
-    spread of a tiny model (every route the plain one on the CPU).
+    spread of a tiny model (every route the plain one on the CPU);
+  - ``engine_gap_bench``: its serving state against the JAX bench's
+    ``_setup``, the host loop's token stream at every readback depth, and
+    the derived keys by the JAX line's formulas.
 """
 
 import pathlib
@@ -21,18 +24,20 @@ import re
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 from quanta_tpu import cli as jcli
 from quanta_tpu import nn as jnn
 from quanta_tpu import profiling as jprof
+from quanta_tpu.benchmarks import engine_gap_bench as jgap
 from quanta_tpu.models import llama as jllama
 from quanta_tpu_torch import cli as tcli
 from quanta_tpu_torch import nn as tnn
 from quanta_tpu_torch import profiling as tprof
-from quanta_tpu_torch.benchmarks import (engine_sweep, kernel_bench, logits_gate,
-                                         model_scale_bench, train_bench)
+from quanta_tpu_torch.benchmarks import (engine_gap_bench, engine_sweep, kernel_bench,
+                                         logits_gate, model_scale_bench, train_bench)
 from quanta_tpu_torch.models import llama as tllama
 
 # the H100's published rates in the JAX package's DeviceSpec (vpu_gops
@@ -176,7 +181,7 @@ def test_port_benches_write_no_docs():
 
 
 def test_bench_modules_need_a_card():
-    for mod in (model_scale_bench, engine_sweep, logits_gate):
+    for mod in (model_scale_bench, engine_sweep, logits_gate, engine_gap_bench):
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present")
         with pytest.raises(SystemExit, match="measures a CUDA device"):
@@ -211,3 +216,65 @@ def test_logits_gate_rule_and_spread():
     assert len(rows) == 7 * cfg.n_layers + 1
     # on the CPU the kernel route is the plain one
     assert all(r["kernel_rel_l2"] == 0.0 for r in rows)
+
+
+@pytest.mark.parametrize("width,pos0", engine_gap_bench.WIDTHS)
+def test_engine_gap_setup_matches_jax(width, pos0):
+    """The serving state of each measured width: the same page table (every
+    page of the slot: ``table_full``, the one the JAX bench's windows
+    read), positions, input tokens, sampling settings and pool shape as the
+    JAX bench's."""
+    jcfg = jllama.LlamaConfig.tiny(max_seq_len=512)
+    tcfg = tllama.LlamaConfig.tiny(max_seq_len=512)
+    want = jgap._setup(jcfg, "bf16", 8, engine_gap_bench.PAGE_SIZE, width, pos0)
+    got = engine_gap_bench._setup(None, tcfg, 8, engine_gap_bench.PAGE_SIZE, width, pos0)
+    for key in ("table_full", "positions", "tokens", "temps", "topks"):
+        assert got[key].numpy().tolist() == np.asarray(want[key]).tolist(), key
+        assert str(got[key].dtype).replace("torch.", "") == str(want[key].dtype), key
+    for key in ("k", "v"):
+        assert tuple(got["pool"][key].shape) == want["pool"][key].shape
+
+
+def test_engine_gap_host_loop_same_tokens_at_every_depth():
+    """The host loop dispatches the same windows whatever its readback
+    depth: the same token stream at depths 0, 1 and 2, each window fed the
+    last row of the one before, as ``decode_multi_step`` gives it."""
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32, max_seq_len=512)
+    params = tllama.init_params(torch.Generator().manual_seed(0), cfg)
+    k, n = 4, 3
+    width, pos0 = engine_gap_bench.WIDTHS[0]
+    streams = []
+    for depth in engine_gap_bench.DEPTHS:
+        st = engine_gap_bench._setup(params, cfg, 8, engine_gap_bench.PAGE_SIZE, width, pos0)
+        secs, toks = engine_gap_bench.host_loop(st, cfg, engine_gap_bench.PAGE_SIZE, k, depth, n)
+        assert secs > 0 and toks.shape == (n, k, 8)
+        streams.append(toks)
+    for toks in streams[1:]:
+        np.testing.assert_array_equal(toks, streams[0])
+    st = engine_gap_bench._setup(params, cfg, 8, engine_gap_bench.PAGE_SIZE, width, pos0)
+    first = engine_gap_bench._window(st, cfg, engine_gap_bench.PAGE_SIZE, k, st["tokens"])
+    second = engine_gap_bench._window(st, cfg, engine_gap_bench.PAGE_SIZE, k, first[-1])
+    np.testing.assert_array_equal(streams[0][:2], torch.stack([first, second]).numpy())
+
+
+def test_engine_gap_derived_keys_follow_jax():
+    """The derived keys on a fixed reading, by the JAX line's formulas
+    (``quanta_tpu/benchmarks/engine_gap_bench.py``, ``main``), unrounded."""
+    r = {"fmt": "nf4a", "k": 8, "n_slots": 8, "link_rtt_ms": 0.05, "contig_window_ms": 9.0,
+         "paged_window_dev_w4_ms": 10.0, "paged_window_dev_w16_ms": 12.5,
+         "paged_window_host_d0_ms": 60.0, "paged_window_host_d1_ms": 45.0,
+         "paged_window_host_d2_ms": 40.0}
+    b, k, dev = 8, 8, 12.5
+    want = {"paged_kv_device_cost_ms": dev - 9.0, "host_link_cost_sync_ms": 60.0 - dev,
+            "host_link_cost_pipelined_ms": 40.0 - dev,
+            "tok_s_chip_dev_bound": b * k / (dev * 1e-3),
+            "tok_s_chip_sync": b * k / (60.0 * 1e-3),
+            "tok_s_chip_pipelined_d2": b * k / (40.0 * 1e-3)}
+    got = engine_gap_bench.derive(r)
+    assert got == pytest.approx(want, rel=1e-12)
+    assert list(r) + list(got) == [
+        "fmt", "k", "n_slots", "link_rtt_ms", "contig_window_ms", "paged_window_dev_w4_ms",
+        "paged_window_dev_w16_ms", "paged_window_host_d0_ms", "paged_window_host_d1_ms",
+        "paged_window_host_d2_ms", "paged_kv_device_cost_ms", "host_link_cost_sync_ms",
+        "host_link_cost_pipelined_ms", "tok_s_chip_dev_bound", "tok_s_chip_sync",
+        "tok_s_chip_pipelined_d2"]
