@@ -156,18 +156,28 @@ and the script exits non-zero (nothing is caught):
      --steps 3``, each exiting 0;
  18. ``benchmarks.accuracy_bench`` at its model size with pretraining cut
      to ``ACC_STEPS`` and no cache: the unquantized model learned (final
-     loss below 2.5), the int8 and nf8 perplexities through the kernels
+     loss below 2.5), the int8, nf8, nf4a and int4 perplexities through
+     the kernels (the f32 routes of ``matmul_8bit`` and ``matmul_4bit``)
      within 1e-4 relative of ``use_kernel=False`` on the same trees, and
      the gates of the 8-bit rows (int8, nf8, llm_int8, w8a8-*) hold at
-     <= 0.1; the other rows are printed;
- 19. GPT-2 small's kernels: ``matmul_4bit`` (nf4a, bf16 x at M in {8,
-     1024}, f32 x at M = 8) and ``matmul_int8_fused`` (f32 x at M in {8,
-     256}) against their plain versions at GPT-2's four (K, N) (768 x
-     2304, 768 x 768, 768 x 3072, 3072 x 768) under phase 3's and phase
-     4's rules (2 bf16 ulps of max|plain|, f32 1e-5 of it; LLM.int8 bit for
-     bit), the bf16 and int8 outputs bit-identical over two calls, the
-     design per row, timed as in phase 3, and one GPT-2 decode step's 48
-     calls (M = 8) with their bound;
+     <= 0.1; the other rows are printed; then the f32 routes of
+     ``matmul_4bit`` (nf4a) and ``matmul_8bit`` (int8) at the proxy's four
+     (K, N) (512 x 512, 512 x 128, 512 x 1536, 1536 x 512) and M = 32 x
+     256 on the trees' own weights, 1e-5 of max|plain|, bit-identical over
+     two calls, and the f32 ``matmul_4bit_t`` and ``matmul_8bit_t`` there,
+     each timed with its plain version and its bound;
+ 19. GPT-2 small's kernels: ``matmul_4bit`` (nf4a, bf16 and f32 x at M in
+     {8, 1024}), ``matmul_8bit`` (int8 and nf8, f32 x at M in {8, 1024})
+     and ``matmul_int8_fused`` (f32 x at M in {8, 256}) against their plain
+     versions at GPT-2's four (K, N) (768 x 2304, 768 x 768, 768 x 3072,
+     3072 x 768) under phase 3's and phase 4's rules (2 bf16 ulps of
+     max|plain|, f32 1e-5 of it; LLM.int8 bit for bit), every output
+     bit-identical over two calls, the design per row (f32: split-K FMA
+     decode up to M = 32, the FMA GEMM above), timed as in phase 3 with
+     the plain version and the bound, one GPT-2 decode step's 48 calls (M
+     = 8) of each route with their bound, the f32 rows slower than their
+     plain version on a line of their own; and the f32 ``matmul_4bit_t``
+     and ``matmul_8bit_t`` at M = 1024, timed;
  20. HF checkpoints through the port's own safetensors codec: GPT-2 small
      (12 layers, 768 wide, vocab 50257, 1024 positions, random f32 weights
      from seed 0) and a TinyLlama-1.1B-width Llama of 2 layers (bf16
@@ -189,7 +199,11 @@ and the script exits non-zero (nothing is caught):
      greedy decode of 8 prompts of 128 tokens for 32 new ones through
      ``matmul_4bit``'s bf16 designs (32 x 48 launches), prefill logits
      against ``use_kernel=False`` within phase 5's rel-L2, or phase 15's
-     floor rule where bf16 reordering sets a higher floor;
+     floor rule where bf16 reordering sets a higher floor; then GPT-2 at
+     its own f32 (phase 20's loaded tree) quantized to nf4a and to int8:
+     the same decode through the f32 routes of ``matmul_4bit`` and
+     ``matmul_8bit`` (32 x 48 launches each), prefill logits within 1e-4
+     rel-L2 of ``use_kernel=False``;
  24. ``benchmarks.kernel_bench`` at M = 8 and 128: one line a cell (dense
      bf16, nf4a/nf4/int4 through ``matmul_4bit``, int8 through
      ``matmul_8bit``, llm_int8 through ``matmul_int8_fused``,
@@ -301,6 +315,7 @@ from quanta_tpu_torch.benchmarks import (accuracy_bench, decode_bench, engine_ga
 from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, copies_past_l2, time_ms
 from quanta_tpu_torch.benchmarks.logits_gate import rel_l2, reordered_plain
 from quanta_tpu_torch.core import codecs
+from quanta_tpu_torch.core.qtensor import QuantizedTensor
 from quanta_tpu_torch.metrics import MetricsRecorder
 from quanta_tpu_torch.models import gpt2, hf, llama
 from quanta_tpu_torch.ops import _build, adam8bit, attention, int4c, int8mm, matmul, quantize
@@ -462,12 +477,23 @@ PTQ_PPL_REL = 1e-2
 ACC_STEPS = 900
 ACC_PPL_REL = 1e-4
 ACC_GATED = ("int8", "nf8", "llm_int8", "w8a8-minmax", "w8a8-percentile", "w8a8-entropy")
+# the f32 proxy's rows held to ACC_PPL_REL through the kernels (#3's and #1's
+# f32 routes), and its linears' (K, N): q and o, k and v, gate and up, down
+ACC_KERNEL_VS_PLAIN = ("int8", "nf8", "nf4a", "int4")
+ACC_SHAPES = ((512, 512), (512, 128), (512, 1536), (1536, 512))
 # GPT-2 small: the (K, N) of its four linears and their count in one
-# forward (the tied head is dense); the kernel checks' M (nf4a in bf16
-# and f32, LLM.int8 on f32 x); the decode prompts and new tokens
+# forward (the tied head is dense); the kernel checks' M (matmul_4bit nf4a
+# in bf16 and f32, matmul_8bit in f32 in its formats, LLM.int8 on f32 x,
+# the f32 backward kernels); the decode prompts and new tokens
 GPT2_SHAPES = {(768, 2304): 12, (768, 768): 12, (768, 3072): 12, (3072, 768): 12}
-GPT2_MM4 = ((torch.bfloat16, (8, 1024)), (torch.float32, (8,)))
+GPT2_MM4 = ((torch.bfloat16, (8, 1024)), (torch.float32, (8, 1024)))
+GPT2_MM8, GPT2_MM8_MS = ("int8", "nf8"), (8, 1024)
 GPT2_I8_MS = (8, 256)
+GPT2_T_F32_M = 1024
+# phase 23's f32 trees and the kernel each launches; their prefill logits
+# against the plain route (f32 products, f32 sums in another order)
+GPT2_F32_FMTS = (("nf4a", "matmul_4bit"), ("int8", "matmul_8bit"))
+F32_LOGITS_REL = 1e-4
 GPT2_PROMPT, GPT2_NEW, CONVERT_NEW = 128, 32, 16
 # model scale (phase 25): the models, the Engine trace's requests here (the
 # bench's own default is 32), the prompts of the prefill check
@@ -1491,7 +1517,8 @@ def eight_bit_checks(dev, work):
     within 1e-5 of it; matmul_8bit also at ``MM8_MID_MS`` on two of the
     shapes (both sides of its decode/prefill split), matmul_8bit_t at
     ``MM8T_MID_MS`` on them, and both at ``MM8_RAGGED``; the bf16 outputs
-    bit-identical over two calls, matmul_8bit's design per shape.
+    and matmul_8bit's f32 ones bit-identical over two calls, matmul_8bit's
+    design per shape.
     µs per call with the weights rotated past the L2, for int8 also the
     plain versions' and the dense control's (cuBLAS ``torch.matmul`` of the
     dequantized bf16 weight). Returns ms of the calls of one decode step
@@ -1515,7 +1542,7 @@ def eight_bit_checks(dev, work):
         w = (torch.randn((k, n_codes), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         g = torch.randn((m, n), generator=gen, device=dev).to(dtype)
-        design = matmul.matmul_8bit_design(m, n, k) if dtype == torch.bfloat16 else None
+        design = matmul.matmul_8bit_design(m, n, k, dtype=dtype)
         for fmt in fmts:
             qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
             codes, scales = qt.codes[:, :n].contiguous(), qt.scale[:, :n].contiguous()
@@ -1540,12 +1567,13 @@ def eight_bit_checks(dev, work):
                 iters = 50 if m <= 64 else 10
                 row = dict(kernel=name, fmt=fmt, dtype=str(dtype), M=m, K=k, N=n,
                            max_abs_err=err, tol=tol, us=time_ms(run(True, ws), iters) * 1e3)
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 or name == "matmul_8bit":
                     same = torch.equal(out, run(True, [(codes, scales)])(0))
-                    check(same, f"{name} {fmt} M={m} K={k} N={n}: two calls differ")
+                    check(same, f"{name} {fmt} {dtype} M={m} K={k} N={n}: two calls differ")
                     row.update(bit_identical_over_two_calls=same)
                     if name == "matmul_8bit":
                         row.update(design=design)
+                if dtype == torch.bfloat16:
                     if fmt == "int8" and f"M{m}_{k}x{n}" in EARLIER_US[name]:
                         per_call[name][f"M{m}_{k}x{n}"] = row["us"]
                 if (fmt == "int8" and dtype == torch.bfloat16 and (name, m) in step
@@ -1710,79 +1738,181 @@ def cli_round_trip(text: str):
     return seconds
 
 
+def _first_leaves(tree, shapes):
+    """The first QuantizedTensor of each logical (K, N) in ``shapes``."""
+    found = {}
+    for leaf in _tensors(tree):
+        if isinstance(leaf, QuantizedTensor) and tuple(leaf.shape) in shapes:
+            found.setdefault(tuple(leaf.shape), leaf)
+    check(set(found) == set(shapes), f"accuracy: linears {sorted(found)}, expected {shapes}")
+    return found
+
+
 def accuracy_phase(dev):
     """accuracy_bench at its model size, pretraining cut to ACC_STEPS, no
-    cache; the gates of the 8-bit rows, and the int8 and nf8 perplexities
-    through the kernels against use_kernel=False on the same trees."""
+    cache; the gates of the 8-bit rows, and the perplexities of
+    ``ACC_KERNEL_VS_PLAIN`` through the kernels against use_kernel=False on
+    the same trees; the f32 routes of matmul_4bit (nf4a) and matmul_8bit
+    (int8) at the proxy's four (K, N) and M = batch x seq on the trees' own
+    weights, and the f32 matmul_4bit_t and matmul_8bit_t there. Returns the
+    proxy's f32 times as {kernel: {"M{m}_{k}x{n}": [kernel µs, plain µs,
+    bound µs]}}."""
     _build.reset_launches()
     result, variants, eval_ids, acfg = accuracy_bench.run(steps=ACC_STEPS, device=dev)
     eight_launches = _build.launches["matmul_8bit"]
+    four_launches = _build.launches["matmul_4bit"]
     rows = {r["format"]: r for r in result["rows"]}
     check(result["final_loss"] < 2.5, f"accuracy: final loss {result['final_loss']} >= 2.5")
     plain = {}
-    for fmt in ("int8", "nf8"):
+    for fmt in ACC_KERNEL_VS_PLAIN:
         plain[fmt] = qeval.perplexity(variants[fmt], eval_ids, acfg, seq_len=result["seq"],
                                       batch=result["batch"], use_kernel=False)
     kernel_vs_plain = {f: abs(rows[f]["ppl"] - p) / p for f, p in plain.items()}
     emit(accuracy=dict(result, plain_ppl=plain, kernel_vs_plain_rel=kernel_vs_plain,
-                       tol=ACC_PPL_REL, matmul_8bit_launches=eight_launches))
+                       tol=ACC_PPL_REL, matmul_8bit_launches=eight_launches,
+                       matmul_4bit_launches=four_launches))
     for f, rel in kernel_vs_plain.items():
         check(rel <= ACC_PPL_REL, f"accuracy {f}: kernel ppl {rows[f]['ppl']} vs plain "
                                   f"{plain[f]} (rel {rel} > {ACC_PPL_REL})")
     check(eight_launches > 0, "accuracy: the 8-bit rows launched no matmul_8bit")
+    check(four_launches > 0, "accuracy: the 4-bit rows launched no matmul_4bit")
     for name in ACC_GATED:
         check(rows[name]["pass"], f"accuracy gate {name}: delta {rows[name]['delta']} > "
                                   f"{rows[name]['gate']}")
+    m = result["batch"] * result["seq"]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    times = {}
+    for kernel, fmt in (("matmul_4bit", "nf4a"), ("matmul_8bit", "int8")):
+        times[kernel] = {}
+        for (k, n), qt in _first_leaves(variants[fmt], ACC_SHAPES).items():
+            x = torch.randn((m, k), generator=gen, device=dev)
+            _, row = _quantized_check(f"accuracy {kernel} {fmt} f32 M={m} K={k} N={n}", x, qt,
+                                      torch.float32, 10)
+            emit(kernel_check=dict(kernel=kernel, model="accuracy_proxy", fmt=fmt, **row))
+            times[kernel][f"M{m}_{k}x{n}"] = [row["us"], row["plain_us"], row["bound_us"]]
+    times.update(_transposed_f32_rows(gen, dev, ACC_SHAPES, m, "accuracy_proxy"))
+    return times
+
+
+def _bound_us(n_bytes, ops, kind):
+    """``bound`` of one call, in µs."""
+    bound_ms, bound_by = bound([n_bytes, ops], kind)
+    return bound_ms * 1e3, bound_by
+
+
+def _quantized_check(name, x, qt, dtype, iters):
+    """matmul_quantized (bf16 or f32 x) against its plain version: within 2
+    bf16 ulps of max|plain| (f32: 1e-5 of it), the same bits on a second
+    call. Returns (out, row) with µs per call, its plain version's and the
+    bound, the weights rotated past the L2."""
+    qts = [dataclasses.replace(qt, codes=c, scale=sc)
+           for c, sc in copies_past_l2(qt.codes, qt.scale)]
+
+    def run(use_kernel, qs):
+        return lambda i: matmul.matmul_quantized(x, qs[i % len(qs)], use_kernel=use_kernel)
+    out, ref = run(None, [qt])(0), run(False, [qt])(0)
+    m, (k, n) = x.shape[0], qt.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (2 * BF16_ULP if dtype == torch.bfloat16 else 1e-5) * ref.float().abs().max().item()
+    check(out.shape == ref.shape == (m, n) and torch.isfinite(out).all().item(),
+          f"{name}: bad output")
+    check(err <= tol, f"{name}: err {err} > {tol}")
+    same = torch.equal(out, run(None, [qt])(0))
+    check(same, f"{name}: two calls differ")
+    bound_us, bound_by = _bound_us(nbytes(x, qt.codes, qt.scale, out), 2 * m * k * n,
+                                   "bf16" if dtype == torch.bfloat16 else "f32")
+    row = dict(M=m, K=k, N=n, dtype=str(dtype).removeprefix("torch."), max_abs_err=err, tol=tol,
+               us=time_ms(run(None, qts), iters) * 1e3,
+               plain_us=time_ms(run(False, qts), iters) * 1e3, bound_us=bound_us,
+               bound_by=bound_by, bit_identical_over_two_calls=same)
+    return out, row
+
+
+def _checked_design(report, m, n, k_pad, dtype):
+    """The design report of the route x of ``dtype`` takes, checked against
+    its split at M = 32."""
+    design = report(m, n, k_pad, dtype=dtype)
+    names = ("decode", "prefill") if dtype == torch.bfloat16 else ("fma_decode", "fma_prefill")
+    check(design["design"] == names[m > 32], f"M={m} K_pad={k_pad} N={n}: design {design}")
+    return design
+
+
+def _transposed_f32_rows(gen, dev, shapes, m, tag):
+    """The f32 routes of matmul_4bit_t (nf4a) and matmul_8bit_t (int8), the
+    first port's FMA kernels, against their plain versions at ``shapes``
+    (K, N) and M, within 1e-5 of max|plain|: µs per call, the plain
+    version's and the bound. Returns {kernel: {"M{m}_{k}x{n}": [kernel µs,
+    plain µs, bound µs]}}."""
+    times = {"matmul_4bit_t": {}, "matmul_8bit_t": {}}
+    for k, n in shapes:
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        g = torch.randn((m, n), generator=gen, device=dev)
+        for name, fn, fmt in (("matmul_4bit_t", matmul.matmul_4bit_t, "nf4a"),
+                              ("matmul_8bit_t", matmul.matmul_8bit_t, "int8")):
+            qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+            ws = copies_past_l2(qt.codes, qt.scale)
+
+            def run(use_kernel, ws, fn=fn, cb=qt.codebook):
+                return lambda i: fn(g, *ws[i % len(ws)], codebook=cb, block=64,
+                                    use_kernel=use_kernel)
+            out = run(True, [(qt.codes, qt.scale)])(0)
+            ref = run(False, [(qt.codes, qt.scale)])(0)
+            err = (out - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item()
+            check(torch.isfinite(out).all().item() and err <= tol,
+                  f"{tag} {name} f32 M={m} K={k} N={n}: err {err} > {tol}")
+            bound_us, bound_by = _bound_us(nbytes(g, qt.codes, qt.scale, out), 2 * m * k * n,
+                                           "f32")
+            row = dict(kernel=name, model=tag, fmt=fmt, dtype="float32", M=m, K=k, N=n,
+                       max_abs_err=err, tol=tol, us=time_ms(run(True, ws), 3) * 1e3,
+                       plain_us=time_ms(run(False, ws), 3) * 1e3, bound_us=bound_us,
+                       bound_by=bound_by)
+            times[name][f"M{m}_{k}x{n}"] = [row["us"], row["plain_us"], bound_us]
+            emit(kernel_check=row)
+    return times
 
 
 def gpt2_kernel_checks(dev):
-    """matmul_4bit (nf4a) and matmul_int8_fused against their plain
-    versions at GPT-2 small's four (K, N), the M of ``GPT2_MM4`` and
-    ``GPT2_I8_MS``, under phase 3's and 4's rules, the design per row, µs
-    per call with the weights rotated past the L2. Returns one GPT-2
-    decode step's calls (M = 8; bf16 x for matmul_4bit) as {kernel:
-    [kernel ms, plain ms, bound ms, bound by]} and the largest errors."""
+    """At GPT-2 small's four (K, N): matmul_4bit (nf4a) at the M of
+    ``GPT2_MM4`` (bf16 and f32 x), matmul_8bit (f32 x) in ``GPT2_MM8``'s
+    formats and M, and matmul_int8_fused at ``GPT2_I8_MS``, against their
+    plain versions under phase 3's and 4's rules, every route the same bits
+    on a second call, the design per row, µs per call (and the plain
+    version's, and the bound) with the weights rotated past the L2; the f32
+    routes of matmul_4bit_t and matmul_8bit_t timed at M = 1024. Returns one
+    GPT-2 decode step's calls (M = 8: matmul_4bit in bf16 and in f32,
+    matmul_8bit in f32, int8) as {name: [kernel ms, plain ms, bound ms,
+    bound by]}, the largest errors and the f32 backward times."""
     gen = torch.Generator(device=dev).manual_seed(4)
     work = {}
-    step = {"matmul_4bit": [0.0, 0.0], "matmul_int8_fused": [0.0, 0.0]}
-    max_err = {"matmul_4bit": 0.0, "matmul_int8_fused": 0.0}
+    step = {k: [0.0, 0.0] for k in ("matmul_4bit", "matmul_4bit_f32", "matmul_8bit_f32",
+                                    "matmul_int8_fused")}
+    max_err = {"matmul_4bit": 0.0, "matmul_8bit": 0.0, "matmul_int8_fused": 0.0}
+    slower = []
     for (k, n), count in GPT2_SHAPES.items():
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
-        for dtype, ms in GPT2_MM4:
-            qt = codecs.quantize_matmul_weight(w.to(dtype), fmt="nf4a", block_size=64)
-            qts = [dataclasses.replace(qt, codes=c, scale=sc)
-                   for c, sc in copies_past_l2(qt.codes, qt.scale)]
+        cases = [("matmul_4bit", "nf4a", dtype, ms) for dtype, ms in GPT2_MM4]
+        cases += [("matmul_8bit", fmt, torch.float32, GPT2_MM8_MS) for fmt in GPT2_MM8]
+        for kernel, fmt, dtype, ms in cases:
+            qt = codecs.quantize_matmul_weight(w.to(dtype), fmt=fmt, block_size=64)
+            k_pad = qt.codes.shape[0] * (2 if kernel == "matmul_4bit" else 1)
+            report = matmul.matmul_4bit_design if kernel == "matmul_4bit" else \
+                matmul.matmul_8bit_design
             for m in ms:
                 x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-
-                def run(use_kernel, qs, x=x):
-                    return lambda i: matmul.matmul_quantized(x, qs[i % len(qs)],
-                                                             use_kernel=use_kernel)
-                out, ref = run(None, [qt])(0), run(False, [qt])(0)
-                err = (out.float() - ref.float()).abs().max().item()
-                tol = (2 * BF16_ULP if dtype == torch.bfloat16 else 1e-5) * \
-                    ref.float().abs().max().item()
-                name = f"gpt2 matmul_4bit nf4a {dtype} M={m} K={k} N={n}"
-                check(out.shape == ref.shape == (m, n) and torch.isfinite(out).all().item(),
-                      f"{name}: bad output")
-                check(err <= tol, f"{name}: err {err} > {tol}")
-                same = torch.equal(out, run(None, [qt])(0))
-                check(same or dtype == torch.float32, f"{name}: two calls differ")
-                max_err["matmul_4bit"] = max(max_err["matmul_4bit"], err)
-                iters = 50 if m <= 64 else 10
-                row = dict(kernel="matmul_4bit", model="gpt2", fmt="nf4a",
-                           dtype=str(dtype).removeprefix("torch."), M=m, K=k, N=n,
-                           K_pad=2 * qt.codes.shape[0], max_abs_err=err, tol=tol,
-                           us=time_ms(run(None, qts), iters) * 1e3,
-                           plain_us=time_ms(run(False, qts), iters) * 1e3,
-                           bit_identical_over_two_calls=same,
-                           design=(matmul.matmul_4bit_design(m, n, 2 * qt.codes.shape[0])
-                                   if dtype == torch.bfloat16 else "f32 FMA"))
-                if m == 8 and dtype == torch.bfloat16:
-                    step["matmul_4bit"][0] += count * row["us"] / 1e3
-                    step["matmul_4bit"][1] += count * row["plain_us"] / 1e3
-                    add_work(work, "matmul_4bit", nbytes(x, qt.codes, qt.scale, out),
-                             2 * m * k * n, count)
+                out, row = _quantized_check(f"gpt2 {kernel} {fmt} {dtype} M={m} K={k} N={n}",
+                                            x, qt, dtype, 50 if m <= 64 else 10)
+                max_err[kernel] = max(max_err[kernel], row["max_abs_err"])
+                row = dict(kernel=kernel, model="gpt2", fmt=fmt, K_pad=k_pad, **row,
+                           design=_checked_design(report, m, n, k_pad, dtype))
+                key = kernel + ("_f32" if dtype == torch.float32 else "")
+                if m == 8 and fmt in ("nf4a", "int8"):
+                    step[key][0] += count * row["us"] / 1e3
+                    step[key][1] += count * row["plain_us"] / 1e3
+                    add_work(work, key, nbytes(x, qt.codes, qt.scale, out), 2 * m * k * n,
+                             count)
+                if dtype == torch.float32 and row["us"] >= row["plain_us"]:
+                    slower.append(f"{kernel} {fmt} M={m} K={k} N={n}")
                 emit(kernel_check=row)
         qw = int8mm.quantize_int8_weight(w)
         ws = copies_past_l2(qw.codes, qw.scale)
@@ -1817,12 +1947,16 @@ def gpt2_kernel_checks(dev):
                 step["matmul_int8_fused"][1] += count * plain_ms
                 add_work(work, "matmul_int8_fused", nbytes(x, qw.codes, rs, qw.scale, y_out, out),
                          2 * m * k * n, count)
-    for name, kind in (("matmul_4bit", "bf16"), ("matmul_int8_fused", "int8")):
+    for name, kind in (("matmul_4bit", "bf16"), ("matmul_4bit_f32", "f32"),
+                       ("matmul_8bit_f32", "f32"), ("matmul_int8_fused", "int8")):
         step[name] += list(bound(work[name], kind))
     emit(gpt2_decode_step_kernels={
-        "note": "one GPT-2 small decode step's 48 calls at M=8 (nf4a bf16 x; llm_int8 f32 x) "
-                "as [kernel ms, plain ms, bound ms, bound by]", **step})
-    return step, max_err
+        "note": "one GPT-2 small decode step's 48 calls at M=8 as [kernel ms, plain ms, bound ms, "
+                "bound by]: matmul_4bit nf4a bf16 x and f32 x, matmul_8bit int8 f32 x, llm_int8 "
+                "f32 x", **step})
+    emit(gpt2_f32_slower_than_plain=slower)
+    t_f32 = _transposed_f32_rows(gen, dev, GPT2_SHAPES, GPT2_T_F32_M, "gpt2")
+    return step, max_err, t_f32
 
 
 def _tensors(tree):
@@ -1942,6 +2076,34 @@ def gpt2_nf4a_decode(dev, params, cfg):
                           **_prefill_logits_vs_plain(gpt2, qparams, prompt, cfg,
                                                      "gpt2 nf4a")))
     return counts
+
+
+def gpt2_f32_decode(dev, params, cfg):
+    """GPT-2 small at its own f32 quantized to each of ``GPT2_F32_FMTS``:
+    greedy decode through the f32 route of matmul_4bit or matmul_8bit (4
+    launches a layer a token), prefill logits within ``F32_LOGITS_REL``
+    rel-L2 of use_kernel=False. Returns the launches by kernel."""
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (8, GPT2_PROMPT), dtype=np.int32)).to(dev)
+    total = {}
+    for fmt, kernel in GPT2_F32_FMTS:
+        qparams = qnn.quantize_params(params, mode=fmt)
+        out, counts, wall = _decode_with_launches(gpt2, qparams, prompt, cfg, GPT2_NEW, kernel,
+                                                  4 * cfg.n_layers, f"gpt2 {fmt} f32 decode")
+        plain = gpt2.greedy_decode(qparams, prompt, cfg, max_new_tokens=GPT2_NEW,
+                                   use_kernel=False)
+        agree = (plain[:, GPT2_PROMPT:] == out[:, GPT2_PROMPT:]).float().mean().item()
+        lk, _ = gpt2.forward(qparams, prompt, cfg)
+        lp, _ = gpt2.forward(qparams, prompt, cfg, use_kernel=False)
+        rel = rel_l2(lk, lp)
+        emit(gpt2_decode=dict(fmt=fmt, dtype="float32", n_layers=cfg.n_layers, greedy_s=wall,
+                              launches=counts, token_agreement_vs_plain=agree,
+                              prefill_logits_rel_l2=rel, tol=F32_LOGITS_REL))
+        check(torch.isfinite(lk).all().item() and rel <= F32_LOGITS_REL,
+              f"gpt2 {fmt} f32: prefill logits rel-L2 {rel} > {F32_LOGITS_REL}")
+        total[kernel] = total.get(kernel, 0) + counts[kernel]
+        del qparams
+    return total
 
 
 def _nonzero(counts):
@@ -2373,10 +2535,10 @@ def main():
     with timed("17 cli"):
         cli_round_trip(qeval.ByteTokenizer().decode(eval_ids[:40_000]))
     with timed("18 accuracy bench"):
-        accuracy_phase(dev)
+        acc_f32 = accuracy_phase(dev)
 
     with timed("19 gpt2 kernel checks"):
-        gpt2_step, gpt2_err = gpt2_kernel_checks(dev)
+        gpt2_step, gpt2_err, gpt2_t_f32 = gpt2_kernel_checks(dev)
         for name, err in gpt2_err.items():
             max_err[name] = max(max_err[name], err)
     with timed("20 hf round trips"):
@@ -2393,6 +2555,8 @@ def main():
     with timed("23 gpt2 nf4a decode"):
         launches["matmul_4bit"] += gpt2_nf4a_decode(dev, *loaded.pop("gpt2_small_bf16"))[
             "matmul_4bit"]
+        for k, v in gpt2_f32_decode(dev, gparams, gcfg).items():
+            launches[k] += v
     del loaded, gparams
     torch.cuda.empty_cache()
 
@@ -2434,6 +2598,10 @@ def main():
     at = "one decode step's calls at M=8 (nf4a for matmul_4bit), ms"
     gpt2_at = ("gpt2_step_ms: one GPT-2 small decode step's 48 calls at M=8 as [kernel, plain, "
                "bound, bound by]")
+    f32_at = ("gpt2_f32_step_ms: one GPT-2 small decode step's 48 calls at M=8 on f32 x through "
+              "the f32 route as [kernel, plain, bound, bound by]; f32_accuracy_proxy_us: the "
+              "f32 route at the accuracy proxy's (K, N), M=8192, as [kernel, plain, bound] µs a "
+              "call")
     i8_prefill = ("one prefill forward's 155 calls at M=1024 as [kernel, plain, dense], dense: "
                   "torch._int_mm of the int8 activations and the codes, which takes M > 16 only)")
     flash_at = ("one call at TinyLlama-1.1B's QLoRA shape (B=2, S=T=1024, 32 heads, 4 KV "
@@ -2462,10 +2630,12 @@ def main():
               at + "; library: none, no PyTorch call dequantizes blockwise 4-bit codes inside "
               "a GEMM (dense_control_ms: cuBLAS torch.matmul of the dequantized bf16 weights; "
               "qlora_forward_ms: one QLoRA forward's 155 calls at M=2048, nf4, as [kernel, "
-              "plain, dense]; " + gpt2_at + ", nf4a, bf16 x)",
+              "plain, dense]; " + gpt2_at + ", nf4a, bf16 x; " + f32_at + ", nf4a)",
               dense_control_ms=per_step["matmul_4bit"][2],
               qlora_forward_ms=per_step["matmul_4bit_qlora_forward"],
-              gpt2_step_ms=gpt2_step["matmul_4bit"]),
+              gpt2_step_ms=gpt2_step["matmul_4bit"],
+              gpt2_f32_step_ms=gpt2_step["matmul_4bit_f32"],
+              f32_accuracy_proxy_us=acc_f32["matmul_4bit"]),
         entry("matmul_int4c", "int4c.cu", "quanta_tpu/ops/int4c.py:116",
               launches["matmul_int4c"], *per_step["matmul_int4c"], "int8",
               at + "; library: none, no PyTorch call unpacks 4-bit codes or applies row and "
@@ -2494,8 +2664,12 @@ def main():
         entry("matmul_4bit_t", "matmul_4bit_t.cu", "quanta_tpu/ops/matmul.py:423",
               train_launches["matmul_4bit_t"], *t_step[:2], "bf16",
               "one QLoRA backward's 152 calls at M=2048, bf16 g, nf4, ms; library: none "
-              "(dense_control_ms: cuBLAS g @ W_deq^T of the dequantized bf16 weights)",
-              dense_control_ms=t_step[2]),
+              "(dense_control_ms: cuBLAS g @ W_deq^T of the dequantized bf16 weights; f32_us: "
+              "the first port's f32 route, nf4a, as [kernel, plain, bound] µs a call at GPT-2's "
+              "(K, N), M=1024, and the accuracy proxy's, M=8192)",
+              dense_control_ms=t_step[2],
+              f32_us={"gpt2": gpt2_t_f32["matmul_4bit_t"],
+                      "accuracy_proxy": acc_f32["matmul_4bit_t"]}),
         entry("adam8bit_update", "adam8bit.cu", "quanta_tpu/ops/adam8bit.py:72",
               train_launches["adam8bit_update"], *adam_step, "f32",
               "one QLoRA step's optimizer over its 88 bf16 adapter leaves (66 of 64 blocks, "
@@ -2520,14 +2694,18 @@ def main():
               launches["matmul_8bit"], *eight_step[("matmul_8bit", 8)][:2], "bf16",
               "one decode step's 155 calls at M=8, int8, bf16 x, ms; library: none, no "
               "PyTorch call dequantizes blockwise 8-bit codes inside a GEMM (dense_control_ms: "
-              "cuBLAS torch.matmul of the dequantized bf16 weights)",
+              "cuBLAS torch.matmul of the dequantized bf16 weights; " + f32_at + ", int8)",
               dense_control_ms=eight_step[("matmul_8bit", 8)][2],
-              qlora_forward_ms=eight_step[("matmul_8bit", M_TRAIN)]),
+              qlora_forward_ms=eight_step[("matmul_8bit", M_TRAIN)],
+              gpt2_f32_step_ms=gpt2_step["matmul_8bit_f32"],
+              f32_accuracy_proxy_us=acc_f32["matmul_8bit"]),
         entry("matmul_8bit_t", "matmul_8bit_t.cu", "quanta_tpu/ops/matmul.py:529",
               launches["matmul_8bit_t"], *eight_step[("matmul_8bit_t", M_TRAIN)][:2], "bf16",
               "one QLoRA backward's 152 calls at M=2048, int8, bf16 g, ms; library: none "
-              "(dense_control_ms as for matmul_8bit)",
-              dense_control_ms=eight_step[("matmul_8bit_t", M_TRAIN)][2]),
+              "(dense_control_ms as for matmul_8bit; f32_us as for matmul_4bit_t, int8)",
+              dense_control_ms=eight_step[("matmul_8bit_t", M_TRAIN)][2],
+              f32_us={"gpt2": gpt2_t_f32["matmul_8bit_t"],
+                      "accuracy_proxy": acc_f32["matmul_8bit_t"]}),
     ])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -1,8 +1,9 @@
 """Time the bf16 ``flash_fwd``, ``matmul_8bit``, ``matmul_4bit``,
-``matmul_8bit_t`` and ``matmul_4bit_t`` kernels, ``matmul_int4c`` and the
-LLM.int8 pair across shapes.
+``matmul_8bit_t`` and ``matmul_4bit_t`` kernels, ``matmul_int4c``, the
+LLM.int8 pair and the f32 routes of ``matmul_4bit`` and ``matmul_8bit``
+across shapes.
 
-    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8 mm4 mm8t mm4t i4c i8] [--ms 8 32]
+    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8 mm4 mm8t mm4t i4c i8 f32] [--ms 8 32]
 
 To try a design choice of ``csrc/flash_fwd.cu``, ``csrc/matmul_8bit.cu``,
 ``csrc/matmul_4bit.cu``, ``csrc/matmul_8bit_t.cu``, ``csrc/matmul_4bit_t.cu``,
@@ -32,7 +33,15 @@ the library, and run this again. One JSON object per line:
 - ``i8``: ``matmul_int8_fused`` and ``matmul_int8`` (the quantizer's codes
   and outlier set, the operands ``matmul_int8`` hands them) at the same
   shapes and M, with the design each takes (the decode/prefill crossover,
-  the ring depths, the decode column width).
+  the ring depths, the decode column width);
+- ``f32``: ``matmul_4bit`` (nf4a) and ``matmul_8bit`` (int8) on f32 x
+  through ``matmul_quantized``, beside their plain versions: at GPT-2
+  small's four (K, N) for M in {8, 1024} and at the accuracy proxy's four
+  for M = 8192 (the split-K FMA decode, the FMA GEMM's tile, ring and K
+  split). It calls nothing newer than ``matmul_quantized``, so the same
+  file times another checkout's kernels with that checkout first on
+  ``PYTHONPATH`` (``python quanta_tpu_torch/benchmarks/kernel_sweep.py
+  --what f32``).
 
 ``--ms`` keeps only the M named (of the matmul rows).
 
@@ -44,6 +53,7 @@ spins, so the host's Python between calls is not timed. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
@@ -59,6 +69,9 @@ FLASH_SHAPES = {"tinyllama_s1024": (2, 1024, 32, 4, 64), "llama2_7b_s1024": (1, 
 MM8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
 MM8_MS = (8, 16, 32, 64, 256, 1024, 2048)
 MM4T_SHAPES = MM8_SHAPES + [(4096, 4096), (4096, 11008), (11008, 4096)]
+# the f32 rows' (K, N) and M: GPT-2 small's linears, the accuracy proxy's
+F32_CASES = ([((k, n), (8, 1024)) for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768))]
+             + [((k, n), (8192,)) for k, n in ((512, 512), (512, 128), (512, 1536), (1536, 512))])
 
 
 def emit(**obj):
@@ -211,11 +224,36 @@ def i8_rows(dev, pick):
                                                       fused=name == "matmul_int8_fused"))
 
 
+def f32_rows(dev, pick):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for (k, n), ms in F32_CASES:
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        for fmt in ("nf4a", "int8"):
+            qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+            copies = max(1, min(64, math.ceil(2 * L2_BYTES / (qt.codes.numel()
+                                                              + 4 * qt.scale.numel()))))
+            qts = [dataclasses.replace(qt, codes=qt.codes.clone(), scale=qt.scale.clone())
+                   for _ in range(copies)]
+            for m in pick(ms):
+                x = torch.randn((m, k), generator=gen, device=dev)
+                out = matmul.matmul_quantized(x, qt)
+                ref = matmul.matmul_quantized(x, qt, use_kernel=False)
+                err = (out - ref).abs().max().item()
+                tol = 1e-5 * ref.abs().max().item()
+                iters = 50 if m <= 64 else 10
+                ms_ = time_ms(lambda i: matmul.matmul_quantized(x, qts[i % len(qts)]), iters)
+                plain = time_ms(lambda i: matmul.matmul_quantized(x, qts[i % len(qts)],
+                                                                  use_kernel=False), iters)
+                emit(sweep="f32", fmt=fmt, M=m, K=k, N=n, us=ms_ * 1e3, plain_us=plain * 1e3,
+                     tflops=2 * m * k * n / (ms_ * 1e-3) / 1e12, max_abs_err=err, tol=tol,
+                     ok=err <= tol, same=torch.equal(out, matmul.matmul_quantized(x, qt)))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--what", nargs="+",
-                    choices=("flash", "mm8", "mm4", "mm8t", "mm4t", "i4c", "i8"),
-                    default=["flash", "mm8", "mm4", "mm8t", "mm4t", "i4c", "i8"])
+                    choices=("flash", "mm8", "mm4", "mm8t", "mm4t", "i4c", "i8", "f32"),
+                    default=["flash", "mm8", "mm4", "mm8t", "mm4t", "i4c", "i8", "f32"])
     ap.add_argument("--ms", nargs="+", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -241,6 +279,8 @@ def main(argv=None):
         i4c_rows(dev, pick)
     if "i8" in args.what:
         i8_rows(dev, pick)
+    if "f32" in args.what:
+        f32_rows(dev, pick)
 
 
 if __name__ == "__main__":

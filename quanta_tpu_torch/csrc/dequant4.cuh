@@ -1,11 +1,11 @@
 // One tile of split_k-packed 4-bit weights, dequantized into shared memory.
 //
-// Shared by the f32 forward (matmul_4bit.cu: out = x @ W; its bf16 designs
-// dequantize through dequant4_sm90.cuh) and the backward (matmul_4bit_t.cu:
-// dx = g @ W^T) of the fused 4-bit matmul. Both stream
+// The f32 route of the backward (matmul_4bit_t.cu: dx = g @ W^T) of the
+// fused 4-bit matmul; the forward's designs dequantize through
+// dequant4_sm90.cuh and fma_sm90.cuh. It streams
 // W's packed codes (K2 = K_pad/2 rows of N bytes; the low nibble of byte
 // (k, n) is row k of W, the high nibble row k + K2) and f32 block scales
-// (K_pad/block rows of N), and dequantize one tile of BKP packed rows by BN
+// (K_pad/block rows of N), and dequantizes one tile of BKP packed rows by BN
 // columns per step as deq(code) = T(levels[code] * scale): one f32 multiply
 // rounded once, then rounded to the operand type T, as the TPU kernels round
 // `w.astype(x.dtype)`. The 16-entry f32 level table serves every 4-bit

@@ -1,9 +1,10 @@
 // One tile of 8-bit matmul-layout weights, dequantized into shared memory.
 //
-// Shared by the forward (matmul_8bit.cu: out = x @ W) and the backward
-// (matmul_8bit_t.cu: dx = g @ W^T) of the fused 8-bit matmul. Both stream
+// The f32 route of the backward (matmul_8bit_t.cu: dx = g @ W^T) of the
+// fused 8-bit matmul; the forward's designs dequantize through
+// dequant8_sm90.cuh and fma_sm90.cuh. It streams
 // W's codes ((K, N) bytes, one code a weight) and f32 block scales
-// ((K/block, N): a block runs along K in each column), and dequantize one
+// ((K/block, N): a block runs along K in each column), and dequantizes one
 // tile of BK rows by BN columns per step as
 //
 //   deq(code) = T(levels[code] * scale[row / block, col])
@@ -94,7 +95,7 @@ __device__ __forceinline__ void load_b8(T* Bs, const uint8_t* __restrict__ codes
 
 // A tile of a row-major (rows, cols) operand: a[m0:m0+64, c0:c0+64] into
 // shared memory with stride 64 + kPad<T>; rows and columns past the edges
-// give zeros. x for the forward (cols = K), g for the backward (cols = N).
+// give zeros: g of the backward (cols = N).
 template <typename T>
 __device__ __forceinline__ void load_rows(T* As, const T* __restrict__ a, int m0, int rows,
                                           int c0, int cols, int tid) {

@@ -56,18 +56,22 @@
 // 251.7 against 259.5 us; 256 rows need 186 registers a thread and hold
 // one block an SM, 128 rows 122 and two).
 //
-// f32 (the accuracy proxy; no timed path takes it): the design of the first
-// port, plain FMAs on a 64x64 output tile per block of 4 warps, a tile of
-// dequantized weights in shared memory (load_b, dequant4.cuh, shared with
-// the backward, matmul_4bit_t.cu).
+// f32 (GPT-2 small at its own f32 through generate, serve and eval; the
+// accuracy proxy's perplexity at M = 8192): the same two designs on the CUDA
+// cores, chosen by M inside qt_matmul_4bit_f32 (fma_sm90.cuh): split-K FMA
+// decode up to M = 32, each lane dequantizing its weights once and using
+// each for every row of x, summed through distributed shared memory; a
+// register-tiled FMA GEMM above (128 x 128 tiles, 8 x 8 outputs a thread,
+// each step's code slab dequantized once into an f32 tile). f32 products and
+// sums only, in a fixed order.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dequant4.cuh"       // BN, BKP, THREADS, from_f32, kPad, load_b
 #include "dequant4_sm90.cuh"  // LV4_BYTES, fill_levels4, stage_*, dequant4_slab
+#include "fma_sm90.cuh"       // the f32 designs: mmf_decode, mmf_prefill, plan_mmf
 #include "splitk_sm90.cuh"    // cluster_sum_store, MmKind, MmPlan, plan_split, mma_bf16_16816
 
 namespace {
@@ -421,86 +425,6 @@ MmPlan plan_mm4(int M, int N, int K2) {
   return plan_split(k, M, N, max(1, (K2 + min_kp - 1) / min_kp), resident(k));
 }
 
-// ------------------------------------------------- f32: the x tile
-
-constexpr int BM = 64;
-constexpr int BK = 2 * BKP;      // logical K per step: BKP lo rows + BKP hi rows
-
-// A tile: x[m0:m0+BM, kp:kp+BKP] ++ x[m0:m0+BM, K2+kp:K2+kp+BKP], row-major.
-template <typename T>
-__device__ __forceinline__ void load_a(T* As, const T* __restrict__ x, int m0, int M,
-                                       int K2, int kp, int tid) {
-  constexpr int VEC = 16 / sizeof(T);          // elements per 16-byte load
-  constexpr int A_LD = BK + kPad<T>;
-  const int64_t ldx = 2 * (int64_t)K2;
-  const bool x_vec = (K2 % VEC) == 0;          // 16-byte loads stay aligned
-  for (int idx = tid; idx < BM * (BK / VEC); idx += THREADS) {
-    const int r = idx / (BK / VEC), seg = idx % (BK / VEC);
-    const int half = seg / (BKP / VEC);
-    const int kk = kp + (seg % (BKP / VEC)) * VEC;
-    const int m = m0 + r;
-    T* dst = As + r * A_LD + seg * VEC;
-    if (m < M && x_vec && kk + VEC <= K2) {
-      const T* src = x + m * ldx + (int64_t)half * K2 + kk;
-      *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        dst[e] = (m < M && kk + e < K2) ? x[m * ldx + (int64_t)half * K2 + kk + e]
-                                        : from_f32<T>(0.0f);
-    }
-  }
-}
-
-// ----------------------------------------------- f32: CUDA-core FMAs
-
-// f32: no exact f32 tensor-core path, so plain FMAs. Thread (ty, tx) owns
-// rows ty + 8 i (i < 8) and columns tx + 16 j (j < 4): the A reads of a
-// warp broadcast, its B reads hit 16 consecutive words.
-__global__ void __launch_bounds__(THREADS)
-mm4_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
-               const float* __restrict__ scales, const float* __restrict__ levels,
-               float* __restrict__ out, int M, int N, int K2, int block) {
-  constexpr int A_LD = BK + kPad<float>;
-  constexpr int B_LD = BN + kPad<float>;
-  __shared__ __align__(128) float As[BM * A_LD];
-  __shared__ __align__(128) float Bs[BK * B_LD];
-  __shared__ float lv[16];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  if (tid < 16) lv[tid] = levels[tid];
-  float acc[8][4] = {};
-  __syncthreads();
-
-  for (int kp = 0; kp < K2; kp += BKP) {
-    load_a(As, x, m0, M, K2, kp, tid);
-    load_b(Bs, codes, scales, lv, n0, N, K2, kp, block, tid);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(ty + 8 * i) * A_LD + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k * B_LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 8 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) out[(int64_t)m * N + n] = acc[i][j];
-    }
-}
-
 }  // namespace
 
 extern "C" int qt_matmul_4bit_bf16(const void* x, const void* codes, const void* scales,
@@ -520,12 +444,13 @@ extern "C" int qt_matmul_4bit_f32(const void* x, const void* codes, const void* 
                                   const void* levels, void* out, int M, int N, int K2,
                                   int block, void* stream) {
   if (M <= 0 || N <= 0 || K2 <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  mm4_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<const float*>(levels),
-      static_cast<float*>(out), M, N, K2, block);
-  return (int)cudaGetLastError();
+  const MmPlan p = plan_mmf<4>(M, N, K2);
+  return with_mmf<4>(p.kind, [&](auto kernel, int threads, size_t smem) {
+    return launch_cluster(kernel, p.grid, p.split, threads, smem, stream,
+                          static_cast<const float*>(x), static_cast<const uint8_t*>(codes),
+                          static_cast<const float*>(scales), static_cast<const float*>(levels),
+                          static_cast<float*>(out), M, N, K2, block);
+  });
 }
 
 // The bf16 route's launch at (M, N, K2), for a report (report_plan says
@@ -536,5 +461,16 @@ extern "C" int qt_matmul_4bit_design(int M, int N, int K2, int* out) {
   return with_kernel(p.kind, [&](auto kernel, int, size_t smem) {
     return report_plan(p, kernel, smem, resident(p.kind),
                        p.kind.design ? PF_STAGES : DEC_STAGES, out);
+  });
+}
+
+// The f32 route's launch at (M, N, K2), for a report (report_plan says
+// what out[11] holds)
+extern "C" int qt_matmul_4bit_f32_design(int M, int N, int K2, int* out) {
+  if (M <= 0 || N <= 0 || K2 <= 0) return (int)cudaErrorInvalidValue;
+  const MmPlan p = plan_mmf<4>(M, N, K2);
+  return with_mmf<4>(p.kind, [&](auto kernel, int, size_t smem) {
+    return report_plan(p, kernel, smem, mmf_resident<4>(p.kind),
+                       p.kind.design ? FP_STAGES : FD_STAGES, out);
   });
 }

@@ -50,10 +50,11 @@
 // 2048: 861.2 against 911.7) and lose or tie at the rest, so the rule
 // stays the grid fill.
 //
-// f32 (the accuracy proxy; no timed path takes it): the design of the first
-// port, plain FMAs on a tile of 64 rows of g by 64 dx columns (32 lo, 32
-// hi) per block of 4 warps, the codes tile dequantized into shared memory
-// once per step of 64 columns of N (load_b, dequant4.cuh).
+// f32 (QLoRA on an f32 base; chip_smoke times it at GPT-2's and the
+// accuracy proxy's shapes): the design of the first port, plain FMAs on a
+// tile of 64 rows of g by 64 dx columns (32 lo, 32 hi) per block of 4
+// warps, the codes tile dequantized into shared memory once per step of 64
+// columns of N (load_b, dequant4.cuh); no load pipeline, no K split.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -56,17 +56,20 @@
 // at a time: that held the 128-row prefill to 111 TFLOP/s; the staged scale
 // row and a batched dequantize took it to 149.
 //
-// f32 (the accuracy proxy; no timed path takes it): the design of the first
-// port, plain FMAs on a 64x64 output tile per block of 4 warps, the level
-// table and a dequantized tile in shared memory (dequant8.cuh).
+// f32 (GPT-2 small at its own f32 through generate, serve and eval; the
+// accuracy proxy's perplexity at M = 8192): the same two designs on the CUDA
+// cores, chosen by M inside qt_matmul_8bit_f32 (fma_sm90.cuh, one template
+// with matmul_4bit.cu's): split-K FMA decode up to M = 32 and a
+// register-tiled FMA GEMM above, f32 products and sums only, in a fixed
+// order.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dequant8.cuh"  // BN, BK, THREADS, N_LEVELS, kPad, load_levels, load_b8, load_rows
 #include "dequant8_sm90.cuh"
+#include "fma_sm90.cuh"     // the f32 designs: mmf_decode, mmf_prefill, plan_mmf
 #include "splitk_sm90.cuh"  // cluster_sum_store, pick_split, MmKind, MmPlan, mma_bf16_16816
 
 namespace {
@@ -405,56 +408,6 @@ MmPlan plan_mm8(int M, int N, int K) {
   return plan_split(k, M, N, max(1, (K + min_k - 1) / min_k), resident(k));
 }
 
-// ----------------------------------------------- f32: CUDA-core FMAs
-
-constexpr int BM = 64;
-
-// Thread (ty, tx) owns rows ty + 8 i (i < 8) and columns tx + 16 j (j < 4):
-// the A reads of a warp broadcast, its B reads hit 16 consecutive words.
-__global__ void __launch_bounds__(THREADS)
-mm8_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
-               const float* __restrict__ scales, const float* __restrict__ levels,
-               float* __restrict__ out, int M, int N, int K, int block) {
-  constexpr int A_LD = BK + kPad<float>;
-  constexpr int B_LD = BN + kPad<float>;
-  __shared__ __align__(128) float As[BM * A_LD];
-  __shared__ __align__(128) float Bs[BK * B_LD];
-  __shared__ float lv[N_LEVELS];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  load_levels(lv, levels, tid);
-  float acc[8][4] = {};
-  __syncthreads();
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_rows(As, x, m0, M, k0, K, tid);
-    load_b8(Bs, codes, scales, lv, k0, K, n0, N, block, tid);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(ty + 8 * i) * A_LD + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k * B_LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 8 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) out[(int64_t)m * N + n] = acc[i][j];
-    }
-}
-
 }  // namespace
 
 extern "C" int qt_matmul_8bit_bf16(const void* x, const void* codes, const void* scales,
@@ -474,12 +427,13 @@ extern "C" int qt_matmul_8bit_f32(const void* x, const void* codes, const void* 
                                   const void* levels, void* out, int M, int N, int K,
                                   int block, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  mm8_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<const float*>(levels),
-      static_cast<float*>(out), M, N, K, block);
-  return (int)cudaGetLastError();
+  const MmPlan p = plan_mmf<8>(M, N, K);
+  return with_mmf<8>(p.kind, [&](auto kernel, int threads, size_t smem) {
+    return launch_cluster(kernel, p.grid, p.split, threads, smem, stream,
+                          static_cast<const float*>(x), static_cast<const uint8_t*>(codes),
+                          static_cast<const float*>(scales), static_cast<const float*>(levels),
+                          static_cast<float*>(out), M, N, K, block);
+  });
 }
 
 // The bf16 route's launch at (M, N, K), for a report (report_plan says
@@ -490,5 +444,16 @@ extern "C" int qt_matmul_8bit_design(int M, int N, int K, int* out) {
   return with_kernel(p.kind, [&](auto kernel, int, size_t smem) {
     return report_plan(p, kernel, smem, resident(p.kind),
                        p.kind.design ? PF_STAGES : DEC_STAGES, out);
+  });
+}
+
+// The f32 route's launch at (M, N, K), for a report (report_plan says what
+// out[11] holds)
+extern "C" int qt_matmul_8bit_f32_design(int M, int N, int K, int* out) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const MmPlan p = plan_mmf<8>(M, N, K);
+  return with_mmf<8>(p.kind, [&](auto kernel, int, size_t smem) {
+    return report_plan(p, kernel, smem, mmf_resident<8>(p.kind),
+                       p.kind.design ? FP_STAGES : FD_STAGES, out);
   });
 }

@@ -41,10 +41,11 @@
 // (208 TFLOP/s), 128 x 128 ones 321.4. At M = 1024 the 256-row grid leaves
 // half the SMs idle at K = 2048 and 128 x 128 wins (167.3 against 224.4).
 //
-// f32 (the accuracy proxy; no timed path takes it): the design of the first
-// port, plain FMAs on a tile of 64 rows of g by 64 dx columns per block of
-// 4 warps, the codes tile dequantized into shared memory once per step of
-// 64 columns of N (load_b8).
+// f32 (QLoRA on an f32 base; chip_smoke times it at GPT-2's and the
+// accuracy proxy's shapes): the design of the first port, plain FMAs on a
+// tile of 64 rows of g by 64 dx columns per block of 4 warps, the codes
+// tile dequantized into shared memory once per step of 64 columns of N
+// (load_b8); no load pipeline, no K split.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -2,7 +2,9 @@
 // matmul_4bit.cu and int4c.cu on Hopper (sm_90a): their two designs, the K
 // split over a thread block cluster and its fixed-order sum (f32 partials,
 // or int32 ones for int4c), and the mma.sync products of the decode
-// designs (bf16 m16n8k16; s8 m16n8k32 for int4c).
+// designs (bf16 m16n8k16; s8 m16n8k32 for int4c). The f32 routes of
+// matmul_4bit.cu and matmul_8bit.cu (fma_sm90.cuh) use the same split,
+// plans and sum, with FMAs in place of the tensor cores.
 //
 // Each kernel picks one of two designs by M inside one entry point:
 //   - decode (design 0): a block takes 8 MT rows of x (MT n8 tiles) and 64
@@ -147,6 +149,26 @@ int pick_split(int64_t tiles, int64_t slots, int max_split) {
   int s = 1;
   while (s < 8 && 2 * s <= max_split && tiles * 2 * s <= slots) s *= 2;
   return s;
+}
+
+// The K split of a design bound by its operations (the f32 prefill,
+// fma_sm90.cuh): the power of two up to 8 (and `max_split`) that gives the
+// SM with the most work the least time, ceil(tiles s / sms) / s tiles' time,
+// 9/8 of that where no SM gets a second block (whose warps would fill the
+// first's waits at its barrier), the smaller split on a tie. 144 tiles on
+// 132 SMs: 2 tiles' time unsplit, 1.25 split in 4; 48: 0.56 split in 2, 0.5
+// in 4.
+int pick_split_waves(int64_t tiles, int64_t sms, int max_split) {
+  int best = 1;
+  double best_t = 0.0;
+  for (int s = 1; s <= 8 && s <= max_split; s *= 2) {
+    const double t = (double)((tiles * s + sms - 1) / sms) / s * (tiles * s <= sms ? 1.125 : 1.0);
+    if (s == 1 || t < best_t) {
+      best = s;
+      best_t = t;
+    }
+  }
+  return best;
 }
 
 // The plan of kind `k` at (M, N): `resident` is the blocks of its kernel an

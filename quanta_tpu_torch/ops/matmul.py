@@ -7,10 +7,12 @@ Port of ``quanta_tpu/ops/matmul.py``: ``matmul_4bit``, ``matmul_4bit_t``,
 (the Pallas ``_mm4_kernel``), ``csrc/matmul_4bit_t.cu`` (``_mm4t_kernel``),
 ``csrc/matmul_8bit.cu`` (``_mm8_kernel``) and ``csrc/matmul_8bit_t.cu``
 (``_mm8t_kernel``); each source says what bounds it on the H100 and how it
-is laid out. The bf16 ``matmul_4bit`` and ``matmul_8bit`` kernels each have
-two Hopper designs, picked by M inside the one entry point (split-K
-``mma.sync`` for decode, wgmma tiles above); :func:`matmul_4bit_design` and
-:func:`matmul_8bit_design` report which one a shape takes. The bf16
+is laid out. The ``matmul_4bit`` and ``matmul_8bit`` kernels each have two
+Hopper designs a dtype, picked by M inside the one entry point: in bf16
+split-K ``mma.sync`` for decode and wgmma tiles above, in f32 split-K FMAs
+for decode and a register-tiled FMA GEMM above (``csrc/fma_sm90.cuh``);
+:func:`matmul_4bit_design` and :func:`matmul_8bit_design` report which one
+a shape takes. The bf16
 ``matmul_4bit_t`` and ``matmul_8bit_t`` kernels are wgmma dx tiles over a
 dequantized tile read K-major (:func:`matmul_4bit_t_design`).
 
@@ -202,15 +204,15 @@ def matmul_4bit(
     return out if out_dtype in (None, x.dtype) else out.to(out_dtype)
 
 
-def matmul_4bit_design(m, n, k):
-    """How the bf16 ``matmul_4bit`` kernel launches for x (m, k) and
+def matmul_4bit_design(m, n, k, dtype=torch.bfloat16):
+    """How the ``matmul_4bit`` kernel launches for x (m, k) of ``dtype`` and
     split_k-packed codes (k / 2, n), k = K_pad, on this card: the keys of
-    :func:`matmul_8bit_design` (``design`` "decode" or "prefill", grid, K
-    split, blocks per SM, registers, shared and spill bytes, stages, rows
-    of x a block)."""
+    :func:`matmul_8bit_design` (``design`` "decode" or "prefill" in bf16,
+    "fma_decode" or "fma_prefill" in f32, grid, K split, blocks per SM,
+    registers, shared and spill bytes, stages, rows of x a block)."""
     if k % 2:
         raise ValueError(f"k={k}: split_k packing needs an even K_pad")
-    return _design("qt_matmul_4bit_design", "matmul_4bit", m, n, k // 2)
+    return _mm_design("matmul_4bit", m, n, k // 2, dtype)
 
 
 def matmul_4bit_t_design(m, n, k):
@@ -358,6 +360,10 @@ def matmul_8bit(
     return out if out_dtype in (None, x.dtype) else out.to(out_dtype)
 
 
+# x dtype -> the suffix of the forward kernels' design report and the names
+# of its two designs
+_MM_DESIGNS = {torch.bfloat16: ("", ("decode", "prefill")),
+               torch.float32: ("_f32", ("fma_decode", "fma_prefill"))}
 _MM_DESIGN_KEYS = ("design", "grid_x", "grid_y", "grid_z", "split", "blocks_per_sm",
                    "registers", "shared_bytes", "spill_bytes", "stages", "rows")
 
@@ -371,15 +377,24 @@ def _design(entry, name, m, n, k, *extra, names=("decode", "prefill")):
     return res
 
 
-def matmul_8bit_design(m, n, k):
-    """How the bf16 ``matmul_8bit`` kernel launches for x (m, k) and codes
-    (k, n) on this card: ``design`` "decode" (split K, mma.sync, memory
-    bound) or "prefill" (wgmma tiles of 128 or 256 rows), its grid, the K
-    split (the cluster size), blocks resident per SM, registers a thread,
-    dynamic shared bytes and spill bytes a thread
+def _mm_design(kernel, m, n, k, dtype):
+    """The report of ``kernel``'s (matmul_4bit, matmul_8bit) design for x of ``dtype``."""
+    if dtype not in _MM_DESIGNS:
+        raise TypeError(f"the {kernel} CUDA kernel takes bf16 or f32, got {dtype}")
+    suffix, names = _MM_DESIGNS[dtype]
+    return _design(f"qt_{kernel}{suffix}_design", kernel, m, n, k, names=names)
+
+
+def matmul_8bit_design(m, n, k, dtype=torch.bfloat16):
+    """How the ``matmul_8bit`` kernel launches for x (m, k) of ``dtype`` and
+    codes (k, n) on this card: ``design`` (bf16: "decode", split K,
+    mma.sync, memory bound, or "prefill", wgmma tiles of 128 or 256 rows;
+    f32: "fma_decode", split K, FMAs, or "fma_prefill", 128 x 128 FMA
+    tiles), its grid, the K split (the cluster size), blocks resident per
+    SM, registers a thread, dynamic shared bytes and spill bytes a thread
     (``cudaFuncGetAttributes``), the stages of its cp.async ring and the
     rows of x a block takes."""
-    return _design("qt_matmul_8bit_design", "matmul_8bit", m, n, k)
+    return _mm_design("matmul_8bit", m, n, k, dtype)
 
 
 def matmul_8bit_t_reference(

@@ -1480,6 +1480,111 @@ def test_matmul_int8_never_waits_for_the_device(cuda, route):
     assert not names & {"cudaStreamSynchronize", "cudaMemcpyAsync"}, sorted(names)
 
 
+# ------------------------------------------------ f32 routes of #1 and #3
+# matmul_4bit's and matmul_8bit's f32 entry points: split-K FMA decode up
+# to M = 32, the 128 x 128 FMA GEMM above. f32 products of the same
+# weights as the plain versions, f32 sums in another order: within 1e-5 of
+# max|plain|; partials summed in a fixed order: the same bits on a second
+# call. GPT-2 small's four (K, N) and the accuracy proxy's four.
+F32_MS = [1, 8, 17, 32, 33, 128, 1024]
+F32_SHAPES = GPT2_SHAPES + [(512, 512), (512, 128), (512, 1536), (1536, 512)]
+FOUR_BIT_CODEBOOKS = ["nf4a", "nf4", "int4", "fp4"]
+
+
+def _f32_route_check(x, qt, kernel):
+    """matmul_quantized on f32 x: one launch of ``kernel``, within 1e-5 of
+    max|plain|, the same bits on a second call; returns the output."""
+    before = _build.launches[kernel]
+    out = tmm.matmul_quantized(x, qt)
+    again = tmm.matmul_quantized(x, qt)
+    ref = tmm.matmul_quantized(x, qt, use_kernel=False)
+    torch.cuda.synchronize()
+    assert _build.launches[kernel] == before + 2
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.parametrize("m", F32_MS)
+@pytest.mark.parametrize("k,n", F32_SHAPES)
+def test_matmul_f32_routes_match_plain(cuda, k, n, m):
+    """nf4a through matmul_4bit and int8 through matmul_8bit on f32 x, and
+    the design each call takes (its name by M, a K split in 1..8)."""
+    g = torch.Generator(device=cuda).manual_seed(k * n + m)
+    w = torch.randn((k, n), generator=g, device=cuda) * 0.02
+    x = torch.randn((m, k), generator=g, device=cuda)
+    for fmt, kernel, report in (("nf4a", "matmul_4bit", tmm.matmul_4bit_design),
+                                ("int8", "matmul_8bit", tmm.matmul_8bit_design)):
+        qt = tcore.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+        _f32_route_check(x, qt, kernel)
+        k_pad = qt.codes.shape[0] * (2 if kernel == "matmul_4bit" else 1)
+        d = report(m, qt.codes.shape[1], k_pad, dtype=torch.float32)
+        assert d["design"] == ("fma_decode" if m <= 32 else "fma_prefill")
+        assert 1 <= d["split"] <= 8 and d["spill_bytes"] <= 64
+
+
+@pytest.mark.parametrize("m", [8, 33])
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("fmt", FOUR_BIT_CODEBOOKS + EIGHT_BIT)
+def test_matmul_f32_routes_every_format_and_block(cuda, fmt, block, m):
+    """Every 16-entry codebook through matmul_4bit and every 8-bit format
+    (int8's signed codes, int8a's unsigned ones with its zero-point term
+    outside the kernel, nf8, fp8) through matmul_8bit, at blocks 32, 64 and
+    128, on either side of the design switch."""
+    g = torch.Generator(device=cuda).manual_seed(block + m)
+    w = torch.randn((768, 768), generator=g, device=cuda) * 0.02
+    x = torch.randn((m, 768), generator=g, device=cuda)
+    qt = tcore.quantize_matmul_weight(w, fmt=fmt, block_size=block)
+    _f32_route_check(x, qt, "matmul_8bit" if fmt in EIGHT_BIT else "matmul_4bit")
+
+
+@pytest.mark.parametrize("m", [5, 40])
+@pytest.mark.parametrize("bits,k,n,block", [(4, 416, 72, 32), (4, 400, 72, 8), (4, 2048, 200, 64),
+                                            (8, 192, 72, 64), (8, 200, 72, 8), (8, 1000, 200, 40)])
+def test_matmul_f32_raw_ragged(cuda, bits, k, n, block, m):
+    """Unpadded codes: K, N and M off every tile, blocks that stage one scale
+    row a slice or step and blocks that read their scales row by row."""
+    g = torch.Generator(device=cuda).manual_seed(k + n + block + m)
+    rows = k // 2 if bits == 4 else k
+    codes = torch.randint(0, 256, (rows, n), generator=g, device=cuda, dtype=torch.uint8)
+    scales = torch.rand((k // block, n), generator=g, device=cuda) * 0.01
+    x = torch.randn((m, k), generator=g, device=cuda)
+    fn = tmm.matmul_4bit if bits == 4 else tmm.matmul_8bit
+    kw = {"codebook": "nf4"} if bits == 4 else {"codebook": "nf8"}
+    out = fn(x, codes, scales, block=block, **kw)
+    ref = fn(x, codes, scales, block=block, use_kernel=False, **kw)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert torch.equal(out, fn(x, codes, scales, block=block, **kw))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("k_pad,m", [(1024, 16), (3072, 48)], ids=["decode", "prefill"])
+def test_matmul_f32_split_covers_every_k_block(cuda, bits, k_pad, m):
+    """A K split that leaves out or repeats a block of K shows here: row i of
+    x is nonzero only in block i % blocks, so each row of the output is the
+    product of one block of W's rows, and each must equal the plain
+    version's. The shapes split K over a cluster (split > 1) in both
+    designs."""
+    g = torch.Generator(device=cuda).manual_seed(k_pad + bits)
+    n, block = 768, 64
+    qt = tcore.quantize_matmul_weight(torch.randn((k_pad, n), generator=g, device=cuda),
+                                      fmt="nf4a" if bits == 4 else "int8", block_size=block)
+    blocks = k_pad // block
+    x = torch.zeros((m, k_pad), device=cuda)
+    for i in range(m):
+        b = i % blocks
+        x[i, b * block:(b + 1) * block] = torch.randn(block, generator=g, device=cuda)
+    kernel = "matmul_4bit" if bits == 4 else "matmul_8bit"
+    report = tmm.matmul_4bit_design if bits == 4 else tmm.matmul_8bit_design
+    assert report(m, n, k_pad, dtype=torch.float32)["split"] > 1
+    out = _f32_route_check(x, qt, kernel)
+    ref = tmm.matmul_quantized(x, qt, use_kernel=False)
+    scale = ref.abs().amax(dim=1)
+    assert bool((scale > 0).all())
+    assert bool(((out - ref).abs().amax(dim=1) <= 1e-5 * scale).all())
+
+
 # ------------------------------------------------ tensor-parallel local shapes
 
 # (K, N) of Llama-2-7B's and -13B's linears and their TP split (1: N, the
