@@ -164,8 +164,12 @@ and the script exits non-zero (nothing is caught):
      ``matmul_4bit`` (nf4a) and ``matmul_8bit`` (int8) at the proxy's four
      (K, N) (512 x 512, 512 x 128, 512 x 1536, 1536 x 512) and M = 32 x
      256 on the trees' own weights, 1e-5 of max|plain|, bit-identical over
-     two calls, and the f32 ``matmul_4bit_t`` and ``matmul_8bit_t`` there,
-     each timed with its plain version and its bound;
+     two calls, and the f32 ``matmul_4bit_t`` and ``matmul_8bit_t`` (the
+     3xTF32 dx tile) there under the same rule, each timed with its plain
+     version, cuBLAS's f32 GEMM on the dequantized weight (the library
+     time) and its bound (the dx rows also the bound of their three TF32
+     products, which they are read against), the dx rows with their
+     design (``matmul_4bit_t_design`` / ``matmul_8bit_t_design``);
  19. GPT-2 small's kernels: ``matmul_4bit`` (nf4a, bf16 and f32 x at M in
      {8, 1024}), ``matmul_8bit`` (int8 and nf8, f32 x at M in {8, 1024})
      and ``matmul_int8_fused`` (f32 x at M in {8, 256}) against their plain
@@ -177,7 +181,7 @@ and the script exits non-zero (nothing is caught):
      the plain version and the bound, one GPT-2 decode step's 48 calls (M
      = 8) of each route with their bound, the f32 rows slower than their
      plain version on a line of their own; and the f32 ``matmul_4bit_t``
-     and ``matmul_8bit_t`` at M = 1024, timed;
+     and ``matmul_8bit_t`` at M = 1024, checked and timed as in phase 18;
  20. HF checkpoints through the port's own safetensors codec: GPT-2 small
      (12 layers, 768 wide, vocab 50257, 1024 positions, random f32 weights
      from seed 0) and a TinyLlama-1.1B-width Llama of 2 layers (bf16
@@ -277,7 +281,25 @@ and the script exits non-zero (nothing is caught):
      time, the host loop's window at readback depths 0, 1 and 2 and the
      link's round trip, every term finite and above 0, the synchronous
      host window at least the device's and the round trip below it,
-     beside ``serve_bench.window_profile``'s Engine window at that depth.
+     beside ``serve_bench.window_profile``'s Engine window at that depth;
+ 32. QLoRA on an f32 base, the JAX package's ``finetune --toy tinyllama
+     --dtype float32``: TinyLlama-1.1B at full width and depth in f32
+     (random weights from seed 0) quantized to nf4 and to int8, rank-8 f32
+     LoRA on wq and wv, 8-bit Adam, batch 4 x seq 512 (einsum attention):
+     phase 9's 3 + 3 + 1 steps, the step-1 loss within 1e-4 relative and
+     each lora_b gradient within 1e-4 rel-L2 of ``use_kernel=False``
+     (``F32_QLORA_REL``: f32 reorderings only; the reordered floor printed
+     beside), the loss falling, per step 155 ``matmul_4bit`` (or
+     ``matmul_8bit``) through its f32 FMA GEMM, 152 ``matmul_4bit_t`` (or
+     ``matmul_8bit_t``) through the 3xTF32 dx tile and 1
+     ``adam8bit_update``, nothing else; ``train_bench.bench_qlora`` on each
+     base (step ms, tok/s, busy share, step-peak GiB, top device ops, the
+     forward and dx kernels' share of the device time); the f32
+     ``matmul_4bit`` (nf4) and ``matmul_8bit`` (int8) at the forward's five
+     (K, N), M = 2048, on each tree's own leaves, within 1e-5 of
+     max|plain|, the same bits on a second call, the design checked; then
+     the f32 ``matmul_4bit_t`` and ``matmul_8bit_t`` at TinyLlama's five
+     (K, N), M = 2048, as in phase 18.
 
 Then the seconds each phase took, the redesigned kernels' earlier times
 as PERF.md records them (``earlier_times``, beside this run's), the
@@ -313,6 +335,7 @@ from quanta_tpu_torch.benchmarks import (accuracy_bench, decode_bench, engine_ga
                                          model_scale_bench, serve_bench, spmd_bench, tp_bench,
                                          train_bench)
 from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, copies_past_l2, time_ms
+from quanta_tpu_torch.benchmarks.kernel_sweep import dequantized_f32, f32_t_row
 from quanta_tpu_torch.benchmarks.logits_gate import rel_l2, reordered_plain
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.core.qtensor import QuantizedTensor
@@ -419,6 +442,24 @@ EARLIER_US = {
     "matmul_int8_fused": {"M8_2048x5632": 65.5},
     "matmul_int8": {"M8_2048x5632": 29.0},
     "quantize_blockwise": {"window_8x8": 4.1},
+    # the first port's f32 FMA kernels of #4 (nf4a) and #5 (int8) before
+    # their 3xTF32 redesign, at GPT-2's (K, N), M = 1024, the proxy's, M =
+    # 8192, and TinyLlama-1.1B's, M = 2048 (PERF.md, PR 18's run-B table,
+    # its "[first port]" column)
+    "matmul_4bit_t_f32": {"M1024_768x2304": 246.0, "M1024_768x768": 84.8,
+                          "M1024_768x3072": 327.8, "M1024_3072x768": 197.5,
+                          "M8192_512x512": 315.4, "M8192_512x128": 89.2,
+                          "M8192_512x1536": 921.0, "M8192_1536x512": 577.9,
+                          "M2048_2048x2048": 611.8, "M2048_2048x256": 80.2,
+                          "M2048_2048x5632": 1659.6, "M2048_5632x2048": 1702.1,
+                          "M2048_2048x32000": 9364.0},
+    "matmul_8bit_t_f32": {"M1024_768x2304": 256.8, "M1024_768x768": 88.5,
+                          "M1024_768x3072": 340.9, "M1024_3072x768": 209.2,
+                          "M8192_512x512": 321.9, "M8192_512x128": 86.4,
+                          "M8192_512x1536": 953.4, "M8192_1536x512": 598.6,
+                          "M2048_2048x2048": 640.7, "M2048_2048x256": 83.7,
+                          "M2048_2048x5632": 1741.9, "M2048_5632x2048": 1783.9,
+                          "M2048_2048x32000": 9889.4},
 }
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
@@ -521,6 +562,14 @@ GPT2_ELEMENTS = 124_439_808
 # the optimizer's plain route divides by bc1 in another order than the
 # kernel: parameters within 2 f32 ulps of |p| + lr
 GPT2_REORDER_REL = 2.0 ** -22
+# phase 32: QLoRA on an f32 TinyLlama-1.1B base (the JAX package's
+# ``finetune --toy tinyllama --dtype float32``) in nf4 and int8, and the
+# kernels each base launches; its step-1 loss and lora_b gradients against
+# the plain route within F32_QLORA_REL (f32 products, f32 sums in another
+# order, as F32_LOGITS_REL)
+F32_QLORA = (("nf4", ("matmul_4bit", "matmul_4bit_t")),
+             ("int8", ("matmul_8bit", "matmul_8bit_t")))
+F32_QLORA_REL = 1e-4
 # phase 31's depth: at TIMED_DEPTH (11) layers the phase took 72.7 s on an
 # H100 80GB HBM3 at 700 W, most of it the host issuing profiled and timed
 # windows
@@ -531,7 +580,8 @@ GAP_DEPTH = 8
 # dense peaks by operand type
 HBM_BYTES_S = profiling.H100.hbm_gbps * 1e9
 PEAK_OPS_S = {"bf16": profiling.H100.bf16_tflops * 1e12,
-              "int8": profiling.H100.int8_tops * 1e12, "f32": profiling.H100.f32_tflops * 1e12}
+              "int8": profiling.H100.int8_tops * 1e12, "f32": profiling.H100.f32_tflops * 1e12,
+              "tf32": profiling.H100.tf32_tflops * 1e12}
 
 
 def nbytes(*tensors):
@@ -1177,7 +1227,11 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
     from the same adapters on one fixed batch, launches counted per step;
     then one step through the reordered plain versions (the noise floor).
     ``kernels``: the forward and transposed kernels of the base's layout.
+    The step-1 loss within 1e-2 relative of the plain route and each lora_b
+    gradient within the floor rule; on an f32 base (``cfg.dtype``, f32
+    adapters) both within ``F32_QLORA_REL``, the floor printed beside.
     Returns the kernel route's launches."""
+    f32_rel = F32_QLORA_REL if cfg.dtype == torch.float32 else None
     data = train_bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
     init = train_bench.with_lora(base)
     per_forward = 7 * cfg.n_layers + 1
@@ -1218,8 +1272,8 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
         emit(qlora_path=dict(base=fmt, route="kernels" if route is None else "plain", lr=TRAIN_LR,
                              losses=losses, step_seconds=seconds, launches_per_step=counts[0]))
     (lk, gk), (lp, gp), (lr_, gr) = runs[None], runs[False], runs["reordered"]
-    loss_rel = abs(lk[0] - lp[0]) / abs(lp[0])
-    check(loss_rel <= 1e-2, f"qlora {fmt} step-1 loss {lk[0]} vs plain {lp[0]}")
+    loss_rel, loss_tol = abs(lk[0] - lp[0]) / abs(lp[0]), f32_rel or 1e-2
+    check(loss_rel <= loss_tol, f"qlora {fmt} step-1 loss {lk[0]} vs plain {lp[0]}")
 
     b_rel, floor = [], []
     for (ak, bk), (ap, bp), (_, br) in zip(gk, gp, gr):
@@ -1227,14 +1281,15 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
               "qlora: lora_a gradients must be zero at step 1 (B starts at zero)")
         b_rel.append(rel_l2(bk, bp))
         floor.append(rel_l2(br, bp))
-    tols = [GRAD_FLOOR_X * f + GRAD_FLOOR_ABS for f in floor]
-    emit(qlora_check=dict(base=fmt, step1_loss_rel=loss_rel, tol=1e-2, lora_b_grad_rel_l2_max=max(b_rel),
-                          lora_b_grad_rel_l2=b_rel, grad_tols=tols,
+    tols = [f32_rel or GRAD_FLOOR_X * f + GRAD_FLOOR_ABS for f in floor]
+    emit(qlora_check=dict(base=fmt, step1_loss_rel=loss_rel, tol=loss_tol,
+                          lora_b_grad_rel_l2_max=max(b_rel), lora_b_grad_rel_l2=b_rel, grad_tols=tols,
                           reordered_plain_loss_rel=abs(lr_[0] - lp[0]) / abs(lp[0]),
                           reordered_plain_rel_l2_max=max(floor), reordered_plain_rel_l2=floor))
+    rule = "f32" if f32_rel else f"{GRAD_FLOOR_X} x its floor + {GRAD_FLOOR_ABS}"
     for i, (b, tol) in enumerate(zip(b_rel, tols)):
         check(b <= tol, f"qlora {fmt} layer {i // 2} {('wq', 'wv')[i % 2]} lora_b gradient "
-                        f"rel-L2 {b} > {tol} ({GRAD_FLOOR_X} x its floor + {GRAD_FLOOR_ABS})")
+                        f"rel-L2 {b} > {tol} ({rule})")
     return kernel_launches
 
 
@@ -1744,7 +1799,7 @@ def _first_leaves(tree, shapes):
     for leaf in _tensors(tree):
         if isinstance(leaf, QuantizedTensor) and tuple(leaf.shape) in shapes:
             found.setdefault(tuple(leaf.shape), leaf)
-    check(set(found) == set(shapes), f"accuracy: linears {sorted(found)}, expected {shapes}")
+    check(set(found) == set(shapes), f"linears {sorted(found)}, expected {sorted(shapes)}")
     return found
 
 
@@ -1756,7 +1811,8 @@ def accuracy_phase(dev):
     (int8) at the proxy's four (K, N) and M = batch x seq on the trees' own
     weights, and the f32 matmul_4bit_t and matmul_8bit_t there. Returns the
     proxy's f32 times as {kernel: {"M{m}_{k}x{n}": [kernel µs, plain µs,
-    bound µs]}}."""
+    bound µs, library µs]}} (the transposed kernels' as
+    ``_transposed_f32_rows`` gives them)."""
     _build.reset_launches()
     result, variants, eval_ids, acfg = accuracy_bench.run(steps=ACC_STEPS, device=dev)
     eight_launches = _build.launches["matmul_8bit"]
@@ -1789,7 +1845,8 @@ def accuracy_phase(dev):
             _, row = _quantized_check(f"accuracy {kernel} {fmt} f32 M={m} K={k} N={n}", x, qt,
                                       torch.float32, 10)
             emit(kernel_check=dict(kernel=kernel, model="accuracy_proxy", fmt=fmt, **row))
-            times[kernel][f"M{m}_{k}x{n}"] = [row["us"], row["plain_us"], row["bound_us"]]
+            times[kernel][f"M{m}_{k}x{n}"] = [row["us"], row["plain_us"], row["bound_us"],
+                                             row["library_us"]]
     times.update(_transposed_f32_rows(gen, dev, ACC_SHAPES, m, "accuracy_proxy"))
     return times
 
@@ -1825,7 +1882,12 @@ def _quantized_check(name, x, qt, dtype, iters):
                us=time_ms(run(None, qts), iters) * 1e3,
                plain_us=time_ms(run(False, qts), iters) * 1e3, bound_us=bound_us,
                bound_by=bound_by, bit_identical_over_two_calls=same)
+    if dtype == torch.float32:
+        ws = copies_past_l2(dequantized_f32(qt))
+        xp = matmul._pad_k(x, ws[0][0].shape[0])
+        row["library_us"] = time_ms(lambda i: xp @ ws[i % len(ws)][0], iters) * 1e3
     return out, row
+
 
 
 def _checked_design(report, m, n, k_pad, dtype):
@@ -1839,35 +1901,40 @@ def _checked_design(report, m, n, k_pad, dtype):
 
 def _transposed_f32_rows(gen, dev, shapes, m, tag):
     """The f32 routes of matmul_4bit_t (nf4a) and matmul_8bit_t (int8), the
-    first port's FMA kernels, against their plain versions at ``shapes``
-    (K, N) and M, within 1e-5 of max|plain|: µs per call, the plain
-    version's and the bound. Returns {kernel: {"M{m}_{k}x{n}": [kernel µs,
-    plain µs, bound µs]}}."""
+    3xTF32 wgmma design, against their plain versions at ``shapes`` (K, N)
+    and M: within 1e-5 of max|plain|, the same bits on a second call, µs per
+    call with the weights rotated past the L2, beside the plain version's,
+    cuBLAS's f32 GEMM on the dequantized weight (the library time), the f32
+    bound (the CUDA cores' 67 TFLOP/s) and the design's own (its three TF32
+    products at 495 TFLOP/s, or its bytes), which the row is read against.
+    Returns {kernel: {"M{m}_{k}x{n}": {"us", "plain_us", "library_us",
+    "bound_us", "tf32x3_bound_us"}}}."""
     times = {"matmul_4bit_t": {}, "matmul_8bit_t": {}}
     for k, n in shapes:
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         g = torch.randn((m, n), generator=gen, device=dev)
-        for name, fn, fmt in (("matmul_4bit_t", matmul.matmul_4bit_t, "nf4a"),
-                              ("matmul_8bit_t", matmul.matmul_8bit_t, "int8")):
+        for name, fn, fmt, report in (
+                ("matmul_4bit_t", matmul.matmul_4bit_t, "nf4a", matmul.matmul_4bit_t_design),
+                ("matmul_8bit_t", matmul.matmul_8bit_t, "int8", matmul.matmul_8bit_t_design)):
             qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
-            ws = copies_past_l2(qt.codes, qt.scale)
-
-            def run(use_kernel, ws, fn=fn, cb=qt.codebook):
-                return lambda i: fn(g, *ws[i % len(ws)], codebook=cb, block=64,
-                                    use_kernel=use_kernel)
-            out = run(True, [(qt.codes, qt.scale)])(0)
-            ref = run(False, [(qt.codes, qt.scale)])(0)
-            err = (out - ref).abs().max().item()
-            tol = 1e-5 * ref.abs().max().item()
-            check(torch.isfinite(out).all().item() and err <= tol,
-                  f"{tag} {name} f32 M={m} K={k} N={n}: err {err} > {tol}")
-            bound_us, bound_by = _bound_us(nbytes(g, qt.codes, qt.scale, out), 2 * m * k * n,
-                                           "f32")
+            out, r = f32_t_row(g, qt, fn, 3)
+            err, tol, same = r["max_abs_err"], r["tol"], r["same"]
+            tag_ = f"{tag} {name} f32 M={m} K={k} N={n}"
+            check(torch.isfinite(out).all().item() and err <= tol, f"{tag_}: err {err} > {tol}")
+            check(same, f"{tag_}: two calls differ")
+            k_pad = out.shape[1]
+            design = report(m, qt.codes.shape[1], k_pad, dtype=torch.float32)
+            check(design["design"] == "wgmma_3xtf32", f"{tag_}: design {design}")
+            n_bytes, ops = nbytes(g, qt.codes, qt.scale, out), 2 * m * k * n
+            bound_us, bound_by = _bound_us(n_bytes, ops, "f32")
+            x3_us, x3_by = _bound_us(n_bytes, 3 * ops, "tf32")
             row = dict(kernel=name, model=tag, fmt=fmt, dtype="float32", M=m, K=k, N=n,
-                       max_abs_err=err, tol=tol, us=time_ms(run(True, ws), 3) * 1e3,
-                       plain_us=time_ms(run(False, ws), 3) * 1e3, bound_us=bound_us,
-                       bound_by=bound_by)
-            times[name][f"M{m}_{k}x{n}"] = [row["us"], row["plain_us"], bound_us]
+                       K_pad=k_pad, max_abs_err=err, tol=tol, bit_identical_over_two_calls=same,
+                       us=r["us"], plain_us=r["plain_us"], library_us=r["library_us"],
+                       bound_us=bound_us, bound_by=bound_by, tf32x3_bound_us=x3_us,
+                       tf32x3_bound_by=x3_by, read_against="tf32x3_bound_us", design=design)
+            times[name][f"M{m}_{k}x{n}"] = {key: row[key] for key in (
+                "us", "plain_us", "library_us", "bound_us", "tf32x3_bound_us")}
             emit(kernel_check=row)
     return times
 
@@ -1879,15 +1946,17 @@ def gpt2_kernel_checks(dev):
     plain versions under phase 3's and 4's rules, every route the same bits
     on a second call, the design per row, µs per call (and the plain
     version's, and the bound) with the weights rotated past the L2; the f32
-    routes of matmul_4bit_t and matmul_8bit_t timed at M = 1024. Returns one
-    GPT-2 decode step's calls (M = 8: matmul_4bit in bf16 and in f32,
-    matmul_8bit in f32, int8) as {name: [kernel ms, plain ms, bound ms,
-    bound by]}, the largest errors and the f32 backward times."""
+    routes of matmul_4bit_t and matmul_8bit_t checked and timed at M = 1024.
+    Returns one GPT-2 decode step's calls (M = 8: matmul_4bit in bf16 and in
+    f32, matmul_8bit in f32, int8) as {name: [kernel ms, plain ms, bound ms,
+    bound by]} (the f32 ones then the library ms), the largest errors and
+    the f32 backward times."""
     gen = torch.Generator(device=dev).manual_seed(4)
     work = {}
     step = {k: [0.0, 0.0] for k in ("matmul_4bit", "matmul_4bit_f32", "matmul_8bit_f32",
                                     "matmul_int8_fused")}
     max_err = {"matmul_4bit": 0.0, "matmul_8bit": 0.0, "matmul_int8_fused": 0.0}
+    library = {"matmul_4bit_f32": 0.0, "matmul_8bit_f32": 0.0}
     slower = []
     for (k, n), count in GPT2_SHAPES.items():
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
@@ -1909,6 +1978,8 @@ def gpt2_kernel_checks(dev):
                 if m == 8 and fmt in ("nf4a", "int8"):
                     step[key][0] += count * row["us"] / 1e3
                     step[key][1] += count * row["plain_us"] / 1e3
+                    if dtype == torch.float32:
+                        library[key] += count * row["library_us"] / 1e3
                     add_work(work, key, nbytes(x, qt.codes, qt.scale, out), 2 * m * k * n,
                              count)
                 if dtype == torch.float32 and row["us"] >= row["plain_us"]:
@@ -1950,10 +2021,13 @@ def gpt2_kernel_checks(dev):
     for name, kind in (("matmul_4bit", "bf16"), ("matmul_4bit_f32", "f32"),
                        ("matmul_8bit_f32", "f32"), ("matmul_int8_fused", "int8")):
         step[name] += list(bound(work[name], kind))
+    for name, ms in library.items():
+        step[name].append(ms)
     emit(gpt2_decode_step_kernels={
         "note": "one GPT-2 small decode step's 48 calls at M=8 as [kernel ms, plain ms, bound ms, "
-                "bound by]: matmul_4bit nf4a bf16 x and f32 x, matmul_8bit int8 f32 x, llm_int8 "
-                "f32 x", **step})
+                "bound by] (the f32 rows then cuBLAS's f32 GEMM on the dequantized weights, ms): "
+                "matmul_4bit nf4a bf16 x and f32 x, matmul_8bit int8 f32 x, llm_int8 f32 x",
+        **step})
     emit(gpt2_f32_slower_than_plain=slower)
     t_f32 = _transposed_f32_rows(gen, dev, GPT2_SHAPES, GPT2_T_F32_M, "gpt2")
     return step, max_err, t_f32
@@ -2406,6 +2480,62 @@ def gpt2_full_train(dev):
     return kern["launches"], row["adam8bit_update"]
 
 
+def qlora_f32(dev):
+    """Phase 32: QLoRA on an f32 TinyLlama-1.1B base at full width and depth
+    (random weights from seed 0), quantized to nf4 and to int8: phase 9's
+    path (3 steps through the kernels, 3 plain, 1 reordered) with f32
+    rank-8 adapters under the f32 limits of ``F32_QLORA_REL``, 155
+    forward-kernel, 152 transposed-kernel and 1 ``adam8bit_update`` launches
+    a step, then ``train_bench``'s row on each base; the forward kernels'
+    f32 route (matmul_4bit on the nf4 tree, matmul_8bit on the int8 tree)
+    at each of the forward's five (K, N), M = 2048, on the trees' own
+    leaves, as phase 18 holds it at the proxy's; then the f32 transposed
+    kernels at TinyLlama's five (K, N), M = 2048. The CLI's adapters are
+    bf16 (``train.add_lora``'s default); in f32 every difference between
+    the routes is an f32 reordering, the one the 1e-4 limits hold (a bf16
+    adapter would round the routes' gradients apart). Returns the kernel
+    routes' launches, the forward rows' times as {kernel: {"M{m}_{k}x{n}":
+    [kernel µs, plain µs, bound µs, library µs]}} and the transposed rows'
+    as ``_transposed_f32_rows`` gives them."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tinyllama_1b(), dtype=torch.float32)
+    dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    trees = {fmt: qnn.quantize_params(dense, mode=fmt) for fmt, _ in F32_QLORA}
+    del dense
+    launches = {}
+    for fmt, kernels in F32_QLORA:
+        got = qlora_path(dev, cfg, trees[fmt], fmt=f"{fmt} f32-base", kernels=kernels)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        row = train_bench.bench_qlora(trees[fmt], cfg)
+        check(math.isfinite(row["loss_step1"]), f"train row {fmt} f32: loss {row['loss_step1']}")
+        # the forward kernels' (mmf_*) and the dx kernel's share of the
+        # profiled step's device time, as far as they stand among its top ops
+        top, busy = row["top_device_ms"], row["device_busy_ms"]
+        shares = {k: sum(ms for name, ms in top.items() if key in name) / busy if busy else None
+                  for k, key in (("fma_forward", "mmf_"), ("tf32x3_dx", "mmt_tf32x3"))}
+        emit(train_row={"name": f"tinyllama {fmt} f32-base", "fmt": fmt, "dtype": "float32",
+                        "kernel_share_of_device_ms": shares, **row})
+    gen = torch.Generator(device=dev).manual_seed(32)
+    forward = {}
+    for fmt, (kernel, _) in F32_QLORA:
+        forward[kernel] = {}
+        report = matmul.matmul_4bit_design if kernel == "matmul_4bit" else \
+            matmul.matmul_8bit_design
+        for (k, n), qt in _first_leaves(trees[fmt], SHAPES).items():
+            x = torch.randn((M_TRAIN, k), generator=gen, device=dev)
+            _, row = _quantized_check(f"tinyllama {kernel} {fmt} f32 M={M_TRAIN} K={k} N={n}", x,
+                                      qt, torch.float32, 10)
+            k_pad = qt.codes.shape[0] * (2 if kernel == "matmul_4bit" else 1)
+            emit(kernel_check=dict(kernel=kernel, model="tinyllama", fmt=fmt, K_pad=k_pad, **row,
+                                   design=_checked_design(report, M_TRAIN, n, k_pad,
+                                                          torch.float32)))
+            forward[kernel][f"M{M_TRAIN}_{k}x{n}"] = [row["us"], row["plain_us"], row["bound_us"],
+                                                      row["library_us"]]
+    del trees
+    torch.cuda.empty_cache()
+    return launches, forward, _transposed_f32_rows(gen, dev, T_SHAPES, M_TRAIN, "tinyllama")
+
+
 def engine_gap(dev):
     """Phase 31: ``benchmarks.engine_gap_bench`` (nf4a, 8 slots, k 8) at
     TinyLlama-1.1B's width and ``GAP_DEPTH`` layers, beside
@@ -2585,6 +2715,10 @@ def main():
     with timed("31 engine gap"):
         for k, v in engine_gap(dev).items():
             launches[k] += v
+    with timed("32 qlora f32 base"):
+        q32, tl_f32_fwd, tl_f32 = qlora_f32(dev)
+        for k, v in q32.items():
+            (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
     emit(phase_seconds=phase_s)
 
     def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,
@@ -2599,9 +2733,15 @@ def main():
     gpt2_at = ("gpt2_step_ms: one GPT-2 small decode step's 48 calls at M=8 as [kernel, plain, "
                "bound, bound by]")
     f32_at = ("gpt2_f32_step_ms: one GPT-2 small decode step's 48 calls at M=8 on f32 x through "
-              "the f32 route as [kernel, plain, bound, bound by]; f32_accuracy_proxy_us: the "
-              "f32 route at the accuracy proxy's (K, N), M=8192, as [kernel, plain, bound] µs a "
-              "call")
+              "the f32 route as [kernel, plain, bound, bound by, library: cuBLAS's f32 GEMM on "
+              "the dequantized weights]; f32_accuracy_proxy_us: the f32 route at the accuracy "
+              "proxy's (K, N), M=8192, as [kernel, plain, bound, library] µs a call; "
+              "f32_tinyllama_us: the same at TinyLlama-1.1B's five (K, N), M=2048, on the f32 "
+              "QLoRA base's own leaves (nf4 for matmul_4bit)")
+    f32_t_at = ("f32_us: the f32 route, the 3xTF32 wgmma design, µs a call at GPT-2's (K, N), "
+                "M=1024, the accuracy proxy's, M=8192, and TinyLlama-1.1B's, M=2048, with its "
+                "plain version, cuBLAS's f32 GEMM on the dequantized weight (library), the f32 "
+                "bound and the bound of its three TF32 products, which it is read against")
     i8_prefill = ("one prefill forward's 155 calls at M=1024 as [kernel, plain, dense], dense: "
                   "torch._int_mm of the int8 activations and the codes, which takes M > 16 only)")
     flash_at = ("one call at TinyLlama-1.1B's QLoRA shape (B=2, S=T=1024, 32 heads, 4 KV "
@@ -2635,7 +2775,8 @@ def main():
               qlora_forward_ms=per_step["matmul_4bit_qlora_forward"],
               gpt2_step_ms=gpt2_step["matmul_4bit"],
               gpt2_f32_step_ms=gpt2_step["matmul_4bit_f32"],
-              f32_accuracy_proxy_us=acc_f32["matmul_4bit"]),
+              f32_accuracy_proxy_us=acc_f32["matmul_4bit"],
+              f32_tinyllama_us=tl_f32_fwd["matmul_4bit"]),
         entry("matmul_int4c", "int4c.cu", "quanta_tpu/ops/int4c.py:116",
               launches["matmul_int4c"], *per_step["matmul_int4c"], "int8",
               at + "; library: none, no PyTorch call unpacks 4-bit codes or applies row and "
@@ -2664,12 +2805,12 @@ def main():
         entry("matmul_4bit_t", "matmul_4bit_t.cu", "quanta_tpu/ops/matmul.py:423",
               train_launches["matmul_4bit_t"], *t_step[:2], "bf16",
               "one QLoRA backward's 152 calls at M=2048, bf16 g, nf4, ms; library: none "
-              "(dense_control_ms: cuBLAS g @ W_deq^T of the dequantized bf16 weights; f32_us: "
-              "the first port's f32 route, nf4a, as [kernel, plain, bound] µs a call at GPT-2's "
-              "(K, N), M=1024, and the accuracy proxy's, M=8192)",
+              "(dense_control_ms: cuBLAS g @ W_deq^T of the dequantized bf16 weights; "
+              + f32_t_at + ", nf4a)",
               dense_control_ms=t_step[2],
               f32_us={"gpt2": gpt2_t_f32["matmul_4bit_t"],
-                      "accuracy_proxy": acc_f32["matmul_4bit_t"]}),
+                      "accuracy_proxy": acc_f32["matmul_4bit_t"],
+                      "tinyllama": tl_f32["matmul_4bit_t"]}),
         entry("adam8bit_update", "adam8bit.cu", "quanta_tpu/ops/adam8bit.py:72",
               train_launches["adam8bit_update"], *adam_step, "f32",
               "one QLoRA step's optimizer over its 88 bf16 adapter leaves (66 of 64 blocks, "
@@ -2698,14 +2839,16 @@ def main():
               dense_control_ms=eight_step[("matmul_8bit", 8)][2],
               qlora_forward_ms=eight_step[("matmul_8bit", M_TRAIN)],
               gpt2_f32_step_ms=gpt2_step["matmul_8bit_f32"],
-              f32_accuracy_proxy_us=acc_f32["matmul_8bit"]),
+              f32_accuracy_proxy_us=acc_f32["matmul_8bit"],
+              f32_tinyllama_us=tl_f32_fwd["matmul_8bit"]),
         entry("matmul_8bit_t", "matmul_8bit_t.cu", "quanta_tpu/ops/matmul.py:529",
               launches["matmul_8bit_t"], *eight_step[("matmul_8bit_t", M_TRAIN)][:2], "bf16",
               "one QLoRA backward's 152 calls at M=2048, int8, bf16 g, ms; library: none "
               "(dense_control_ms as for matmul_8bit; f32_us as for matmul_4bit_t, int8)",
               dense_control_ms=eight_step[("matmul_8bit_t", M_TRAIN)][2],
               f32_us={"gpt2": gpt2_t_f32["matmul_8bit_t"],
-                      "accuracy_proxy": acc_f32["matmul_8bit_t"]}),
+                      "accuracy_proxy": acc_f32["matmul_8bit_t"],
+                      "tinyllama": tl_f32["matmul_8bit_t"]}),
     ])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -1,7 +1,7 @@
 """Time the bf16 ``flash_fwd``, ``matmul_8bit``, ``matmul_4bit``,
 ``matmul_8bit_t`` and ``matmul_4bit_t`` kernels, ``matmul_int4c``, the
-LLM.int8 pair and the f32 routes of ``matmul_4bit`` and ``matmul_8bit``
-across shapes.
+LLM.int8 pair and the f32 routes of ``matmul_4bit``, ``matmul_8bit``,
+``matmul_4bit_t`` and ``matmul_8bit_t`` across shapes.
 
     python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8 mm4 mm8t mm4t i4c i8 f32] [--ms 8 32]
 
@@ -35,13 +35,17 @@ the library, and run this again. One JSON object per line:
   shapes and M, with the design each takes (the decode/prefill crossover,
   the ring depths, the decode column width);
 - ``f32``: ``matmul_4bit`` (nf4a) and ``matmul_8bit`` (int8) on f32 x
-  through ``matmul_quantized``, beside their plain versions: at GPT-2
-  small's four (K, N) for M in {8, 1024} and at the accuracy proxy's four
-  for M = 8192 (the split-K FMA decode, the FMA GEMM's tile, ring and K
-  split). It calls nothing newer than ``matmul_quantized``, so the same
-  file times another checkout's kernels with that checkout first on
-  ``PYTHONPATH`` (``python quanta_tpu_torch/benchmarks/kernel_sweep.py
-  --what f32``).
+  through ``matmul_quantized``, beside their plain versions and cuBLAS's
+  f32 GEMM on the dequantized weight (``library_us``): at GPT-2 small's
+  four (K, N) for M in {8, 1024} and at the accuracy proxy's four for M =
+  8192 (the split-K FMA decode, the FMA GEMM's tile, ring and K split);
+  then ``matmul_4bit_t`` (nf4a) and ``matmul_8bit_t`` (int8) on f32 g the
+  same way (``sweep`` "f32_t"), at GPT-2's four (K, N) for M = 1024, the
+  proxy's for M = 8192 and TinyLlama-1.1B's five for M = 2048 (the 3xTF32
+  dx tile). It calls nothing newer than ``matmul_quantized``,
+  ``matmul_4bit_t`` and ``matmul_8bit_t``, so the same file times another
+  checkout's kernels with that checkout first on ``PYTHONPATH`` (``python
+  quanta_tpu_torch/benchmarks/kernel_sweep.py --what f32``).
 
 ``--ms`` keeps only the M named (of the matmul rows).
 
@@ -61,7 +65,7 @@ import subprocess
 
 import torch
 
-from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, time_ms
+from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, copies_past_l2, time_ms
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.ops import attention, int4c, int8mm, matmul
 
@@ -70,8 +74,13 @@ MM8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 3200
 MM8_MS = (8, 16, 32, 64, 256, 1024, 2048)
 MM4T_SHAPES = MM8_SHAPES + [(4096, 4096), (4096, 11008), (11008, 4096)]
 # the f32 rows' (K, N) and M: GPT-2 small's linears, the accuracy proxy's
-F32_CASES = ([((k, n), (8, 1024)) for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768))]
-             + [((k, n), (8192,)) for k, n in ((512, 512), (512, 128), (512, 1536), (1536, 512))])
+GPT2_KN = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+PROXY_KN = ((512, 512), (512, 128), (512, 1536), (1536, 512))
+F32_CASES = [(kn, (8, 1024)) for kn in GPT2_KN] + [(kn, (8192,)) for kn in PROXY_KN]
+# the f32 dx rows': GPT-2's at M = 1024, the proxy's at M = 8192,
+# TinyLlama-1.1B's QLoRA backward's at M = 2048
+F32_T_CASES = ([(kn, 1024) for kn in GPT2_KN] + [(kn, 8192) for kn in PROXY_KN]
+               + [(kn, 2048) for kn in MM8_SHAPES])
 
 
 def emit(**obj):
@@ -224,16 +233,22 @@ def i8_rows(dev, pick):
                                                       fused=name == "matmul_int8_fused"))
 
 
+def dequantized_f32(qt):
+    """The f32 (K_pad, N_pad) weight the plain versions multiply: what
+    cuBLAS's f32 GEMM, an f32 row's library time, reads."""
+    deq = matmul._dequant_4bit if qt.packed == "split_k" else matmul._dequant_8bit
+    return deq(qt.codes, qt.scale, qt.codebook, qt.block_size, torch.float32)
+
+
 def f32_rows(dev, pick):
     gen = torch.Generator(device=dev).manual_seed(0)
     for (k, n), ms in F32_CASES:
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         for fmt in ("nf4a", "int8"):
             qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
-            copies = max(1, min(64, math.ceil(2 * L2_BYTES / (qt.codes.numel()
-                                                              + 4 * qt.scale.numel()))))
-            qts = [dataclasses.replace(qt, codes=qt.codes.clone(), scale=qt.scale.clone())
-                   for _ in range(copies)]
+            qts = [dataclasses.replace(qt, codes=c, scale=sc)
+                   for c, sc in copies_past_l2(qt.codes, qt.scale)]
+            wd = copies_past_l2(dequantized_f32(qt))
             for m in pick(ms):
                 x = torch.randn((m, k), generator=gen, device=dev)
                 out = matmul.matmul_quantized(x, qt)
@@ -244,9 +259,46 @@ def f32_rows(dev, pick):
                 ms_ = time_ms(lambda i: matmul.matmul_quantized(x, qts[i % len(qts)]), iters)
                 plain = time_ms(lambda i: matmul.matmul_quantized(x, qts[i % len(qts)],
                                                                   use_kernel=False), iters)
+                xp = matmul._pad_k(x, wd[0][0].shape[0])
+                lib = time_ms(lambda i: xp @ wd[i % len(wd)][0], iters)
                 emit(sweep="f32", fmt=fmt, M=m, K=k, N=n, us=ms_ * 1e3, plain_us=plain * 1e3,
-                     tflops=2 * m * k * n / (ms_ * 1e-3) / 1e12, max_abs_err=err, tol=tol,
-                     ok=err <= tol, same=torch.equal(out, matmul.matmul_quantized(x, qt)))
+                     library_us=lib * 1e3, tflops=2 * m * k * n / (ms_ * 1e-3) / 1e12,
+                     max_abs_err=err, tol=tol, ok=err <= tol,
+                     same=torch.equal(out, matmul.matmul_quantized(x, qt)))
+    for (k, n), m in F32_T_CASES:
+        if not pick((m,)):
+            continue
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        g = torch.randn((m, n), generator=gen, device=dev)
+        for fmt, fn in (("nf4a", matmul.matmul_4bit_t), ("int8", matmul.matmul_8bit_t)):
+            qt = codecs.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+            out, row = f32_t_row(g, qt, fn, 10)
+            emit(sweep="f32_t", kernel=fn.__name__, fmt=fmt, M=m, K=k, N=n, K_pad=out.shape[1],
+                 tflops=2 * m * k * n / (row["us"] * 1e-6) / 1e12,
+                 ok=row["max_abs_err"] <= row["tol"], **row)
+
+
+def f32_t_row(g, qt, fn, iters):
+    """``fn`` (matmul_4bit_t or matmul_8bit_t) on f32 g and ``qt``'s codes
+    against its plain version: (out, row) with the largest error, 1e-5 of
+    max|plain|, whether a second call gives the same bits, and µs per call
+    of the kernel, the plain version and cuBLAS's f32 GEMM on the
+    dequantized weight, the weights rotated past the L2."""
+    ws = copies_past_l2(qt.codes, qt.scale)
+    wd = copies_past_l2(dequantized_f32(qt))
+
+    def run(use_kernel, ws):
+        return lambda i: fn(g, *ws[i % len(ws)], codebook=qt.codebook, block=qt.block_size,
+                            use_kernel=use_kernel)
+    out = run(None, [(qt.codes, qt.scale)])(0)
+    ref = run(False, [(qt.codes, qt.scale)])(0)
+    gp = matmul._pad_n(g, wd[0][0].shape[1])
+    return out, dict(max_abs_err=(out - ref).abs().max().item(),
+                     tol=1e-5 * ref.abs().max().item(),
+                     same=torch.equal(out, run(None, [(qt.codes, qt.scale)])(0)),
+                     us=time_ms(run(None, ws), iters) * 1e3,
+                     plain_us=time_ms(run(False, ws), iters) * 1e3,
+                     library_us=time_ms(lambda i: gp @ wd[i % len(wd)][0].T, iters) * 1e3)
 
 
 def main(argv=None):

@@ -16,8 +16,9 @@ scale are XLA compile-only memory plans (``quanta_tpu/benchmarks/
 train_bench.py:306-316``, ``:330-337``), which torch has no counterpart
 of; on an 80 GB card both dense bases fit, so the port runs their steps
 for real and reports their resident and step-peak GiB. Every row: rank-8
-bf16 LoRA on ``wq`` and ``wv`` (alpha 16, seed 1); blockwise 8-bit Adam
-at lr 1e-4; random tokens (numpy seed 0), next-token cross-entropy.
+bf16 LoRA on ``wq`` and ``wv`` (alpha 16, seed 1; f32 adapters over an f32
+base); blockwise 8-bit Adam at lr 1e-4; random tokens (numpy seed 0),
+next-token cross-entropy.
 
 Each row reports:
   - ``step_ms``: the median of CUDA-event times around each of ``steps``
@@ -103,10 +104,12 @@ def make_batch(cfg, batch: int, seq: int, device, seed: int = 0) -> dict:
 
 
 def with_lora(base: dict, rank: int = 8, seed: int = 1, device=None) -> dict:
-    """The base tree with bf16 LoRA on wq and wv (base tensors shared)."""
+    """The base tree with LoRA on wq and wv (base tensors shared): f32
+    adapters over an f32 base, bf16 over any other."""
     dev = device or base["tok_emb"].device
+    dtype = torch.float32 if base["tok_emb"].dtype == torch.float32 else torch.bfloat16
     return train.add_lora(base, torch.Generator(device=dev).manual_seed(seed), rank=rank,
-                          dtype=torch.bfloat16, device=dev)
+                          dtype=dtype, device=dev)
 
 
 def profile_step(step, params, batch) -> dict:

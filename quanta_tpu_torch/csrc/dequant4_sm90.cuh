@@ -3,11 +3,15 @@
 //
 // Codes are (K2, N) bytes, K2 = K_pad / 2: the low nibble of byte (k, n) is
 // row k of W, the high nibble row K2 + k. Scales are f32 (K_pad / block,
-// N). As everywhere in the port (dequant4.cuh),
+// N). As everywhere in the port,
 //
 //   deq(code) = bf16(levels[code] * scale[row / block, col])
 //
-// one f32 multiply rounded once (__fmul_rn), then rounded to bf16.
+// one f32 multiply rounded once (__fmul_rn), then rounded to bf16 (the f32
+// routes keep the f32 product). The 16-entry f32 level table serves every
+// 4-bit codebook: for nf4a and int4 the registered levels are the f32
+// Horner values, so a lookup gives the same numbers without evaluating the
+// polynomial (where nvcc would contract it into FMAs).
 //
 // Level table. 16 entries, read once per weight at a random nibble; as
 // with the 8-bit table (dequant8_sm90.cuh), a block keeps 32 interleaved
@@ -209,6 +213,44 @@ __device__ __forceinline__ void dequant4_slab_t(uint32_t tile, const unsigned ch
                    : "memory");
     }
   }
+}
+
+// ------------------------------------------- both layouts, f32 routes
+//
+// The f32 designs (fma_sm90.cuh, tf32x3_sm90.cuh) take either layout
+// through one template over BITS. A "packed row" p of the codes (R of them,
+// N bytes each) holds one weight of each of RUNS rows of K: BITS 8 (R = K)
+// one run, byte (p, n) is row p; BITS 4 (R = K2) two runs, the low nibble
+// row p, the high nibble row R + p.
+
+template <int BITS> struct Codes;
+template <> struct Codes<4> {
+  static constexpr int RUNS = 2, LEVELS = 16;
+  static __device__ __forceinline__ uint32_t code(uint32_t byte, int h) {
+    return (byte >> (4 * h)) & 0xF;
+  }
+};
+template <> struct Codes<8> {
+  static constexpr int RUNS = 1, LEVELS = 256;
+  static __device__ __forceinline__ uint32_t code(uint32_t byte, int) { return byte; }
+};
+
+template <int BITS> constexpr int LV_F32_BYTES = Codes<BITS>::LEVELS * LV_COPIES * 4;
+
+template <int BITS, int NT>
+__device__ __forceinline__ void fill_levels_f32(float* lv, const float* __restrict__ levels,
+                                                int tid) {
+  if constexpr (BITS == 4)
+    fill_levels4<NT>(lv, levels, tid);
+  else
+    fill_levels32<NT>(lv, levels, tid);
+}
+
+// The scale of K row h R + p, column n, read from device memory: 0 past R
+// (in either run) or N.
+__device__ __forceinline__ float scale_at(const float* __restrict__ scales, int h, int p, int n,
+                                          int R, int N, int block) {
+  return p < R && n < N ? __ldg(scales + (int64_t)((h * R + p) / block) * N + n) : 0.0f;
 }
 
 }  // namespace

@@ -1,11 +1,28 @@
 // 8-bit weights dequantized into the wgmma tiles of sm90.cuh (Hopper).
 //
 // The weight of an 8-bit matmul-layout code (K, N) and its f32 block scale
-// (K/block, N) is, as everywhere in the port (dequant8.cuh),
+// (K/block, N) is, as everywhere in the port,
 //
-//   deq(code) = bf16(levels[code] * scale[row / block, col])
+//   deq(code) = T(levels[code] * scale[row / block, col])
 //
-// one f32 multiply rounded once (__fmul_rn), then rounded to bf16.
+// one f32 multiply rounded once (__fmul_rn), then rounded to the operand
+// type T (bf16 here; the f32 routes, fma_sm90.cuh and tf32x3_sm90.cuh, keep
+// the f32 product), as the TPU kernels round `w.astype(x.dtype)`
+// (quanta_tpu/ops/matmul.py:289-294).
+//
+// One 256-entry f32 level table, read by the code's byte, serves all four
+// 8-bit formats; the wrapper (ops/matmul.py) picks it:
+//   - int8 (signed codes): levels[i] = (int8)i, so byte 0xC8 reads -56;
+//   - int8a (unsigned codes, zero point added outside the kernel):
+//     levels[i] = i, so byte 0xC8 reads 200. The two formats differ only
+//     in signedness: a kernel that read both as int8 would pass every int8
+//     test and be wrong for int8a;
+//   - nf8 and fp8: the registered codebook tables. fp8 codes are indices
+//     into the SORTED e4m3 table (duplicate +-0 and +-448), not e4m3 bit
+//     patterns, so Hopper's FP8 conversion cannot read them. nf8's table
+//     is tanh(2(2c/255 - 1))/tanh(2) evaluated in float64 and rounded to
+//     f32; the TPU kernel evaluates it in f32 and may differ in the last
+//     bit (the CPU parity tests state the tolerance that needs).
 //
 // Level table. The 256-entry table is read once per weight at a random
 // byte; one copy in shared memory would put up to 32 lanes of a warp on

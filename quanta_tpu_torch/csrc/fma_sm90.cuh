@@ -7,10 +7,12 @@
 // x and out f32; w one f32 multiply rounded once (__fmul_rn), as the plain
 // versions' `lv[idx] * s` gives it, so kernel and plain version differ only
 // in the order of the sums. Products and sums are f32 on the CUDA cores: no
-// tensor core multiplies f32 exactly (TF32 keeps 10 bits of x and w).
+// tensor core multiplies f32 exactly (TF32 keeps 10 bits of x and w; the
+// transposed products' f32 route, tf32x3_sm90.cuh, splits each operand
+// into two TF32 parts and runs three products instead).
 //
-// Layouts. A "packed row" p of the codes (R of them, N bytes each) holds
-// one weight of each of RUNS rows of K:
+// Layouts (Codes<BITS>, dequant4_sm90.cuh). A "packed row" p of the codes
+// (R of them, N bytes each) holds one weight of each of RUNS rows of K:
 //   - BITS 8 (int8, int8a, nf8, fp8; R = K): one run, byte (p, n) is row p;
 //   - BITS 4 (split_k; R = K2 = K_pad / 2): two runs, the low nibble of byte
 //     (p, n) is row p, the high nibble row R + p.
@@ -69,35 +71,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dequant4_sm90.cuh"  // fill_levels4; fill_levels32, level, stage_codes16, stage_scale_row
+#include "dequant4_sm90.cuh"  // Codes, fill_levels_f32, level, scale_at, stage_codes16, stage_scale_row
 #include "splitk_sm90.cuh"    // cluster_sum, MmKind, MmPlan, pick_split
 
 namespace {
-
-// ------------------------------------------------------------ layouts
-
-template <int BITS> struct Codes;
-template <> struct Codes<4> {
-  static constexpr int RUNS = 2, LEVELS = 16;
-  static __device__ __forceinline__ uint32_t code(uint32_t byte, int h) {
-    return (byte >> (4 * h)) & 0xF;
-  }
-};
-template <> struct Codes<8> {
-  static constexpr int RUNS = 1, LEVELS = 256;
-  static __device__ __forceinline__ uint32_t code(uint32_t byte, int) { return byte; }
-};
-
-template <int BITS> constexpr int LV_F32_BYTES = Codes<BITS>::LEVELS * LV_COPIES * 4;
-
-template <int BITS, int NT>
-__device__ __forceinline__ void fill_levels_f32(float* lv, const float* __restrict__ levels,
-                                                int tid) {
-  if constexpr (BITS == 4)
-    fill_levels4<NT>(lv, levels, tid);
-  else
-    fill_levels32<NT>(lv, levels, tid);
-}
 
 // x[m, h R + j .. h R + j + 4) of x (M, runs R) into shared memory (`dst_s`):
 // one 16-byte cp.async where the 4 values are in range and aligned, else
@@ -114,13 +91,6 @@ __device__ __forceinline__ void stage_f32x4(uint32_t dst_s, const float* __restr
     for (int e = 0; e < 4; ++e)
       cp_async4(dst_s + 4 * e, j + e < R ? src + e : x, j + e < R ? 4 : 0);
   }
-}
-
-// The scale of K row h R + p, column n, read from device memory: 0 past R
-// (in either run) or N.
-__device__ __forceinline__ float scale_at(const float* __restrict__ scales, int h, int p, int n,
-                                          int R, int N, int block) {
-  return p < R && n < N ? __ldg(scales + (int64_t)((h * R + p) / block) * N + n) : 0.0f;
 }
 
 // f32 sums of 4 columns at out[m, n..n+4) (N columns), the store of cluster_sum.

@@ -50,19 +50,21 @@
 // 2048: 861.2 against 911.7) and lose or tie at the rest, so the rule
 // stays the grid fill.
 //
-// f32 (QLoRA on an f32 base; chip_smoke times it at GPT-2's and the
-// accuracy proxy's shapes): the design of the first port, plain FMAs on a
-// tile of 64 rows of g by 64 dx columns (32 lo, 32 hi) per block of 4
-// warps, the codes tile dequantized into shared memory once per step of 64
-// columns of N (load_b, dequant4.cuh); no load pipeline, no K split.
+// f32 (QLoRA on an f32 base): tf32x3_sm90.cuh's design over the 4-bit
+// layout, 128 rows of g by the 128 dx columns of 64 packed rows a block,
+// the f32 product run as three TF32 wgmma products (3xTF32) with each
+// step's partial added on the CUDA cores, N split over a cluster where
+// the tile grid is under two waves; bound by its operations, 3 x
+// 2 M K N at the TF32 rate (495 TFLOP/s), a ceiling of 165 TFLOP/s of f32
+// work against the CUDA cores' 67.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dequant4.cuh"       // BN, BKP, THREADS, kPad, load_b
 #include "dequant4_sm90.cuh"  // LV4_BYTES, fill_levels4, stage_code_slab4_t, dequant4_slab_t
 #include "splitk_sm90.cuh"    // MmKind, MmPlan, report_plan
+#include "tf32x3_sm90.cuh"    // the f32 route: launch_mmt_tf32x3, report_mmt_tf32x3
 
 namespace {
 
@@ -217,83 +219,6 @@ template <typename F> auto with_kernel(const MmPlan& p, F f) {
                             : f(mm4t_wgmma<128>, TSmem<128>::bytes);
 }
 
-// ------------------------------------------------- f32: CUDA-core FMAs
-
-constexpr int BM = 64;
-constexpr int BJ = 2 * BKP;      // dx columns per tile: BKP lo + BKP hi
-
-// G tile: g[m0:m0+BM, n0:n0+BN], row-major with stride BN + kPad<float>.
-__device__ __forceinline__ void load_g(float* Gs, const float* __restrict__ g, int m0, int M,
-                                       int N, int n0, int tid) {
-  constexpr int G_LD = BN + kPad<float>;
-  const bool g_vec = (N % 4) == 0;             // 16-byte loads stay aligned
-  for (int idx = tid; idx < BM * (BN / 4); idx += THREADS) {
-    const int r = idx / (BN / 4);
-    const int c = (idx % (BN / 4)) * 4;
-    const int m = m0 + r, n = n0 + c;
-    float* dst = Gs + r * G_LD + c;
-    if (m < M && g_vec && n + 4 <= N) {
-      *reinterpret_cast<float4*>(dst) =
-          __ldg(reinterpret_cast<const float4*>(g + (int64_t)m * N + n));
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[e] = (m < M && n + e < N) ? g[(int64_t)m * N + n + e] : 0.0f;
-    }
-  }
-}
-
-// Tile column c (< BJ) -> dx column: lo half j0 + c, hi half K2 + j0 + c - BKP.
-__device__ __forceinline__ int dx_col(int c, int j0, int K2) {
-  return c < BKP ? j0 + c : K2 + j0 + (c - BKP);
-}
-
-// f32: no exact f32 tensor-core path, so plain FMAs. Thread (ty, tx) owns
-// rows ty + 8 i (i < 8) and tile columns tx + 16 j (j < 4).
-__global__ void __launch_bounds__(THREADS)
-mm4t_f32_kernel(const float* __restrict__ g, const uint8_t* __restrict__ codes,
-                const float* __restrict__ scales, const float* __restrict__ levels,
-                float* __restrict__ out, int M, int N, int K2, int block) {
-  constexpr int G_LD = BN + kPad<float>;
-  constexpr int B_LD = BN + kPad<float>;
-  __shared__ __align__(128) float Gs[BM * G_LD];
-  __shared__ __align__(128) float Bs[BJ * B_LD];
-  __shared__ float lv[16];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, j0 = blockIdx.x * BKP;
-  if (tid < 16) lv[tid] = levels[tid];
-  float acc[8][4] = {};
-  __syncthreads();
-
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    load_g(Gs, g, m0, M, N, n0, tid);
-    load_b(Bs, codes, scales, lv, n0, N, K2, j0, block, tid);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BN; ++k) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = Gs[(ty + 8 * i) * G_LD + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[(tx + 16 * j) * B_LD + k];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const int64_t ldo = 2 * (int64_t)K2;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 8 * i, c = tx + 16 * j;
-      if (m < M && j0 + c % BKP < K2) out[m * ldo + dx_col(c, j0, K2)] = acc[i][j];
-    }
-}
-
 }  // namespace
 
 extern "C" int qt_matmul_4bit_t_bf16(const void* g, const void* codes, const void* scales,
@@ -312,13 +237,7 @@ extern "C" int qt_matmul_4bit_t_bf16(const void* g, const void* codes, const voi
 extern "C" int qt_matmul_4bit_t_f32(const void* g, const void* codes, const void* scales,
                                     const void* levels, void* out, int M, int N, int K2,
                                     int block, void* stream) {
-  if (M <= 0 || N <= 0 || K2 <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((K2 + BKP - 1) / BKP, (M + BM - 1) / BM);
-  mm4t_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const uint8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<const float*>(levels),
-      static_cast<float*>(out), M, N, K2, block);
-  return (int)cudaGetLastError();
+  return launch_mmt_tf32x3<4>(g, codes, scales, levels, out, M, N, K2, block, stream);
 }
 
 // The bf16 route's launch at (M, N, K2), for a report (report_plan says
@@ -329,4 +248,10 @@ extern "C" int qt_matmul_4bit_t_design(int M, int N, int K2, int* out) {
   return with_kernel(p, [&](auto kernel, size_t smem) {
     return report_plan(p, kernel, smem, blocks_per_sm(kernel, smem, T_THREADS), T_STAGES, out);
   });
+}
+
+// The f32 route's launch at (M, N, K2), for a report (design 0, the one
+// 3xTF32 design, no split)
+extern "C" int qt_matmul_4bit_t_f32_design(int M, int N, int K2, int* out) {
+  return report_mmt_tf32x3<4>(M, N, K2, out);
 }

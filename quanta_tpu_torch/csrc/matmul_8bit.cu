@@ -7,7 +7,7 @@
 //
 // for 8-bit matmul-layout codes (K, N) (one byte a weight: int8, nf8,
 // fp8 or the unsigned int8a codes) and f32 block scales (K/block, N),
-// through one 256-entry level table (dequant8.cuh says how the wrapper
+// through one 256-entry level table (dequant8_sm90.cuh says how the wrapper
 // picks it for each format, and why fp8 codes cannot go through Hopper's
 // FP8 conversion). T is the activation type: the weight is one f32 multiply
 // rounded once, then rounded to T before the product, as the TPU kernel

@@ -7,7 +7,7 @@
 //   dx[m, k] = sum_n g[m, n] * T(levels[code[k, n]] * scale[k / block, n])
 //
 // for g (M, N) and 8-bit codes (K, N) (int8, nf8, fp8 or int8a, through one
-// 256-entry level table: dequant8.cuh). deq is the forward's: one f32
+// 256-entry level table: dequant8_sm90.cuh). deq is the forward's: one f32
 // multiply rounded once, then rounded to the gradient type T before the
 // product, as the TPU kernel rounds `w.astype(g.dtype)`; sums are f32.
 // int8a's zero-point term of W^T, repeat(g @ zp^T), is added by the wrapper
@@ -41,27 +41,25 @@
 // (208 TFLOP/s), 128 x 128 ones 321.4. At M = 1024 the 256-row grid leaves
 // half the SMs idle at K = 2048 and 128 x 128 wins (167.3 against 224.4).
 //
-// f32 (QLoRA on an f32 base; chip_smoke times it at GPT-2's and the
-// accuracy proxy's shapes): the design of the first port, plain FMAs on a
-// tile of 64 rows of g by 64 dx columns per block of 4 warps, the codes
-// tile dequantized into shared memory once per step of 64 columns of N
-// (load_b8); no load pipeline, no K split.
+// f32 (QLoRA on an f32 base): tf32x3_sm90.cuh's design over the 8-bit
+// layout, 128 rows of g by 128 dx columns (rows of W) a block, the f32
+// product run as three TF32 wgmma products (3xTF32) with each step's
+// partial added on the CUDA cores, N split over a cluster where the tile
+// grid is under two waves; bound by its operations, 3 x 2 M K N at
+// the TF32 rate (495 TFLOP/s), a ceiling of 165 TFLOP/s of f32 work
+// against the CUDA cores' 67.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dequant8.cuh"  // BN, BK, THREADS, N_LEVELS, kPad, load_levels, load_b8, load_rows
-#include "dequant8_sm90.cuh"  // LV_BYTES, fill_levels32, stage_*, dequant_slab
+#include "dequant8_sm90.cuh"  // LV_BYTES, fill_levels32, stage_*, dequant_slab_t
+#include "splitk_sm90.cuh"    // MmKind, MmPlan, report_plan
+#include "tf32x3_sm90.cuh"    // the f32 route: launch_mmt_tf32x3, report_mmt_tf32x3
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int BM = 64;
-constexpr int BJ = BK;           // dx columns per tile (f32): BK rows of W
-
-static_assert(BN == 64, "load_rows stages 64 columns of g per step");
 
 // ------------------------------------------------------------ bf16: wgmma
 
@@ -194,52 +192,17 @@ mm8t_wgmma(const bf16* __restrict__ g, const uint8_t* __restrict__ codes,
     }
 }
 
-// ------------------------------------------------- f32: CUDA-core FMAs
+// The bf16 launch at (M, K): 256-row tiles while their grid fills at least
+// half the SMs (one block an SM), else 128-row ones, twice the blocks.
+MmPlan plan_mm8t(int M, int K) {
+  const int tj = (K + T_BJ - 1) / T_BJ;
+  const int bm = 2 * tj * ((M + 255) / 256) >= sm_count() ? 256 : 128;
+  return {{0, bm, bm, T_BJ}, 1, dim3(tj, (M + bm - 1) / bm, 1)};
+}
 
-// f32: no exact f32 tensor-core path, so plain FMAs. Thread (ty, tx) owns
-// rows ty + 8 i (i < 8) and dx columns tx + 16 j (j < 4).
-__global__ void __launch_bounds__(THREADS)
-mm8t_f32_kernel(const float* __restrict__ g, const uint8_t* __restrict__ codes,
-                const float* __restrict__ scales, const float* __restrict__ levels,
-                float* __restrict__ out, int M, int N, int K, int block) {
-  constexpr int G_LD = BN + kPad<float>;
-  constexpr int B_LD = BN + kPad<float>;
-  __shared__ __align__(128) float Gs[BM * G_LD];
-  __shared__ __align__(128) float Bs[BJ * B_LD];
-  __shared__ float lv[N_LEVELS];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, j0 = blockIdx.x * BJ;
-  load_levels(lv, levels, tid);
-  float acc[8][4] = {};
-  __syncthreads();
-
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    load_rows(Gs, g, m0, M, n0, N, tid);
-    load_b8(Bs, codes, scales, lv, j0, K, n0, N, block, tid);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BN; ++k) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = Gs[(ty + 8 * i) * G_LD + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[(tx + 16 * j) * B_LD + k];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 8 * i, k = j0 + tx + 16 * j;
-      if (m < M && k < K) out[(int64_t)m * K + k] = acc[i][j];
-    }
+template <typename F> auto with_kernel(const MmPlan& p, F f) {
+  return p.kind.rows == 256 ? f(mm8t_wgmma<256>, TSmem<256>::bytes)
+                            : f(mm8t_wgmma<128>, TSmem<128>::bytes);
 }
 
 }  // namespace
@@ -248,28 +211,33 @@ extern "C" int qt_matmul_8bit_t_bf16(const void* g, const void* codes, const voi
                                      const void* levels, void* out, int M, int N, int K,
                                      int block, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
-  const int tj = (K + T_BJ - 1) / T_BJ;
-  // 256-row tiles while their grid fills at least half the SMs (one block
-  // an SM), else 128-row ones: twice the blocks
-  const bool wide = 2 * tj * ((M + 255) / 256) >= sm_count();
-  auto launch = [&](auto kernel, int bm, size_t smem) {
-    return launch_cluster(kernel, dim3(tj, (M + bm - 1) / bm), 1, T_THREADS, smem, stream,
+  const MmPlan p = plan_mm8t(M, K);
+  return with_kernel(p, [&](auto kernel, size_t smem) {
+    return launch_cluster(kernel, p.grid, 1, T_THREADS, smem, stream,
                           static_cast<const bf16*>(g), static_cast<const uint8_t*>(codes),
                           static_cast<const float*>(scales), static_cast<const float*>(levels),
                           static_cast<bf16*>(out), M, N, K, block);
-  };
-  return wide ? launch(mm8t_wgmma<256>, 256, TSmem<256>::bytes)
-              : launch(mm8t_wgmma<128>, 128, TSmem<128>::bytes);
+  });
 }
 
 extern "C" int qt_matmul_8bit_t_f32(const void* g, const void* codes, const void* scales,
                                     const void* levels, void* out, int M, int N, int K,
                                     int block, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((K + BJ - 1) / BJ, (M + BM - 1) / BM);
-  mm8t_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const uint8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<const float*>(levels),
-      static_cast<float*>(out), M, N, K, block);
-  return (int)cudaGetLastError();
+  return launch_mmt_tf32x3<8>(g, codes, scales, levels, out, M, N, K, block, stream);
+}
+
+// The bf16 route's launch at (M, N, K), for a report (report_plan says what
+// out[11] holds; design 0, the one wgmma design, no split)
+extern "C" int qt_matmul_8bit_t_design(int M, int N, int K, int* out) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const MmPlan p = plan_mm8t(M, K);
+  return with_kernel(p, [&](auto kernel, size_t smem) {
+    return report_plan(p, kernel, smem, blocks_per_sm(kernel, smem, T_THREADS), T_STAGES, out);
+  });
+}
+
+// The f32 route's launch at (M, N, K), for a report (design 0, the one
+// 3xTF32 design, no split)
+extern "C" int qt_matmul_8bit_t_f32_design(int M, int N, int K, int* out) {
+  return report_mmt_tf32x3<8>(M, N, K, out);
 }

@@ -83,10 +83,13 @@ _SIGNATURES = {
     # M, N, K, out (int[11])
     "qt_matmul_8bit_design": [_I] * 3 + [_P],
     "qt_matmul_8bit_f32_design": [_I] * 3 + [_P],
+    "qt_matmul_8bit_t_design": [_I] * 3 + [_P],
+    "qt_matmul_8bit_t_f32_design": [_I] * 3 + [_P],
     # M, N, K2, out (int[11])
     "qt_matmul_4bit_design": [_I] * 3 + [_P],
     "qt_matmul_4bit_f32_design": [_I] * 3 + [_P],
     "qt_matmul_4bit_t_design": [_I] * 3 + [_P],
+    "qt_matmul_4bit_t_f32_design": [_I] * 3 + [_P],
     "qt_matmul_int4c_design": [_I] * 3 + [_P],
     # M, N, K, fused, out (int[11])
     "qt_matmul_int8_design": [_I] * 4 + [_P],

@@ -12,9 +12,11 @@ Hopper designs a dtype, picked by M inside the one entry point: in bf16
 split-K ``mma.sync`` for decode and wgmma tiles above, in f32 split-K FMAs
 for decode and a register-tiled FMA GEMM above (``csrc/fma_sm90.cuh``);
 :func:`matmul_4bit_design` and :func:`matmul_8bit_design` report which one
-a shape takes. The bf16
+a shape takes. The
 ``matmul_4bit_t`` and ``matmul_8bit_t`` kernels are wgmma dx tiles over a
-dequantized tile read K-major (:func:`matmul_4bit_t_design`).
+dequantized tile read K-major, in bf16 and, in f32, as three TF32 products
+(``csrc/tf32x3_sm90.cuh``); :func:`matmul_4bit_t_design` and
+:func:`matmul_8bit_t_design` report them.
 
 Layouts (``core.codecs.quantize_matmul_weight``): scales ``(K_pad/block,
 N_pad)`` f32; 4-bit codes ``(K_pad/2, N_pad)`` uint8 split_k-packed, 8-bit
@@ -215,15 +217,17 @@ def matmul_4bit_design(m, n, k, dtype=torch.bfloat16):
     return _mm_design("matmul_4bit", m, n, k // 2, dtype)
 
 
-def matmul_4bit_t_design(m, n, k):
-    """How the bf16 ``matmul_4bit_t`` kernel launches for g (m, n) and
-    split_k-packed codes (k / 2, n), k = K_pad, on this card: the keys of
-    :func:`matmul_8bit_design`, with ``design`` "wgmma" (its one design:
-    tiles of ``rows`` rows of g, 256 where that grid fills at least half
-    the SMs, else 128, by 128 dx columns; no K split)."""
+def matmul_4bit_t_design(m, n, k, dtype=torch.bfloat16):
+    """How the ``matmul_4bit_t`` kernel launches for g (m, n) of ``dtype``
+    and split_k-packed codes (k / 2, n), k = K_pad, on this card: the keys
+    of :func:`matmul_8bit_design`, with ``design`` "wgmma" in bf16 (tiles of
+    ``rows`` rows of g, 256 where that grid fills at least half the SMs,
+    else 128, by 128 dx columns; no split) and "wgmma_3xtf32" in f32 (128 x
+    128 dx tiles, each f32 product as three TF32 ones; N split over a
+    cluster of ``split`` blocks where the tile grid is under two waves)."""
     if k % 2:
         raise ValueError(f"k={k}: split_k packing needs an even K_pad")
-    return _design("qt_matmul_4bit_t_design", "matmul_4bit_t", m, n, k // 2, names=("wgmma",))
+    return _mmt_design("matmul_4bit_t", m, n, k // 2, dtype)
 
 
 def matmul_4bit_t_reference(
@@ -377,6 +381,16 @@ def _design(entry, name, m, n, k, *extra, names=("decode", "prefill")):
     return res
 
 
+def _mmt_design(kernel, m, n, k, dtype):
+    """The report of the transposed ``kernel``'s (matmul_4bit_t,
+    matmul_8bit_t) one design for g of ``dtype``."""
+    if dtype not in _MM_DESIGNS:
+        raise TypeError(f"the {kernel} CUDA kernel takes bf16 or f32, got {dtype}")
+    suffix = _MM_DESIGNS[dtype][0]
+    names = ("wgmma",) if dtype == torch.bfloat16 else ("wgmma_3xtf32",)
+    return _design(f"qt_{kernel}{suffix}_design", kernel, m, n, k, names=names)
+
+
 def _mm_design(kernel, m, n, k, dtype):
     """The report of ``kernel``'s (matmul_4bit, matmul_8bit) design for x of ``dtype``."""
     if dtype not in _MM_DESIGNS:
@@ -395,6 +409,14 @@ def matmul_8bit_design(m, n, k, dtype=torch.bfloat16):
     (``cudaFuncGetAttributes``), the stages of its cp.async ring and the
     rows of x a block takes."""
     return _mm_design("matmul_8bit", m, n, k, dtype)
+
+
+def matmul_8bit_t_design(m, n, k, dtype=torch.bfloat16):
+    """How the ``matmul_8bit_t`` kernel launches for g (m, n) of ``dtype``
+    and codes (k, n) on this card: the keys of :func:`matmul_4bit_t_design`
+    (bf16 "wgmma", f32 "wgmma_3xtf32"), 128 dx columns (rows of W) a
+    tile."""
+    return _mmt_design("matmul_8bit_t", m, n, k, dtype)
 
 
 def matmul_8bit_t_reference(

@@ -36,12 +36,13 @@ class DeviceSpec:
     bf16_tflops: float  # tensor-core peak, bf16 (dense)
     int8_tops: float    # tensor-core peak, int8 (dense)
     f32_tflops: float   # f32 outside the tensor cores
+    tf32_tflops: float  # tensor-core peak, TF32 (dense)
 
 
-H100 = DeviceSpec("H100", 3350.0, 989.0, 1979.0, 67.0)
+H100 = DeviceSpec("H100", 3350.0, 989.0, 1979.0, 67.0, 495.0)
 _DEVICE_TABLE = {
     "h100": H100,
-    "cpu": DeviceSpec("cpu", 50.0, 1.0, 2.0, 1.0),
+    "cpu": DeviceSpec("cpu", 50.0, 1.0, 2.0, 1.0, 1.0),
 }
 
 

@@ -1585,6 +1585,132 @@ def test_matmul_f32_split_covers_every_k_block(cuda, bits, k_pad, m):
     assert bool(((out - ref).abs().amax(dim=1) <= 1e-5 * scale).all())
 
 
+# ------------------------------------------------ f32 routes of #4 and #5
+# matmul_4bit_t's and matmul_8bit_t's f32 entry points: 128 x 128 dx tiles,
+# each f32 product as three TF32 products on the tensor cores, each
+# 32-column step of N summed on the tensor cores and added to the running
+# sum on the CUDA cores (csrc/tf32x3_sm90.cuh). The same f32 weights as the
+# plain versions, products to ~2^-22 and sums in another order: within 1e-5
+# of max|plain|. Where N is split over a cluster, the partials are summed
+# in rank order (cluster_sum): the same bits on a second call. GPT-2
+# small's four (K, N) at M = 1024, the accuracy proxy's at M = 8192 and
+# TinyLlama-1.1B's five at its QLoRA backward's M = 2048 (the head's N =
+# 32000 among them).
+F32_T_CASES = ([(kn, 1024) for kn in GPT2_SHAPES]
+               + [(kn, 8192) for kn in [(512, 512), (512, 128), (512, 1536), (1536, 512)]]
+               + [(kn, 2048) for kn in [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+                                        (2048, 32000)]])
+T_F32_MS = [1, 130, 257]
+
+
+def _f32_t_check(g, qt):
+    """matmul_4bit_t or matmul_8bit_t, as ``qt``'s layout takes, on f32 g:
+    one launch a call, within 1e-5 of max|plain|, the same bits on a second
+    call; returns the output."""
+    fn, kernel = ((tmm.matmul_4bit_t, "matmul_4bit_t") if qt.packed == "split_k"
+                  else (tmm.matmul_8bit_t, "matmul_8bit_t"))
+    codes, scales, codebook, block = qt.codes, qt.scale, qt.codebook, qt.block_size
+    before = _build.launches[kernel]
+    out = fn(g, codes, scales, codebook=codebook, block=block)
+    again = fn(g, codes, scales, codebook=codebook, block=block)
+    ref = fn(g, codes, scales, codebook=codebook, block=block, use_kernel=False)
+    torch.cuda.synchronize()
+    assert _build.launches[kernel] == before + 2
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= _tol(ref, torch.float32)
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.parametrize("k,n,m", [(k, n, m) for (k, n), m in F32_T_CASES])
+def test_matmul_t_f32_routes_match_plain(cuda, k, n, m):
+    """nf4a through matmul_4bit_t and int8 through matmul_8bit_t on f32 g,
+    and the design each call takes: the one 3xTF32 design, no spills, a
+    grid of 128-row tiles by 128 dx columns, N split over a cluster of up
+    to 8 only where those tiles are under two waves of the SMs."""
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    w = torch.randn((k, n), generator=g, device=cuda) * 0.02
+    gr = torch.randn((m, n), generator=g, device=cuda)
+    for fmt, report in (("nf4a", tmm.matmul_4bit_t_design), ("int8", tmm.matmul_8bit_t_design)):
+        qt = tcore.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+        out = _f32_t_check(gr, qt)
+        k_pad = out.shape[1]
+        d = report(m, qt.codes.shape[1], k_pad, dtype=torch.float32)
+        assert d["design"] == "wgmma_3xtf32" and 1 <= d["split"] <= 8 and d["spill_bytes"] == 0
+        assert (d["grid_x"], d["grid_y"], d["grid_z"], d["rows"]) == (
+            d["split"], k_pad // 128, -(-m // 128), 128)
+        if (k_pad // 128) * -(-m // 128) >= 2 * sms:
+            assert d["split"] == 1
+
+
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("fmt", FOUR_BIT_CB + ["int4a"] + EIGHT_BIT)
+def test_matmul_t_f32_every_format_and_block(cuda, fmt, block):
+    """Every 16-entry codebook (int4a's codes their own values) and every
+    8-bit format (int8's signed codes, int8a's unsigned ones, nf8, fp8) at
+    blocks 32, 64 and 128, M in ``T_F32_MS`` (one row, past one and past
+    two 128-row tiles); K = 1000 and N = 300 are off the tiles before the
+    quantizer pads them."""
+    g = torch.Generator(device=cuda).manual_seed(block)
+    qt = tcore.quantize_matmul_weight(torch.randn((1000, 300), generator=g, device=cuda) * 0.02,
+                                      fmt=fmt, block_size=block)
+    for m in T_F32_MS:
+        gr = torch.randn((m, qt.codes.shape[1]), generator=g, device=cuda)
+        _f32_t_check(gr, qt)
+
+
+@pytest.mark.parametrize("m", [5, 130])
+@pytest.mark.parametrize("bits,rows,n,block", [(4, 200, 72, 16), (4, 100, 70, 40),
+                                               (4, 208, 203, 32), (4, 1024, 300, 64),
+                                               (8, 200, 77, 40), (8, 96, 203, 32),
+                                               (8, 1000, 300, 8), (8, 992, 200, 32)])
+def test_matmul_t_f32_raw_ragged(cuda, bits, rows, n, block, m):
+    """Unpadded codes: packed rows off the 64-row (4-bit) and 128-row
+    (8-bit) tiles, N off 4 (g staged value by value) and off 16 (codes byte
+    by byte), blocks that stage a scale row per 32 dx columns and blocks
+    that read their scales weight by weight, M off the 128-row tile."""
+    g = torch.Generator(device=cuda).manual_seed(rows + n + block + m)
+    codes = torch.randint(0, 256, (rows, n), generator=g, device=cuda, dtype=torch.uint8)
+    k = 2 * rows if bits == 4 else rows
+    scales = torch.rand((k // block, n), generator=g, device=cuda) * 0.01
+    gr = torch.randn((m, n), generator=g, device=cuda)
+    fn = tmm.matmul_4bit_t if bits == 4 else tmm.matmul_8bit_t
+    cb = "nf4" if bits == 4 else "nf8"
+    out = fn(gr, codes, scales, codebook=cb, block=block)
+    ref = fn(gr, codes, scales, codebook=cb, block=block, use_kernel=False)
+    assert out.shape == ref.shape == (m, k)
+    assert (out - ref).abs().max().item() <= _tol(ref, torch.float32)
+    assert torch.equal(out, fn(gr, codes, scales, codebook=cb, block=block))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_matmul_t_f32_sums_every_n_step(cuda, bits):
+    """A step of N left out of the sum, or added twice, shows here: row i of
+    g is nonzero only in the 32 columns of step i % steps, so each dx row
+    is the product of one step's columns of W, and each must equal the
+    plain version's within 1e-5 of that row's own max. N = 2048 gives 64
+    steps; 130 rows cover them all twice, across two row tiles; the 16
+    tiles split N over a cluster, so each rank's run of steps and the
+    cluster's sum are covered too."""
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    n, m, step = 2048, 130, 32
+    qt = tcore.quantize_matmul_weight(torch.randn((1024, n), generator=g, device=cuda),
+                                      fmt="nf4a" if bits == 4 else "int8", block_size=64)
+    gr = torch.zeros((m, n), device=cuda)
+    for i in range(m):
+        s = i % (n // step)
+        gr[i, s * step:(s + 1) * step] = torch.randn(step, generator=g, device=cuda)
+    report = tmm.matmul_4bit_t_design if bits == 4 else tmm.matmul_8bit_t_design
+    assert report(m, n, 1024, dtype=torch.float32)["split"] > 1
+    out = _f32_t_check(gr, qt)
+    fn = tmm.matmul_4bit_t if bits == 4 else tmm.matmul_8bit_t
+    ref = fn(gr, qt.codes, qt.scale, codebook=qt.codebook, use_kernel=False)
+    scale = ref.abs().amax(dim=1)
+    assert bool((scale > 0).all())
+    assert bool(((out - ref).abs().amax(dim=1) <= 1e-5 * scale).all())
+
+
 # ------------------------------------------------ tensor-parallel local shapes
 
 # (K, N) of Llama-2-7B's and -13B's linears and their TP split (1: N, the

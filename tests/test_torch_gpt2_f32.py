@@ -106,7 +106,8 @@ def test_f32_greedy_decode_takes_the_f32_route_and_matches_jax(jquant, fmt):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("report", [tmm.matmul_4bit_design, tmm.matmul_8bit_design])
+@pytest.mark.parametrize("report", [tmm.matmul_4bit_design, tmm.matmul_8bit_design,
+                                    tmm.matmul_4bit_t_design, tmm.matmul_8bit_t_design])
 def test_design_report_refuses_other_dtypes(report):
     """The report names bf16 and f32 designs only, and says so before it
     reaches the library."""

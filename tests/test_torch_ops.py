@@ -153,13 +153,19 @@ class _DesignLib:
         return 0
 
     qt_matmul_4bit_t_design = qt_matmul_int4c_design = qt_matmul_int8_design = _report
+    qt_matmul_4bit_t_f32_design = qt_matmul_8bit_t_design = qt_matmul_8bit_t_f32_design = _report
 
 
 _I8_PLAIN = functools.partial(tint8.matmul_int8_design, fused=False)
+_4T_F32 = functools.partial(tmm.matmul_4bit_t_design, dtype=torch.float32)
+_8T_F32 = functools.partial(tmm.matmul_8bit_t_design, dtype=torch.float32)
 
 
 @pytest.mark.parametrize("fn,design,name", [
     (tmm.matmul_4bit_t_design, 0, "wgmma"),
+    (_4T_F32, 0, "wgmma_3xtf32"),
+    (tmm.matmul_8bit_t_design, 0, "wgmma"),
+    (_8T_F32, 0, "wgmma_3xtf32"),
     (tint4c.matmul_int4c_design, 0, "decode"),
     (tint4c.matmul_int4c_design, 1, "prefill"),
     (tint8.matmul_int8_design, 0, "decode"),
@@ -170,12 +176,14 @@ def test_design_reports_read_the_entry_points(fn, design, name):
     """The design reports ask their entry point about the packed K (K_pad /
     2) and name its fields; an odd K_pad has no split_k packing. The
     LLM.int8 report asks about K itself, odd or not, and passes ``fused``
-    (default True) through."""
+    (default True) through; the 8-bit dx report (bf16 or f32) asks about K
+    itself, odd or not."""
     lib = _DesignLib(design)
     int8 = fn in (tint8.matmul_int8_design, _I8_PLAIN)
+    eight_t = fn in (tmm.matmul_8bit_t_design, _8T_F32)
     with mock.patch.object(_build, "library", lambda: lib):
         res = fn(33, 2048, 5632)
-        if int8:
+        if int8 or eight_t:
             fn(33, 2048, 5631)
         else:
             with pytest.raises(ValueError, match="even"):
@@ -183,6 +191,8 @@ def test_design_reports_read_the_entry_points(fn, design, name):
     if int8:
         fused = int(fn is tint8.matmul_int8_design)
         assert lib.asked == [(33, 2048, 5632, fused), (33, 2048, 5631, fused)]
+    elif eight_t:
+        assert lib.asked == [(33, 2048, 5632), (33, 2048, 5631)]
     else:
         assert lib.asked == [(33, 2048, 2816)]
     assert res == {"design": name, "grid_x": 1, "grid_y": 2, "grid_z": 3, "split": 4,
