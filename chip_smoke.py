@@ -93,16 +93,19 @@ and the script exits non-zero (nothing is caught):
      Llama-2-7B's (B=1, MHA, hd 128), a cached prefill (1024 queries
      into 1152 slots at q_start 0 and 64, and a row whose kv_len is 0),
      phase 12's prefill (1024 queries into 1040 slots) and phase 13's
-     S = T = 2048, in bf16 and the cached prefill also in f32: bf16
-     output within 2 bf16 ulps of
+     S = T = 2048, in bf16, and the first two and the cached prefill also
+     in f32: bf16 output within 2 bf16 ulps of
      max|plain| and rel-L2 1e-2, lse within 1e-4, gradients within rel-L2
      2e-2 (f32: 1e-5 and 1e-4 of max|plain|), dead rows zero with lse
      1e30, and dq, dk, dv bit-identical over two calls; at the S = T
      shapes the times of the kernels, their plain versions and SDPA
-     (forward; backward; both); then one ``flash_bwd_design`` and one
-     ``flash_fwd_design`` line per head_dim (the bf16 kernels' grid,
-     cluster size or warpgroups, blocks resident per SM, registers and
-     shared bytes, from ``cudaFuncGetAttributes``);
+     (forward; backward; both; the backend it takes, and in f32, where
+     that is math, the efficient backend on K and V expanded to the query
+     heads), the f32 rows with their bounds; then per head_dim one
+     ``flash_bwd_design`` line for each dtype (grid, cluster size,
+     warpgroups, blocks resident per SM, registers and shared bytes, from
+     ``cudaFuncGetAttributes``; the f32 grids at TinyLlama's shape at least
+     two blocks an SM) and one ``flash_fwd_design`` line;
  11. QLoRA at batch 2 x seq 1024 (nf4 base, as phase 9): 3 steps through
      the flash kernels and 3 through the einsum attention from the same
      adapters, and one step with the einsum attention in f32 (the floor
@@ -299,7 +302,17 @@ and the script exits non-zero (nothing is caught):
      (K, N), M = 2048, on each tree's own leaves, within 1e-5 of
      max|plain|, the same bits on a second call, the design checked; then
      the f32 ``matmul_4bit_t`` and ``matmul_8bit_t`` at TinyLlama's five
-     (K, N), M = 2048, as in phase 18.
+     (K, N), M = 2048, as in phase 18;
+ 33. QLoRA on that f32 base at batch 2 x seq 1024 through flash, the JAX
+     package's ``finetune --toy tinyllama --dtype float32 --seq-len
+     1024``: nf4, phase 32's 3 + 3 + 1 steps and limits (the plain route's
+     attention the plain flash), per step 155 ``matmul_4bit``, 152
+     ``matmul_4bit_t``, 22 each of ``flash_fwd``, ``flash_bwd_dq`` and
+     ``flash_bwd_dkv`` (their f32 routes: the backward's three TF32
+     products for each f32 one) and 1 ``adam8bit_update``, nothing else;
+     then ``train_bench.bench_qlora``'s row (step ms, busy share,
+     step-peak GiB) with the share of the device time of #1, #4 and each
+     flash kernel.
 
 Then the seconds each phase took, the redesigned kernels' earlier times
 as PERF.md records them (``earlier_times``, beside this run's), the
@@ -335,7 +348,7 @@ from quanta_tpu_torch.benchmarks import (accuracy_bench, decode_bench, engine_ga
                                          model_scale_bench, serve_bench, spmd_bench, tp_bench,
                                          train_bench)
 from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, copies_past_l2, time_ms
-from quanta_tpu_torch.benchmarks.kernel_sweep import dequantized_f32, f32_t_row
+from quanta_tpu_torch.benchmarks.kernel_sweep import dequantized_f32, f32_t_row, sdpa_times
 from quanta_tpu_torch.benchmarks.logits_gate import rel_l2, reordered_plain
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.core.qtensor import QuantizedTensor
@@ -405,7 +418,9 @@ GRAD_FLOOR_X, GRAD_FLOOR_ABS = logits_gate.FLOOR_X, logits_gate.FLOOR_ABS
 # slots at q_start 0 and 64 beside a row whose kv_len is 0, the long-prompt
 # decode's prefill (1024 tokens into its 1040-slot cache: a ragged last key
 # tile) and long_prefill's reference row (S = T = 2048):
-# (B, Sq, T, nh, nkv, hd, q_start, kv_len); each in bf16, the prefill in f32 too
+# (B, Sq, T, nh, nkv, hd, q_start, kv_len); each in bf16; in f32 too the
+# prefill and the two training shapes (the f32 QLoRA of phase 33 runs the
+# first)
 FLASH_SHAPES = {
     "tinyllama_s1024": (2, 1024, 1024, 32, 4, 64, [0, 0], [1024, 1024]),
     "llama2_7b_s1024": (1, 1024, 1024, 32, 32, 128, [0], [1024]),
@@ -413,8 +428,8 @@ FLASH_SHAPES = {
     "prompt_prefill": (2, 1024, 1040, 32, 4, 64, [0, 0], [1024, 1024]),
     "long_prefill_s2048": (2, 2048, 2048, 32, 4, 64, [0, 0], [2048, 2048]),
 }
-FLASH_CASES = [(name, torch.bfloat16) for name in FLASH_SHAPES] + [("cached_prefill",
-                                                                     torch.float32)]
+FLASH_CASES = [(name, torch.bfloat16) for name in FLASH_SHAPES] + [
+    (name, torch.float32) for name in ("tinyllama_s1024", "llama2_7b_s1024", "cached_prefill")]
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the times of the redesigned kernels before their Hopper redesigns, as
 # PERF.md's kernel table records them: the first port's flash kernels at
@@ -461,6 +476,13 @@ EARLIER_US = {
                           "M2048_2048x5632": 1741.9, "M2048_5632x2048": 1783.9,
                           "M2048_2048x32000": 9889.4},
 }
+# the first port's f32 flash backward kernels (CUDA-core FMAs, before their
+# 3xTF32 redesign), ms a call on the f32 rows' inputs at the S = T shapes
+# (PERF.md's f32 flash table, "First port" column: kernel_sweep --what
+# flash --dtype float32 on the package before the redesign, the mean of two
+# runs)
+EARLIER_F32_MS = {"flash_bwd_dq": {"tinyllama_s1024": 1.1383, "llama2_7b_s1024": 1.1879},
+                  "flash_bwd_dkv": {"tinyllama_s1024": 2.4608, "llama2_7b_s1024": 1.5401}}
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
 CROSSOVER_SEQS = (256, 512, 1024, 2048)  # long_prefill's S; 2048 is the reference's row
@@ -1222,17 +1244,20 @@ def _adapter_grads(adapters):
             for ad in adapters for n in ("wq", "wv")]
 
 
-def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t")):
+def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t"),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, use_flash=None):
     """3 QLoRA steps through the kernels and 3 through the plain versions,
     from the same adapters on one fixed batch, launches counted per step;
     then one step through the reordered plain versions (the noise floor).
-    ``kernels``: the forward and transposed kernels of the base's layout.
-    The step-1 loss within 1e-2 relative of the plain route and each lora_b
-    gradient within the floor rule; on an f32 base (``cfg.dtype``, f32
-    adapters) both within ``F32_QLORA_REL``, the floor printed beside.
-    Returns the kernel route's launches."""
+    ``kernels``: the forward and transposed kernels of the base's layout;
+    ``use_flash`` goes to ``llama.forward`` (with True, ``n_layers`` of
+    each flash kernel a kernel-route step). The step-1 loss within 1e-2
+    relative of the plain route and each lora_b gradient within the floor
+    rule; on an f32 base (``cfg.dtype``, f32 adapters) both within
+    ``F32_QLORA_REL``, the floor printed beside. Returns the kernel route's
+    launches."""
     f32_rel = F32_QLORA_REL if cfg.dtype == torch.float32 else None
-    data = train_bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    data = train_bench.make_batch(cfg, batch, seq, dev)
     init = train_bench.with_lora(base)
     per_forward = 7 * cfg.n_layers + 1
     runs = {}
@@ -1242,7 +1267,7 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
         params = train.merge_adapters(init, adapters)
         use_kernel = None if route is None else False
         opt = Adam8bit(qnn.lora_parameters(params), lr=TRAIN_LR, use_kernel=use_kernel)
-        step = train.make_qlora_train_step(cfg, opt, use_kernel=use_kernel)
+        step = train.make_qlora_train_step(cfg, opt, use_kernel=use_kernel, use_flash=use_flash)
         if route == "reordered":
             with reordered_plain():
                 runs[route] = ([step(params, data).item()], _adapter_grads(adapters))
@@ -1261,6 +1286,8 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
         if route is None:
             expected.update({kernels[0]: per_forward, kernels[1]: PER_BACKWARD,
                              "adam8bit_update": 1})
+            if use_flash:
+                expected.update(dict.fromkeys(FLASH_KERNELS, cfg.n_layers))
         for i, c in enumerate(counts):
             check(c == expected, f"qlora {fmt} route {route} step {i + 1}: launches {c}, "
                                  f"expected {expected}")
@@ -1270,7 +1297,8 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
         if route is None:
             kernel_launches = {k: sum(c[k] for c in counts) for k in expected}
         emit(qlora_path=dict(base=fmt, route="kernels" if route is None else "plain", lr=TRAIN_LR,
-                             losses=losses, step_seconds=seconds, launches_per_step=counts[0]))
+                             batch=batch, seq=seq, use_flash=use_flash, losses=losses,
+                             step_seconds=seconds, launches_per_step=counts[0]))
     (lk, gk), (lp, gp), (lr_, gr) = runs[None], runs[False], runs["reordered"]
     loss_rel, loss_tol = abs(lk[0] - lp[0]) / abs(lp[0]), f32_rel or 1e-2
     check(loss_rel <= loss_tol, f"qlora {fmt} step-1 loss {lk[0]} vs plain {lp[0]}")
@@ -1309,9 +1337,12 @@ def flash_checks(dev, work):
     inputs (the backward ones on the plain forward's lse and D), dead rows
     included; at the S = T shapes, times of the kernels, their plain
     versions and SDPA (forward; backward alone, dq, dk and dv in one call;
-    both). Returns the times at TinyLlama's shape and the largest errors."""
+    both), the f32 rows with their bounds (CUDA cores, and the backward's
+    three TF32 products); the f32 grids at TinyLlama's shape at least two
+    blocks an SM. Returns the bf16 times at TinyLlama's shape, the f32 rows
+    by shape and the largest errors."""
     gen = torch.Generator(device=dev).manual_seed(6)
-    times, max_err = {}, dict.fromkeys(FLASH_KERNELS, 0.0)
+    times, f32_times, max_err = {}, {}, dict.fromkeys(FLASH_KERNELS, 0.0)
     for name, dtype in FLASH_CASES:
         b, sq, t, nh, nkv, hd, q_start, kv_len = FLASH_SHAPES[name]
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype) for shape in
@@ -1364,36 +1395,49 @@ def flash_checks(dev, work):
                    lse_tol=1e-4, grad_max_abs_err=grad_err, grad_rel_l2=grad_rel,
                    grad_tol=grad_tol if dtype == torch.float32 else "rel-L2 2e-2",
                    dead_rows=int((~live).sum()), bwd_bit_identical_over_two_calls=True)
-        if sq == t and dtype == torch.bfloat16:
+        if sq == t:
             row.update(flash_times(q, k, v, do, qs, kl, ref_lse, delta))
-            times[name] = row
-            if name == "tinyllama_s1024":
-                pairs = nh * live_pairs(q_start, kv_len, sq, t)
-                add_work(work, "flash_fwd", nbytes(q, k, v, out, lse), 4 * hd * pairs)
-                add_work(work, "flash_bwd_dq", nbytes(q, k, v, do, lse, delta, dq), 6 * hd * pairs)
-                add_work(work, "flash_bwd_dkv", nbytes(q, k, v, do, lse, delta, dk, dv),
-                         8 * hd * pairs)
+            pairs = nh * live_pairs(q_start, kv_len, sq, t)
+            row_work = {"flash_fwd": (nbytes(q, k, v, out, lse), 4 * hd * pairs),
+                        "flash_bwd_dq": (nbytes(q, k, v, do, lse, delta, dq), 6 * hd * pairs),
+                        "flash_bwd_dkv": (nbytes(q, k, v, do, lse, delta, dk, dv),
+                                          8 * hd * pairs)}
+            if dtype == torch.bfloat16:
+                times[name] = row
+                if name == "tinyllama_s1024":
+                    for kname, (n_bytes, ops) in row_work.items():
+                        add_work(work, kname, n_bytes, ops)
+            else:
+                # f32: bound on the CUDA cores, and by the three TF32 products
+                # that each f32 product of the backward kernels runs as
+                for kname, w in row_work.items():
+                    row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = bound(w, "f32")
+                    row[f"{kname}_tf32x3_bound_ms"] = bound((w[0], 3 * w[1]), "tf32")[0]
+                f32_times[name] = row
         emit(kernel_check=row)
     for hd, shape in ((32, "tinyllama_s1024"), (64, "tinyllama_s1024"),
                       (128, "llama2_7b_s1024")):
         b, sq, t, nh, nkv = FLASH_SHAPES[shape][:5]
-        emit(flash_bwd_design=dict(head_dim=hd, shape=[b, sq, t, nh, nkv, hd], **{
-            name: attention.flash_bwd_design(name, b, sq, t, nh, nkv, hd)
-            for name in ("flash_bwd_dq", "flash_bwd_dkv")}))
+        for dtype in (torch.bfloat16, torch.float32):
+            design = {name: attention.flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=dtype)
+                      for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+            if dtype == torch.float32 and (hd, shape) == (64, "tinyllama_s1024"):
+                for name, d in design.items():
+                    check(d["grid_x"] * d["grid_y"] * d["grid_z"] >= 2 * d["sms"],
+                          f"{name} f32 at {shape}: a grid under two blocks an SM: {d}")
+            emit(flash_bwd_design=dict(head_dim=hd, dtype=str(dtype),
+                                       shape=[b, sq, t, nh, nkv, hd], **design))
         emit(flash_fwd_design=dict(head_dim=hd, shape=[b, sq, t, nh, nkv, hd],
                                    **attention.flash_fwd_design(b, sq, nh, hd)))
-    return times["tinyllama_s1024"], max_err
+    return times["tinyllama_s1024"], f32_times, max_err
 
 
 def flash_times(q, k, v, do, qs, kl, lse, delta):
     """ms per call: each kernel, its plain version, and SDPA on the same
-    inputs in its (B, heads, S, hd) layout (copied outside the timing)."""
-    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True,
-                             enable_gqa=True)
+    inputs (``kernel_sweep.sdpa_times``: forward, backward and both, the
+    backend it takes and, where that is math, the efficient backend on K
+    and V expanded to the query heads)."""
     bwd = (q, k, v, do, lse, delta, qs, kl)
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    qr, kr, vr = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    o = sdpa(qr, kr, vr)
     ms = {}
     for route, uk, iters in (("ms", True, 20), ("plain_ms", False, 3)):
         ms[f"flash_fwd_{route}"] = time_ms(lambda i: attention.flash_forward(
@@ -1402,13 +1446,7 @@ def flash_times(q, k, v, do, qs, kl, lse, delta):
             *bwd, use_kernel=uk), iters)
         ms[f"flash_bwd_dkv_{route}"] = time_ms(lambda i: attention.flash_bwd_dkv(
             *bwd, use_kernel=uk), iters)
-    with torch.no_grad():
-        ms["sdpa_fwd_ms"] = time_ms(lambda i: sdpa(qt, kt, vt), 20)
-    ms["sdpa_bwd_ms"] = time_ms(lambda i: torch.autograd.grad(o, (qr, kr, vr), dot,
-                                                              retain_graph=True), 20)
-    ms["sdpa_fwd_bwd_ms"] = time_ms(lambda i: torch.autograd.grad(sdpa(qr, kr, vr),
-                                                                  (qr, kr, vr), dot), 20)
-    return ms
+    return {**ms, **sdpa_times(q, k, v, do)}
 
 
 def f32_attention(q, k, v, *args):
@@ -2536,6 +2574,42 @@ def qlora_f32(dev):
     return launches, forward, _transposed_f32_rows(gen, dev, T_SHAPES, M_TRAIN, "tinyllama")
 
 
+def qlora_f32_flash(dev):
+    """Phase 33: phase 32's f32 TinyLlama-1.1B base (full width and depth,
+    random weights from seed 0) in nf4 at batch 2 x seq 1024, through the
+    flash kernels, as the JAX package's ``finetune --toy tinyllama --dtype
+    float32 --seq-len 1024`` runs on its chip: phase 9's 3 + 3 + 1 steps
+    under the f32 limits of ``F32_QLORA_REL`` (the plain route's attention
+    is the plain flash), the loss falling, per kernel-route step 155
+    ``matmul_4bit``, 152 ``matmul_4bit_t``, 22 each of ``flash_fwd``,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` (all f32 routes) and one
+    ``adam8bit_update``; then ``train_bench.bench_qlora``'s row (step ms,
+    busy share, step-peak GiB) with the share of the profiled step's device
+    time of #1's f32 forward, #4's f32 dx and each flash kernel. Returns the
+    kernel route's launches."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tinyllama_1b(), dtype=torch.float32)
+    dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    tree = qnn.quantize_params(dense, mode="nf4")
+    del dense
+    launches = qlora_path(dev, cfg, tree, fmt="nf4 f32-base s1024 flash", batch=LONG_BATCH,
+                          seq=LONG_SEQ, use_flash=True)
+    row = train_bench.bench_qlora(tree, cfg, batch=LONG_BATCH, seq=LONG_SEQ)
+    check(math.isfinite(row["loss_step1"]), f"train row nf4 f32 s1024: {row['loss_step1']}")
+    # the kernels' share of the profiled step's device time, as far as they
+    # stand among its top ops (the f32 routes' kernel names)
+    top, busy = row["top_device_ms"], row["device_busy_ms"]
+    keys = {"matmul_4bit": "mmf_", "matmul_4bit_t": "mmt_tf32x3", "flash_fwd": "flash_fwd_f32",
+            "flash_bwd_dq": "flash_bwd_dq_f32", "flash_bwd_dkv": "flash_bwd_dkv_f32"}
+    shares = {k: sum(ms for name, ms in top.items() if key in name) / busy if busy else None
+              for k, key in keys.items()}
+    row = {"name": "tinyllama nf4 f32-base s1024 flash", "fmt": "nf4", "dtype": "float32",
+           "kernel_share_of_device_ms": shares, **row}
+    emit(train_row=row)
+    del tree
+    torch.cuda.empty_cache()
+    return launches
+
+
 def engine_gap(dev):
     """Phase 31: ``benchmarks.engine_gap_bench`` (nf4a, 8 slots, k 8) at
     TinyLlama-1.1B's width and ``GAP_DEPTH`` layers, beside
@@ -2638,7 +2712,7 @@ def main():
         train_rows(cfg, {"nf4": params["nf4"], "nf4a": params["nf4a"], "bf16": dense})
 
     with timed("10-13 flash"):
-        flash_ms, flash_err = flash_checks(dev, work)
+        flash_ms, flash_f32, flash_err = flash_checks(dev, work)
         max_err.update(flash_err)
         flash_launches = qlora_flash_path(dev, cfg, params["nf4"])
         decode_launches = long_prompt_decode(dev, cfg, params["nf4a"])
@@ -2719,6 +2793,9 @@ def main():
         q32, tl_f32_fwd, tl_f32 = qlora_f32(dev)
         for k, v in q32.items():
             (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
+    with timed("33 qlora f32 base s1024 flash"):
+        for k, v in qlora_f32_flash(dev).items():
+            (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
     emit(phase_seconds=phase_s)
 
     def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,
@@ -2748,6 +2825,20 @@ def main():
                 "heads, hd 64, bf16), ms; library: ")
     sdpa = "SDPA (is_causal, enable_gqa) "
     bwd_pair_ms = flash_ms["flash_bwd_dq_ms"] + flash_ms["flash_bwd_dkv_ms"]
+    f32_flash_at = ("; f32: the f32 route at TinyLlama-1.1B's and Llama-2-7B's S = T shapes, "
+                    "ms a call with its plain version, its f32 bound (CUDA cores), the bound "
+                    "of three TF32 products for each f32 one (tf32x3_bound_ms) and SDPA's f32 "
+                    "time (library_ms; the backend it takes named, and where that is math, the "
+                    "efficient backend on K and V expanded to the query heads)")
+
+    def f32_flash(name, library_key):
+        return {shape: {"ms": row[f"{name}_ms"], "plain_ms": row[f"{name}_plain_ms"],
+                        "bound_ms": row[f"{name}_bound_ms"], "bound_by": row[f"{name}_bound_by"],
+                        "tf32x3_bound_ms": row[f"{name}_tf32x3_bound_ms"],
+                        "library_ms": row[library_key] if library_key else None,
+                        "sdpa_backend": row["sdpa_backend"],
+                        **{k: v for k, v in row.items() if k.startswith("sdpa_efficient")}}
+                for shape, row in flash_f32.items()}
     measured = {name: flash_ms[f"{name}_ms"] for name in FLASH_KERNELS}
     measured["matmul_8bit"] = eight_step[("matmul_8bit", 8)][0]
     measured["matmul_4bit"] = per_step["matmul_4bit"][0]
@@ -2760,10 +2851,12 @@ def main():
     emit(earlier_times=dict(
         note="PERF.md's times of the designs before the Hopper redesigns, at the same work, "
              "not measured in this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},
-        per_call_us=EARLIER_US, measured_ms=measured,
+        per_call_us=EARLIER_US, f32_ms=EARLIER_F32_MS, measured_ms=measured,
         measured_per_call_us={**mm4_per_call, **eight_per_call, **int8_per_call,
                               "matmul_4bit_t": t_per_call,
-                              "quantize_blockwise": {"window_8x8": q_op_us}}))
+                              "quantize_blockwise": {"window_8x8": q_op_us}},
+        measured_f32_ms={name: {shape: row[f"{name}_ms"] for shape, row in flash_f32.items()}
+                         for name in EARLIER_F32_MS}))
     emit(kernels=[
         entry("matmul_4bit", "matmul_4bit.cu", "quanta_tpu/ops/matmul.py:204",
               launches["matmul_4bit"], *per_step["matmul_4bit"][:2], "bf16",
@@ -2820,17 +2913,19 @@ def main():
               gpt2_full_step=gpt2_adam),
         entry("flash_fwd", "flash_fwd.cu", "quanta_tpu/ops/attention.py:189",
               launches["flash_fwd"], flash_ms["flash_fwd_ms"], flash_ms["flash_fwd_plain_ms"],
-              "bf16", flash_at + sdpa + "forward", flash_ms["sdpa_fwd_ms"]),
+              "bf16", flash_at + sdpa + "forward" + f32_flash_at, flash_ms["sdpa_fwd_ms"],
+              f32=f32_flash("flash_fwd", "sdpa_fwd_ms")),
         entry("flash_bwd_dq", "flash_bwd.cu", "quanta_tpu/ops/attention.py:465",
               launches["flash_bwd_dq"], flash_ms["flash_bwd_dq_ms"],
               flash_ms["flash_bwd_dq_plain_ms"], "bf16",
               flash_at + "none: no call computes dq alone (SDPA's backward stands on "
-              "flash_bwd_dkv's line)"),
+              "flash_bwd_dkv's line)" + f32_flash_at, f32=f32_flash("flash_bwd_dq", None)),
         entry("flash_bwd_dkv", "flash_bwd.cu", "quanta_tpu/ops/attention.py:494",
               launches["flash_bwd_dkv"], flash_ms["flash_bwd_dkv_ms"],
               flash_ms["flash_bwd_dkv_plain_ms"], "bf16",
               flash_at + sdpa + "backward, dq, dk and dv in one call: compare it with this "
-              f"kernel's ms plus flash_bwd_dq's, {bwd_pair_ms}", flash_ms["sdpa_bwd_ms"]),
+              f"kernel's ms plus flash_bwd_dq's, {bwd_pair_ms}" + f32_flash_at,
+              flash_ms["sdpa_bwd_ms"], f32=f32_flash("flash_bwd_dkv", "sdpa_bwd_ms")),
         entry("matmul_8bit", "matmul_8bit.cu", "quanta_tpu/ops/matmul.py:306",
               launches["matmul_8bit"], *eight_step[("matmul_8bit", 8)][:2], "bf16",
               "one decode step's 155 calls at M=8, int8, bf16 x, ms; library: none, no "

@@ -1,9 +1,11 @@
-"""Time the bf16 ``flash_fwd``, ``matmul_8bit``, ``matmul_4bit``,
-``matmul_8bit_t`` and ``matmul_4bit_t`` kernels, ``matmul_int4c``, the
-LLM.int8 pair and the f32 routes of ``matmul_4bit``, ``matmul_8bit``,
-``matmul_4bit_t`` and ``matmul_8bit_t`` across shapes.
+"""Time the three flash kernels (bf16 or f32), the bf16 ``matmul_8bit``,
+``matmul_4bit``, ``matmul_8bit_t`` and ``matmul_4bit_t`` kernels,
+``matmul_int4c``, the LLM.int8 pair and the f32 routes of
+``matmul_4bit``, ``matmul_8bit``, ``matmul_4bit_t`` and ``matmul_8bit_t``
+across shapes.
 
-    python -m quanta_tpu_torch.benchmarks.kernel_sweep [--what flash mm8 mm4 mm8t mm4t i4c i8 f32] [--ms 8 32]
+    python -m quanta_tpu_torch.benchmarks.kernel_sweep
+        [--what flash mm8 mm4 mm8t mm4t i4c i8 f32] [--ms 8 32] [--dtype float32]
 
 To try a design choice of ``csrc/flash_fwd.cu``, ``csrc/matmul_8bit.cu``,
 ``csrc/matmul_4bit.cu``, ``csrc/matmul_8bit_t.cu``, ``csrc/matmul_4bit_t.cu``,
@@ -11,10 +13,16 @@ To try a design choice of ``csrc/flash_fwd.cu``, ``csrc/matmul_8bit.cu``,
 decode/prefill split, the tile widths), edit its constant, which rebuilds
 the library, and run this again. One JSON object per line:
 
-- ``flash``: the forward (``save_lse=True``, the training call) at
+- ``flash``: the forward (``save_lse=True``, the training call), the dQ
+  and the dK/dV kernels on ``--dtype`` operands (bf16 by default) at
   TinyLlama-1.1B's (B=2, S=T=1024, 32/4 heads, hd 64) and Llama-2-7B's
-  (B=1, S=T=1024, 32 heads, hd 128) shapes, beside SDPA's forward on the
-  same inputs;
+  (B=1, S=T=1024, 32 heads, hd 128) shapes, with their largest error
+  against the plain versions, beside SDPA's forward and backward on the
+  same inputs and the backend it takes (in f32, where that is math, also
+  the efficient backend on K and V expanded to the query heads). It calls
+  nothing newer than the flash wrappers either, so ``--what flash --dtype
+  float32`` run as a file times another checkout's f32 kernels the same
+  way;
 - ``mm8``: ``matmul_8bit`` (int8 codes, bf16 x) at the five TinyLlama
   (K, N) for M in {8, 16, 32, 64, 256, 1024, 2048}, with the design each
   takes;
@@ -59,6 +67,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import inspect
 import json
 import math
 import subprocess
@@ -87,24 +96,88 @@ def emit(**obj):
     print(json.dumps(obj), flush=True)
 
 
-def flash_rows(dev):
+def sdpa_times(q, k, v, do, iters=20):
+    """SDPA (``is_causal``, ``enable_gqa``) on the flash operands, copied to
+    its (B, heads, S, hd) layout outside the timing: ms of its forward, its
+    backward (dq, dk and dv in one call) and both, and the backend it takes
+    (the first of flash, efficient, cuDNN and math that accepts the
+    operands). Where that is math, also the efficient backend's forward and
+    backward on K and V expanded to the query heads, the expansion outside
+    the timing."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
+
+    def backend(*args, **kw):
+        for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                  SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel(b), torch.no_grad():
+                    sdpa(*args, **kw)
+            except RuntimeError:  # this backend refuses the operands
+                continue
+            return b
+        raise RuntimeError("sdpa_times: no SDPA backend takes the operands")
+
+    def times(qt, kt, vt, **kw):
+        qr, kr, vr = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        o = sdpa(qr, kr, vr, **kw)
+        with torch.no_grad():
+            fwd = time_ms(lambda i: sdpa(qt, kt, vt, **kw), iters)
+        bwd = time_ms(lambda i: torch.autograd.grad(o, (qr, kr, vr), dot, retain_graph=True),
+                      iters)
+        both = time_ms(lambda i: torch.autograd.grad(sdpa(qr, kr, vr, **kw), (qr, kr, vr), dot),
+                       iters)
+        return fwd, bwd, both
+
+    taken = backend(qt, kt, vt, enable_gqa=True)
+    fwd, bwd, both = times(qt, kt, vt, enable_gqa=True)
+    out = {"sdpa_backend": taken.name, "sdpa_fwd_ms": fwd, "sdpa_bwd_ms": bwd,
+           "sdpa_fwd_bwd_ms": both}
+    if taken == SDPBackend.MATH:
+        rep = q.shape[2] // k.shape[2]
+        ke, ve = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            fwd, bwd, both = times(qt, ke, ve)
+        out.update(sdpa_efficient_fwd_ms=fwd, sdpa_efficient_bwd_ms=bwd,
+                   sdpa_efficient_fwd_bwd_ms=both)
+    return out
+
+
+def flash_rows(dev, dtype):
+    """The three flash kernels on ``dtype`` operands at FLASH_SHAPES: ms a
+    call, the largest error against the plain versions over max|plain|,
+    beside SDPA (``sdpa_times``)."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True,
-                             enable_gqa=True)
     for name, (b, s, nh, nkv, hd) in FLASH_SHAPES.items():
-        q = torch.randn((b, s, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
-        k, v = (torch.randn((b, s, nkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+        q, do = (torch.randn((b, s, nh, hd), generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn((b, s, nkv, hd), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
         pos = torch.zeros((b,), dtype=torch.int32, device=dev)
-        ref, _ = attention.flash_forward_reference(q, k, v, pos, pos + s)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        with torch.no_grad():
-            sdpa_ms = time_ms(lambda i: sdpa(qt, kt, vt), 50)
-        out, _ = attention.flash_forward(q, k, v, pos, pos + s, save_lse=True)
-        err = (out.float() - ref.float()).abs().max().item()
-        ms = time_ms(lambda i: attention.flash_forward(q, k, v, pos, pos + s, save_lse=True), 50)
-        emit(sweep="flash_fwd", shape=name, ms=ms, sdpa_ms=sdpa_ms, max_abs_err=err,
-             design=attention.flash_fwd_design(b, s, nh, hd))
+        ref, lse = attention.flash_forward_reference(q, k, v, pos, pos + s)
+        delta = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, lse, delta, pos, pos + s)
+        got = {"fwd": attention.flash_forward(q, k, v, pos, pos + s)[:1],
+               "dq": (attention.flash_bwd_dq(*bwd),), "dkv": attention.flash_bwd_dkv(*bwd)}
+        want = {"fwd": (ref,), "dq": (attention.flash_bwd_dq_reference(*bwd),),
+                "dkv": attention.flash_bwd_dkv_reference(*bwd)}
+        rel_err = {n: max((x.float() - y.float()).abs().max().item() / y.float().abs().max().item()
+                          for x, y in zip(got[n], want[n])) for n in got}
+        row = dict(sweep="flash", dtype=str(dtype), shape=name, rel_err=rel_err,
+                   fwd_ms=time_ms(lambda i: attention.flash_forward(q, k, v, pos, pos + s,
+                                                                    save_lse=True), 20),
+                   dq_ms=time_ms(lambda i: attention.flash_bwd_dq(*bwd), 20),
+                   dkv_ms=time_ms(lambda i: attention.flash_bwd_dkv(*bwd), 20),
+                   **sdpa_times(q, k, v, do))
+        if dtype == torch.bfloat16:
+            row["fwd_design"] = attention.flash_fwd_design(b, s, nh, hd)
+        if "dtype" in inspect.signature(attention.flash_bwd_design).parameters:
+            row["bwd_design"] = {n: attention.flash_bwd_design(n, b, s, s, nh, nkv, hd,
+                                                               dtype=dtype)
+                                 for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+        emit(**row)
 
 
 def mm8_rows(dev, pick):
@@ -307,6 +380,8 @@ def main(argv=None):
                     choices=("flash", "mm8", "mm4", "mm8t", "mm4t", "i4c", "i8", "f32"),
                     default=["flash", "mm8", "mm4", "mm8t", "mm4t", "i4c", "i8", "f32"])
     ap.add_argument("--ms", nargs="+", type=int, default=None)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the flash rows' operands")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_sweep: needs a CUDA device")
@@ -316,7 +391,7 @@ def main(argv=None):
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60).stdout.strip())
     if "flash" in args.what:
-        flash_rows(dev)
+        flash_rows(dev, getattr(torch, args.dtype))
     def pick(default):
         return [m for m in default if args.ms is None or m in args.ms]
     if "mm8" in args.what:

@@ -18,10 +18,10 @@
 // What bounds them on the H100: at TinyLlama's s1024 b2 training shape the
 // dQ kernel does 3 and the dK/dV kernel 4 products of 2 * B * nh *
 // (S(S+1)/2) * hd flops (~13 and ~17 GFLOP a layer): bound by the tensor
-// cores (~30 us together at 989 TFLOP/s).
+// cores (bf16: ~30 us together at 989 TFLOP/s; f32, below).
 //
-// bf16, the route every timed path takes (sm90.cuh has the pieces). One
-// warpgroup (128 threads) owns a 64-row tile, wgmma's M:
+// bf16 (the pieces are sm90.cuh's). One warpgroup (128 threads) owns a
+// 64-row tile, wgmma's M:
 //   - dQ: one block per (query tile, head, batch row), blocks ordered so the
 //     rep query heads of a KV head run side by side (K and V come from L2)
 //     and the query tiles with the most live key tiles start first. It
@@ -51,16 +51,70 @@
 // No score tile goes through shared memory, and both kernels are
 // deterministic.
 //
-// f32 (a correctness route; no timed path takes it): the design of the
-// first port, CUDA-core FMAs (WarpAcc<float> of flash_common.cuh). dQ: one
-// block of 4 warps per (batch row, query head, 64 query rows), each warp
-// owning 16 rows; it loops over the live key tiles, staging K and V,
-// recomputes its scores and dO V^T, forms ds in shared memory and
-// accumulates ds @ K. dK/dV: one block per (batch row, KV head, 64 keys),
-// looping over the rep query heads and their live query tiles. Every block
-// writes its own rows: no atomics.
+// f32 (QLoRA on an f32 base at S >= 1024, the JAX package's `finetune
+// --dtype float32 --seq-len 1024`; the f32 cached prefill): on the CUDA
+// cores the products are bound at 67 TFLOP/s of f32 FMAs (~0.19 ms for dQ
+// and ~0.26 ms for dK/dV at TinyLlama's s1024 shape). The tensor cores
+// multiply TF32 (10 fraction bits), so each f32 product runs as three TF32
+// ones, as tf32x3_sm90.cuh does: x = hi + lo, hi = tf32(x), lo = tf32(x -
+// hi), a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, a ceiling of 495 / 3 = 165
+// TFLOP/s (~0.078 and ~0.104 ms). tf32 wgmma reads K-major operands only.
+// So every operand a block streams is an A operand, read from its raw f32
+// tile in whatever order the product needs and split in registers, and
+// every B operand sits in shared memory as split hi and lo tiles: the
+// block's own operands, split once, and each tile's p and ds, split as they
+// leave the accumulators. Every product is read the other way round from
+// the bf16 kernels'. A block runs two warpgroups below hd 128 (one at 128,
+// where the shared memory holds one), each taking every second item of the
+// block with a ring slot and p / ds tiles of its own (two slots alone):
+//   - dQ: one block per (BQ query rows, head, batch row), BQ = 64 (32 at
+//     hd 128), ordered as the bf16 kernel's blocks. Q and dO are split once
+//     into hi / lo tiles (rows = queries); the key tiles stream as raw K
+//     and V tiles. Per key tile, S^T = K Q^T and dP^T = V dO^T (rows =
+//     keys; lse and D per column, from shared memory), ds^T formed in the
+//     accumulator registers and written, split, as a dS tile (rows =
+//     queries, columns = keys), then dQ^T += K^T dS^T, K^T's fragments read
+//     from the raw K tile. The warpgroups' dQ rows are summed in order.
+//   - dK/dV: one cluster of C blocks per (BK keys, KV head, batch row), BK
+//     = 64 (32 at hd 128), C picked as for the bf16 kernel (TinyLlama's
+//     s1024 shape: 128 key tiles, C = 4, 512 blocks). K and V are split
+//     once into hi / lo tiles (rows = keys); the block's share of the (rep
+//     head, query tile) pairs streams as raw Q and dO tiles with their lse
+//     and D. Per pair, S = Q K^T and dP = dO V^T (rows = queries; lse and D
+//     per row, in registers), p written, split, as a P tile (rows = keys,
+//     columns = queries) for dV^T += dO^T P, then ds into the same tile for
+//     dK^T += Q^T dS, the A fragments read transposed from the raw dO and Q
+//     tiles. The cluster sums its blocks' and warpgroups' partials through
+//     distributed shared memory in that order, as the bf16 kernel does.
+// An A fragment holds columns q and q + 4 of a k8 slice; the B tiles of S
+// and dP keep hd 2q and 2q + 1 there, so each fragment row is one 8-byte
+// load of a raw tile (RAW_PAD floats a row put the rows a half-warp reads
+// on distinct banks). Independent products (S and dP; hd 128's two slabs)
+// interleave their wgmmas, and each slice's fragments load while the last
+// slice's products are issued. The tensor cores add with truncation: over
+// the 1024 keys of dQ and the 8 x 1024 query rows of dK/dV that bias would
+// approach the 1e-4 rule, so each tile's products go into a fresh partial
+// that the CUDA cores add to the running sum, rounded to nearest. p = 2^(s
+// scale log2 e - lse log2 e) on the SFU (ex2.approx, ~2 ulp; the gradients
+// stay within 5e-6 of max|plain| at chip_smoke.py's shapes, the rule is
+// 1e-4). No atomics: two calls give the same bits.
+//
+// Tried on the H100 (PERF.md's f32 flash findings; variants of this file
+// timed at TinyLlama's s1024 shape, ms dQ / dK/dV): one warpgroup a block 0.402 /
+// 0.486; two 0.281 / 0.340; with S and dP interleaved, the fragments loaded
+// a slice ahead and ex2.approx, 0.227 / 0.286. From there, timing-only
+// cuts: one TF32 product for three -8% / -9%, no per-tile loads -9% / -11%,
+// no p / ds stage at all -48% / -44%, though its parts alone (no exp, no
+// split, no lo tiles, no proxy fence) move it 0-4%: the stage costs in
+// latency, not in issue slots. No gain from K^T's fragments held in
+// registers to load the next tile before dQ's last product (+2%), one or
+// three A buffers (+7%; +2% / +9%, with spills), staggered warpgroups
+// (+2%), or S and dP of dK/dV as separate products (+3%). dK/dV's cluster:
+// 2 blocks (256, under two blocks an SM) -14%, 3 +3%, 8 +18% against 4.
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "sm90.cuh"
@@ -68,206 +122,6 @@
 namespace {
 
 namespace cg = cooperative_groups;
-
-// ----------------------------------------------------- f32: CUDA-core FMAs
-
-template <int HD>
-struct BwdSmem {
-  static constexpr int LD = HD + kPad<float>;  // Q, dO, K, V tiles
-  static constexpr int S_LD = kAccLd(TILE);  // scores and dO V^T
-  static constexpr int P_LD = TILE + kPad<float>;
-  static constexpr int C_LD = kAccLd(HD);  // f32 epilogue, over two staged tiles
-  static constexpr size_t tiles = 4 * TILE * LD * 4;
-  static constexpr size_t bytes =
-      tiles + 2 * TILE * S_LD * 4 + 2 * TILE * P_LD * 4 + 2 * TILE * 4;
-  static_assert(TILE * C_LD * 4 <= 2 * TILE * LD * 4, "epilogue fits two tiles");
-};
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const int* __restrict__ q_start,
-                    const int* __restrict__ kv_len, float* __restrict__ dq,
-                    int Sq, int Tk, int nh, int nkv, int causal, float scale) {
-  using SM = BwdSmem<HD>;
-  constexpr int LD = SM::LD, S_LD = SM::S_LD, P_LD = SM::P_LD, C_LD = SM::C_LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + TILE * LD;
-  float* Qs = Vs + TILE * LD;
-  float* dOs = Qs + TILE * LD;
-  float* Ss = dOs + TILE * LD;
-  float* dPs = Ss + TILE * S_LD;
-  float* dSs = dPs + TILE * S_LD;
-  float* Cs = reinterpret_cast<float*>(smem);  // epilogue, over Ks and Vs
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (nh / nkv);
-  const int qs = q_start[b];
-  const int kvl = max(0, min(kv_len[b], Tk));
-  const int kv_end = live_kv_end(qs, q0, Sq, kvl, causal);
-  const int n_tiles = kv_end > 0 ? (kv_end + TILE - 1) / TILE : 0;
-
-  const int64_t q_off = ((int64_t)b * Sq * nh + h) * HD;
-  const float* kb = k + ((int64_t)b * Tk * nkv + g) * HD;
-  const float* vb = v + ((int64_t)b * Tk * nkv + g) * HD;
-  load_tile<float, HD>(Qs, q + q_off, (int64_t)nh * HD, q0, Sq);
-  load_tile<float, HD>(dOs, dout + q_off, (int64_t)nh * HD, q0, Sq);
-
-  const int wr = lane >> 1, par = lane & 1;
-  const int row = warp * WROWS + wr;
-  const int qpos = qs + q0 + row;
-  const int64_t stat = ((int64_t)b * nh + h) * Sq + q0 + row;
-  const float lse_r = q0 + row < Sq ? lse[stat] : kDeadLse;
-  const float delta_r = q0 + row < Sq ? delta[stat] : 0.0f;
-  const float* Qw = Qs + warp * WROWS * LD;
-  const float* dOw = dOs + warp * WROWS * LD;
-  float* Sw = Ss + warp * WROWS * S_LD;
-  float* dPw = dPs + warp * WROWS * S_LD;
-  float* dSw = dSs + warp * WROWS * P_LD;
-
-  WarpAcc<float, HD> acc;
-  acc.zero();
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * TILE;
-    __syncthreads();
-    load_tile<float, HD>(Ks, kb, (int64_t)nkv * HD, k0, Tk);
-    load_tile<float, HD>(Vs, vb, (int64_t)nkv * HD, k0, Tk);
-    __syncthreads();
-
-    WarpAcc<float, TILE> s;
-    s.zero();
-    s.template mma<RowMajor, ColMajor, HD>(Qw, LD, Ks, LD);
-    s.store(Sw, S_LD);
-    s.zero();
-    s.template mma<RowMajor, ColMajor, HD>(dOw, LD, Vs, LD);
-    s.store(dPw, S_LD);
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < TILE / 2; ++c) {
-      const int col = 2 * c + par;
-      const float p = live_pair(k0 + col, qpos, kvl, causal)
-                          ? expf(Sw[wr * S_LD + col] * scale - lse_r) : 0.0f;
-      dSw[wr * P_LD + col] = p * (dPw[wr * S_LD + col] - delta_r) * scale;
-    }
-    __syncwarp();
-    acc.template mma<RowMajor, RowMajor, TILE>(dSw, P_LD, Ks, LD);
-  }
-  __syncthreads();  // Cs overlays K and V
-
-  float* Cw = Cs + warp * WROWS * C_LD;
-  acc.store(Cw, C_LD);
-  __syncwarp();
-  if (q0 + row < Sq) {
-    float* drow = dq + (((int64_t)b * Sq + q0 + row) * nh + h) * HD;
-#pragma unroll 4
-    for (int c = 0; c < HD / 2; ++c) drow[2 * c + par] = Cw[wr * C_LD + 2 * c + par];
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, const int* __restrict__ q_start,
-                     const int* __restrict__ kv_len, float* __restrict__ dk,
-                     float* __restrict__ dv, int Sq, int Tk, int nh, int nkv, int causal,
-                     float scale) {
-  using SM = BwdSmem<HD>;
-  constexpr int LD = SM::LD, S_LD = SM::S_LD, P_LD = SM::P_LD, C_LD = SM::C_LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* dOs = Qs + TILE * LD;
-  float* Ks = dOs + TILE * LD;
-  float* Vs = Ks + TILE * LD;
-  float* Ss = Vs + TILE * LD;
-  float* dPs = Ss + TILE * S_LD;
-  float* Ps = dPs + TILE * S_LD;
-  float* dSs = Ps + TILE * P_LD;
-  float* Ls = dSs + TILE * P_LD;
-  float* Ds = Ls + TILE;
-  float* Cs = reinterpret_cast<float*>(smem);  // epilogue, over Qs and dOs
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * TILE, g = blockIdx.y, b = blockIdx.z;
-  const int rep = nh / nkv;
-  const int qs = q_start[b];
-  const int kvl = max(0, min(kv_len[b], Tk));
-  // query tiles whose last row reaches key k0: from the one holding row k0 - q_start
-  const int qt_begin = causal ? max(0, k0 - qs) / TILE : 0;
-  const int qt_end = k0 < kvl ? (Sq + TILE - 1) / TILE : 0;
-
-  load_tile<float, HD>(Ks, k + ((int64_t)b * Tk * nkv + g) * HD, (int64_t)nkv * HD, k0, Tk);
-  load_tile<float, HD>(Vs, v + ((int64_t)b * Tk * nkv + g) * HD, (int64_t)nkv * HD, k0, Tk);
-
-  // lanes 2r and 2r+1 own key row r of this warp's 16; columns are queries
-  const int wr = lane >> 1, par = lane & 1;
-  const int kpos = k0 + warp * WROWS + wr;
-  const float* Kw = Ks + warp * WROWS * LD;
-  const float* Vw = Vs + warp * WROWS * LD;
-  float* Sw = Ss + warp * WROWS * S_LD;
-  float* dPw = dPs + warp * WROWS * S_LD;
-  float* Pw = Ps + warp * WROWS * P_LD;
-  float* dSw = dSs + warp * WROWS * P_LD;
-
-  WarpAcc<float, HD> acc_k, acc_v;
-  acc_k.zero();
-  acc_v.zero();
-  for (int r = 0; r < rep; ++r) {
-    const int h = g * rep + r;
-    const int64_t q_off = ((int64_t)b * Sq * nh + h) * HD;
-    const float* lse_h = lse + ((int64_t)b * nh + h) * Sq;
-    const float* delta_h = delta + ((int64_t)b * nh + h) * Sq;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * TILE;
-      __syncthreads();
-      load_tile<float, HD>(Qs, q + q_off, (int64_t)nh * HD, q0, Sq);
-      load_tile<float, HD>(dOs, dout + q_off, (int64_t)nh * HD, q0, Sq);
-      if (tid < TILE) {
-        const bool in = q0 + tid < Sq;
-        Ls[tid] = in ? lse_h[q0 + tid] : kDeadLse;
-        Ds[tid] = in ? delta_h[q0 + tid] : 0.0f;
-      }
-      __syncthreads();
-
-      WarpAcc<float, TILE> s;
-      s.zero();
-      s.template mma<RowMajor, ColMajor, HD>(Kw, LD, Qs, LD);  // K Q^T
-      s.store(Sw, S_LD);
-      s.zero();
-      s.template mma<RowMajor, ColMajor, HD>(Vw, LD, dOs, LD);  // V dO^T
-      s.store(dPw, S_LD);
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < TILE / 2; ++c) {
-        const int col = 2 * c + par;
-        const float p = live_pair(kpos, qs + q0 + col, kvl, causal)
-                            ? expf(Sw[wr * S_LD + col] * scale - Ls[col]) : 0.0f;
-        Pw[wr * P_LD + col] = p;
-        dSw[wr * P_LD + col] = p * (dPw[wr * S_LD + col] - Ds[col]) * scale;
-      }
-      __syncwarp();
-      acc_v.template mma<RowMajor, RowMajor, TILE>(Pw, P_LD, dOs, LD);  // p^T dO
-      acc_k.template mma<RowMajor, RowMajor, TILE>(dSw, P_LD, Qs, LD);  // ds^T Q
-    }
-  }
-
-  float* Cw = Cs + warp * WROWS * C_LD;
-  const int64_t out_row = (((int64_t)b * Tk + kpos) * nkv + g) * HD;
-  auto write = [&](const WarpAcc<float, HD>& acc, float* out) {
-    __syncthreads();  // Cs overlays Q and dO; the last reads of them are done
-    acc.store(Cw, C_LD);
-    __syncwarp();
-    if (kpos < Tk) {
-#pragma unroll 4
-      for (int c = 0; c < HD / 2; ++c) out[out_row + 2 * c + par] = Cw[wr * C_LD + 2 * c + par];
-    }
-  };
-  write(acc_k, dk);
-  write(acc_v, dv);
-}
 
 // ------------------------------------------------------- bf16: Hopper
 
@@ -574,13 +428,654 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// The dK/dV launch: grid (C, nkv * B, key tiles), clusters of C blocks.
+// ------------------------------------------------------- f32: 3xTF32 on Hopper
+
+constexpr int RAW_PAD = 8;  // floats after each raw f32 row: fragment loads meet each bank once
+
+// The barrier of warpgroup `wg` alone (ids from 1; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// 64 rows of HD f32, row-major with RAW_PAD floats of padding, as cp.async
+// lands them: the A operands, read into registers in any order.
+template <int HD> struct RawTile {
+  static constexpr int LD = HD + RAW_PAD;
+  static constexpr uint32_t BYTES = 64 * LD * 4;
+  // rows [r0, r0 + 64) of one head of a (B, S, heads, HD) f32 tensor, by
+  // the 128 threads of a warpgroup (this one `tid`); `src` is row 0 of that
+  // batch row and head, `row_stride` heads * HD; rows at or past `rows`
+  // read as zeros
+  static __device__ __forceinline__ void load(uint32_t dst, const float* src, int64_t row_stride,
+                                              int r0, int rows, int tid) {
+    constexpr int CH = HD / 4;  // 16-byte chunks a row
+    for (int i = tid; i < 64 * CH; i += 128) {
+      const int r = i / CH, c = i % CH;
+      const bool in = r0 + r < rows;
+      const float* from = in ? src + (int64_t)(r0 + r) * row_stride + 4 * c : src;
+      cp_async16(dst + (r * LD + 4 * c) * 4, from, in ? 16 : 0);
+    }
+  }
+};
+
+// A K-major tf32 B operand: ROWS rows (wgmma's N) by KC columns (the
+// reduction, a multiple of 32), in blocks of 32 columns, each block ROWS
+// rows of 128 bytes with the 128-byte swizzle (Tile<64>'s f32 layout,
+// sm90.cuh), the blocks one after the other.
+template <int ROWS, int KC> struct KTile {
+  static constexpr uint32_t BLOCK = ROWS * 128;
+  static constexpr uint32_t BYTES = BLOCK * (KC / 32);
+  // byte offset of element (r, k)
+  static __device__ __forceinline__ uint32_t offset(int r, int k) {
+    return (k >> 5) * BLOCK + r * 128 + ((((k & 31) >> 2) ^ (r & 7)) << 4) + (k & 3) * 4;
+  }
+  // the k8 slice kk
+  static __device__ __forceinline__ uint64_t desc(uint32_t base, int kk) {
+    return smem_desc(base + (kk >> 2) * BLOCK + (kk & 3) * 32, 16, 1024, kSwizzle128);
+  }
+};
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                           uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+__device__ __forceinline__ void st_shared1(uint32_t addr, uint32_t a) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(a) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of one head of a (B, S, heads, HD) f32 tensor into
+// hi and lo KTile<ROWS, HD>s (zeros at or past `rows`), by `nt` threads (this
+// one `tid`), in the hd order of the A fragments: positions 0-3 of each k8
+// slice hold hd 0, 2, 4, 6 of it, positions 4-7 hd 1, 3, 5, 7.
+template <int ROWS, int HD>
+__device__ __forceinline__ void split_hd_tile(uint32_t hi, uint32_t lo,
+                                              const float* __restrict__ src, int64_t row_stride,
+                                              int r0, int rows, int tid, int nt) {
+  using KT = KTile<ROWS, HD>;
+  for (int i = tid; i < ROWS * (HD / 8); i += nt) {
+    const int r = i / (HD / 8), kk = i % (HD / 8);
+    float4 x0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), x1 = x0;
+    if (r0 + r < rows) {
+      const float* row = src + (int64_t)(r0 + r) * row_stride + 8 * kk;
+      const float4* s = reinterpret_cast<const float4*>(row);
+      x0 = __ldg(s);
+      x1 = __ldg(s + 1);
+    }
+    const float x[8] = {x0.x, x0.z, x1.x, x1.z, x0.y, x0.w, x1.y, x1.w};
+    uint32_t h[8], l[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p) split_tf32(x[p], h[p], l[p]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t off = KT::offset(r, 8 * kk + 4 * half);
+      const int e = 4 * half;
+      st_shared4(hi + off, h[e], h[e + 1], h[e + 2], h[e + 3]);
+      st_shared4(lo + off, l[e], l[e + 1], l[e + 2], l[e + 3]);
+    }
+  }
+}
+
+// The A fragment (wgmma_rs_tf32) of rows r and r + 8 of a raw tile, k8
+// slice kk of hd in split_hd_tile's order: a[0], a[2] (columns q, q + 4)
+// are hd 8 kk + 2q and 8 kk + 2q + 1 of row r, a[1], a[3] those of r + 8.
+template <int HD>
+__device__ __forceinline__ void frag_rows(const float* raw, int r, int q, int kk, float (&a)[4]) {
+  constexpr int LD = RawTile<HD>::LD;
+  const float2 u = *reinterpret_cast<const float2*>(raw + r * LD + 8 * kk + 2 * q);
+  const float2 w = *reinterpret_cast<const float2*>(raw + (r + 8) * LD + 8 * kk + 2 * q);
+  a[0] = u.x;
+  a[1] = w.x;
+  a[2] = u.y;
+  a[3] = w.y;
+}
+
+// The A fragment of a raw tile read transposed: rows m and m + 8 are hd
+// columns, the k8 slice kk is raw rows 8 kk.. in order (a[0] = raw[8 kk +
+// q][m], a[1] = raw[8 kk + q][m + 8], a[2], a[3] the same at row 8 kk + q +
+// 4); zeros where m >= HD (hd 32 fills half of wgmma's 64 rows).
+template <int HD>
+__device__ __forceinline__ void frag_cols(const float* raw, int m, int q, int kk, float (&a)[4]) {
+  constexpr int LD = RawTile<HD>::LD;
+  if (m < HD) {
+    const float* p = raw + (8 * kk + q) * LD + m;
+    a[0] = p[0];
+    a[1] = p[8];
+    a[2] = p[4 * LD];
+    a[3] = p[4 * LD + 8];
+  } else {
+    a[0] = a[1] = a[2] = a[3] = 0.0f;
+  }
+}
+
+constexpr int A_BUFS = 2;  // split A fragments in flight: slices whose products may run at once
+
+// One product of mma_3xtf32: d (m64 x N, f32) = A B, frag(kk, a) giving
+// A's fragment of the k8 slice kk, b_hi(kk) and b_lo(kk) the descriptors of
+// B's split tiles; with the slice's raw fragment loaded ahead and A_BUFS
+// buffers of its split one.
+template <int N, typename Frag, typename DescHi, typename DescLo> struct Chain {
+  float (&d)[N / 2];
+  Frag frag;
+  DescHi b_hi;
+  DescLo b_lo;
+  float next[4];
+  uint32_t ah[A_BUFS][4], al[A_BUFS][4];
+
+  __device__ __forceinline__ void hold(int bb) {  // keep buffer bb as the products read it
+    fence_regs(reinterpret_cast<int(&)[4]>(ah[bb]));
+    fence_regs(reinterpret_cast<int(&)[4]>(al[bb]));
+  }
+  __device__ __forceinline__ void split(int bb) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) split_tf32(next[f], ah[bb][f], al[bb][f]);
+    hold(bb);
+  }
+  // the j-th of the slice's three TF32 products, the small terms first
+  __device__ __forceinline__ void issue(int kk, int j) {
+    const int bb = kk % A_BUFS;
+    if (j == 0) wgmma_rs_tf32<N>(d, al[bb], b_hi(kk), kk > 0);
+    if (j == 1) wgmma_rs_tf32<N>(d, ah[bb], b_lo(kk), 1);
+    if (j == 2) wgmma_rs_tf32<N>(d, ah[bb], b_hi(kk), 1);
+  }
+};
+template <int N, typename Frag, typename DescHi, typename DescLo>
+__device__ __forceinline__ Chain<N, Frag, DescHi, DescLo> chain(float (&d)[N / 2], Frag frag,
+                                                               DescHi b_hi, DescLo b_lo) {
+  return {d, frag, b_hi, b_lo};
+}
+
+// The products of independent chains over NK k8 slices, each f32 product
+// as three TF32 ones (a_lo b_hi + a_hi b_lo + a_hi b_hi), A split here in
+// registers. Per slice the chains' products interleave in one commit group,
+// the next slice's fragments are loaded while they are issued, and the
+// splits of the next slices overlap the products of the A_BUFS - 1 before.
+// Returns with every product done.
+template <int NK, typename... C>
+__device__ __forceinline__ void mma_3xtf32(C&... c) {
+  (fence_regs(c.d), ...);
+  (c.frag(0, c.next), ...);
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    if (kk >= A_BUFS) {
+      wgmma_wait<A_BUFS - 1>();  // slice kk - A_BUFS's products, which read this buffer, are done
+      (c.hold(kk % A_BUFS), ...);
+    }
+    (c.split(kk % A_BUFS), ...);
+    if (kk + 1 < NK) (c.frag(kk + 1, c.next), ...);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 3; ++j) (c.issue(kk, j), ...);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  (fence_regs(c.d), ...);
+#pragma unroll
+  for (int bb = 0; bb < A_BUFS; ++bb) (c.hold(bb), ...);
+}
+
+// Both f32 kernels run WGS warpgroups a block (two below hd 128, where the
+// shared memory holds two), warpgroup w taking every WGS-th item (key tile
+// or pair) of the block from the w-th, through a ring of RS slots of its own
+// (one beside a second warpgroup, two alone): while one warpgroup's products
+// run, the other's loads, splits, exponentials and stores do. The block's
+// own split operands are shared.
+template <int HD> struct DqF32 {
+  static constexpr int WGS = HD == 128 ? 1 : 2;
+  static constexpr int RS = HD == 128 ? 2 : 1;
+  static constexpr int BQ = HD == 128 ? 32 : 64;   // query rows a block
+  static constexpr int SLABS = HD == 128 ? 2 : 1;  // m64 slabs of hd in dQ^T
+  using QT = KTile<BQ, HD>;  // Q, dO hi / lo: the B of S^T = K Q^T, dP^T = V dO^T
+  using ST = KTile<BQ, 64>;  // dS hi / lo: the B of dQ^T = K^T dS^T
+  using RT = RawTile<HD>;
+  // Q, dO hi / lo; warpgroup w's dS hi, lo at S0 + 2 w ST::BYTES; its slot s
+  // (raw K, V) at RING + 2 (w RS + s) RT::BYTES; lse, D of the block's rows
+  static constexpr uint32_t Q_HI = 0, Q_LO = QT::BYTES, O_HI = 2 * QT::BYTES,
+                            O_LO = 3 * QT::BYTES, S0 = 4 * QT::BYTES,
+                            RING = S0 + WGS * 2 * ST::BYTES,
+                            STATS = RING + WGS * RS * 2 * RT::BYTES;
+  static constexpr int OUT_LD = HD + 4;  // each warpgroup's dQ rows, over the ring
+  static_assert(WGS * BQ * OUT_LD * 4 <= WGS * RS * 2 * RT::BYTES, "the dQ rows fit the ring");
+  static constexpr size_t bytes = STATS + 2 * BQ * 4 + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(128 * DqF32<HD>::WGS, 1)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ q_start, const int* __restrict__ kv_len,
+                 float* __restrict__ dq, int Sq, int Tk, int nh, int nkv, int causal, float scale) {
+  using L = DqF32<HD>;
+  using RT = typename L::RT;
+  using QT = typename L::QT;
+  using ST = typename L::ST;
+  constexpr int BQ = L::BQ, WGS = L::WGS, RS = L::RS;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  unsigned char* gbase = smem + (base - smem_addr(smem));  // generic pointer to the base
+  auto raw = [&](uint32_t at) { return reinterpret_cast<const float*>(gbase + (at - base)); };
+  float* Ls = reinterpret_cast<float*>(gbase + L::STATS);
+  float* Ds = Ls + BQ;
+
+  const int tid = threadIdx.x, wg = tid / 128, wtid = tid % 128;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the longest rows first
+  const int g = h / (nh / nkv);
+  const int qs = q_start[b];
+  const int kvl = max(0, min(kv_len[b], Tk));
+  const int kv_end = causal ? min(kvl, qs + min(q0 + BQ, Sq)) : kvl;
+  const int n_tiles = kv_end > 0 ? (kv_end + TILE - 1) / TILE : 0;
+  const int n_mine = n_tiles > wg ? (n_tiles - wg + WGS - 1) / WGS : 0;  // tiles wg, wg + WGS, ..
+
+  const int64_t q_off = ((int64_t)b * Sq * nh + h) * HD;
+  const float* kb = k + ((int64_t)b * Tk * nkv + g) * HD;
+  const float* vb = v + ((int64_t)b * Tk * nkv + g) * HD;
+  const int64_t kv_stride = (int64_t)nkv * HD;
+  const uint32_t s_hi = base + L::S0 + wg * 2 * ST::BYTES, s_lo = s_hi + ST::BYTES;
+  auto slot = [&](int s) { return base + L::RING + (wg * RS + s) * 2 * RT::BYTES; };
+  auto load = [&](int i, int s) {  // this warpgroup's i-th tile into its slot s
+    const int k0 = (wg + WGS * i) * TILE;
+    RT::load(slot(s), kb, kv_stride, k0, Tk, wtid);
+    RT::load(slot(s) + RT::BYTES, vb, kv_stride, k0, Tk, wtid);
+  };
+#pragma unroll
+  for (int s = 0; s < RS - 1; ++s) {
+    if (s < n_mine) load(s, s);
+    cp_async_commit();
+  }
+  split_hd_tile<BQ, HD>(base + L::Q_HI, base + L::Q_LO, q + q_off, (int64_t)nh * HD, q0, Sq, tid,
+                        128 * WGS);
+  split_hd_tile<BQ, HD>(base + L::O_HI, base + L::O_LO, dout + q_off, (int64_t)nh * HD, q0, Sq,
+                        tid, 128 * WGS);
+  for (int i = tid; i < BQ; i += 128 * WGS) {
+    const int row = q0 + i;
+    const int64_t stat = ((int64_t)b * nh + h) * Sq + row;
+    Ls[i] = (row < Sq ? lse[stat] : kDeadLse) * kLog2e;  // base 2
+    Ds[i] = row < Sq ? delta[stat] : 0.0f;
+  }
+  fence_proxy_async();
+  __syncthreads();  // the split Q and dO tiles and the statistics are whole
+  const float scale2 = scale * kLog2e;
+
+  // this thread's key rows r0, r0 + 8 of a tile (and hd rows of dQ^T);
+  // query columns 8 j + 2 q4 + c
+  const int r0 = 16 * warp + lane / 4, q4 = lane % 4;
+  auto q_hi = [&](int kk) { return QT::desc(base + L::Q_HI, kk); };
+  auto q_lo = [&](int kk) { return QT::desc(base + L::Q_LO, kk); };
+  auto o_hi = [&](int kk) { return QT::desc(base + L::O_HI, kk); };
+  auto o_lo = [&](int kk) { return QT::desc(base + L::O_LO, kk); };
+  auto ds_hi = [&](int kk) { return ST::desc(s_hi, kk); };
+  auto ds_lo = [&](int kk) { return ST::desc(s_lo, kk); };
+  float acc[L::SLABS][BQ / 2];
+#pragma unroll
+  for (int sl = 0; sl < L::SLABS; ++sl)
+#pragma unroll
+    for (int e = 0; e < BQ / 2; ++e) acc[sl][e] = 0.0f;
+
+  for (int i = 0; i < n_mine; ++i) {
+    if constexpr (RS == 1) {
+      wg_sync(wg);  // the warpgroup is done with its slot and its dS tiles
+      load(i, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<RS - 2>();  // tile i has landed
+    }
+    wg_sync(wg);  // ... for every thread of the warpgroup; (RS > 1) the slot of i - 1 is free
+    if constexpr (RS > 1) {
+      if (i + RS - 1 < n_mine) load(i + RS - 1, (i + RS - 1) % RS);
+      cp_async_commit();
+    }
+    const float* Kr = raw(slot(i % RS));
+    const float* Vr = Kr + RT::BYTES / 4;
+    const int k0 = (wg + WGS * i) * TILE;
+
+    float s[BQ / 2], dp[BQ / 2];
+    {
+      auto cs = chain<BQ>(s, [&](int kk, float(&a)[4]) { frag_rows<HD>(Kr, r0, q4, kk, a); },
+                          q_hi, q_lo);
+      auto cd = chain<BQ>(dp, [&](int kk, float(&a)[4]) { frag_rows<HD>(Vr, r0, q4, kk, a); },
+                          o_hi, o_lo);
+      mma_3xtf32<HD / 8>(cs, cd);
+    }
+
+    // ds^T = p^T (dP^T - D) scale, split into the dS tiles (rows = queries);
+    // rows past Sq have lse 1e30, so p = 0 there
+    const bool edge = k0 + TILE > kvl || (causal && k0 + TILE - 1 > qs + q0);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int col = 8 * j + 2 * q4;
+      const float2 l2 = *reinterpret_cast<const float2*>(Ls + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(Ds + col);
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i2 + c, key = r0 + 8 * i2;
+          const bool live = !edge || live_pair(k0 + key, qs + q0 + col + c, kvl, causal);
+          const float p = live ? fast_exp2(fmaf(s[e], scale2, -(c ? l2.y : l2.x))) : 0.0f;
+          const float ds = p * (dp[e] - (c ? d2.y : d2.x)) * scale;
+          uint32_t hi, lo;
+          split_tf32(ds, hi, lo);
+          const uint32_t off = ST::offset(col + c, key);
+          st_shared1(s_hi + off, hi);
+          st_shared1(s_lo + off, lo);
+        }
+    }
+    fence_proxy_async();
+    wg_sync(wg);  // the dS tiles are whole
+
+    // dQ^T += K^T dS^T, the tile's products into a fresh partial (a chain
+    // for each m64 slab of hd)
+    float part[L::SLABS][BQ / 2];
+    auto cols = [&](int sl) {
+      return chain<BQ>(part[sl], [&, sl](int kk, float(&a)[4]) {
+        frag_cols<HD>(Kr, 64 * sl + r0, q4, kk, a);
+      }, ds_hi, ds_lo);
+    };
+    auto c0 = cols(0);
+    if constexpr (L::SLABS == 2) {
+      auto c1 = cols(1);
+      mma_3xtf32<TILE / 8>(c0, c1);
+    } else {
+      mma_3xtf32<TILE / 8>(c0);
+    }
+#pragma unroll
+    for (int sl = 0; sl < L::SLABS; ++sl)
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) acc[sl][e] = __fadd_rn(acc[sl][e], part[sl][e]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every tile read: the dQ rows take the ring over
+
+  // acc[sl][4 j + 2 i + c] is the warpgroup's dQ^T (hd m = 64 sl + r0 + 8 i,
+  // query 8 j + 2 q4 + c): staged as rows of queries, one block of rows a
+  // warpgroup, then summed in warpgroup order and stored 16 bytes a thread
+  float* out = reinterpret_cast<float*>(gbase + L::RING);
+#pragma unroll
+  for (int sl = 0; sl < L::SLABS; ++sl)
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int m = 64 * sl + r0 + 8 * i;
+          if (m < HD)
+            out[(wg * BQ + 8 * j + 2 * q4 + c) * L::OUT_LD + m] = acc[sl][4 * j + 2 * i + c];
+        }
+  __syncthreads();
+  constexpr int V4 = HD / 4;
+  for (int idx = tid; idx < BQ * V4; idx += 128 * WGS) {
+    const int row = idx / V4, col = (idx % V4) * 4;
+    float4 sum = *reinterpret_cast<const float4*>(out + row * L::OUT_LD + col);
+#pragma unroll
+    for (int w = 1; w < WGS; ++w) {
+      const float4 x = *reinterpret_cast<const float4*>(out + (w * BQ + row) * L::OUT_LD + col);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    if (q0 + row < Sq)
+      *reinterpret_cast<float4*>(dq + (((int64_t)b * Sq + q0 + row) * nh + h) * HD + col) = sum;
+  }
+}
+
+template <int HD> struct DkvF32 {
+  static constexpr int WGS = HD == 128 ? 1 : 2;
+  static constexpr int RS = HD == 128 ? 2 : 1;
+  static constexpr int BK = HD == 128 ? 32 : 64;   // keys a block
+  static constexpr int SLABS = HD == 128 ? 2 : 1;  // m64 slabs of hd in dK^T, dV^T
+  using KT = KTile<BK, HD>;  // K, V hi / lo: the B of S = Q K^T, dP = dO V^T
+  using PT = KTile<BK, 64>;  // P, then dS, hi / lo: the B of dV^T = dO^T P, dK^T = Q^T dS
+  using RT = RawTile<HD>;
+  // K, V hi / lo; warpgroup w's P / dS hi, lo at P0 + 2 w PT::BYTES; its
+  // slot s (raw Q, dO; lse, D of the tile's 64 rows) at RING + (w RS + s) SLOT
+  static constexpr uint32_t K_HI = 0, K_LO = KT::BYTES, V_HI = 2 * KT::BYTES,
+                            V_LO = 3 * KT::BYTES, P0 = 4 * KT::BYTES,
+                            RING = P0 + WGS * 2 * PT::BYTES, SLOT = 2 * RT::BYTES + 2 * TILE * 4;
+  static constexpr int RED_LD = HD + 4;  // f32 partial rows (keys) the cluster sums
+  static constexpr size_t tiles = RING + WGS * RS * SLOT;
+  static constexpr size_t red = WGS * 2 * BK * RED_LD * 4;  // each warpgroup's dK, dV rows
+  static constexpr size_t bytes = (tiles > red ? tiles : red) + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(128 * DkvF32<HD>::WGS, 1)
+flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int* __restrict__ q_start, const int* __restrict__ kv_len,
+                  float* __restrict__ dk, float* __restrict__ dv, int Sq, int Tk, int nh, int nkv,
+                  int causal, float scale) {
+  using L = DkvF32<HD>;
+  using RT = typename L::RT;
+  using KT = typename L::KT;
+  using PT = typename L::PT;
+  constexpr int BK = L::BK, WGS = L::WGS, RS = L::RS;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  unsigned char* gbase = smem + (base - smem_addr(smem));  // generic pointer to the base
+  auto raw = [&](uint32_t at) { return reinterpret_cast<const float*>(gbase + (at - base)); };
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, wg = tid / 128, wtid = tid % 128;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int g = blockIdx.y % nkv, b = blockIdx.y / nkv, k0 = blockIdx.z * BK;
+  const int rep = nh / nkv;
+  const int qs = q_start[b];
+  const int kvl = max(0, min(kv_len[b], Tk));
+  // query tiles whose last row reaches key k0: from the one holding row k0 - q_start
+  const int qt_begin = causal ? max(0, k0 - qs) / TILE : 0;
+  const int qt_end = k0 < kvl ? (Sq + TILE - 1) / TILE : 0;
+  const int nq = max(0, qt_end - qt_begin);
+  // this block's share of the (rep head, query tile) pairs, in rank order;
+  // this warpgroup's: p_lo + wg, p_lo + wg + WGS, ..
+  const int n_pairs = rep * nq;
+  const int p_lo = rank * n_pairs / C, p_hi = (rank + 1) * n_pairs / C;
+  const int n_mine = p_hi - p_lo > wg ? (p_hi - p_lo - wg + WGS - 1) / WGS : 0;
+
+  const uint32_t pd_hi = base + L::P0 + wg * 2 * PT::BYTES, pd_lo = pd_hi + PT::BYTES;
+  auto slot = [&](int s) { return base + L::RING + (wg * RS + s) * L::SLOT; };
+  auto pair_q0 = [&](int i) { return (qt_begin + (p_lo + wg + WGS * i) % nq) * TILE; };
+  auto load = [&](int i, int s) {  // this warpgroup's i-th pair into its slot s
+    const int p = p_lo + wg + WGS * i;
+    const int h = g * rep + p / nq, q0 = pair_q0(i);
+    const int64_t q_off = ((int64_t)b * Sq * nh + h) * HD;
+    RT::load(slot(s), q + q_off, (int64_t)nh * HD, q0, Sq, wtid);
+    RT::load(slot(s) + RT::BYTES, dout + q_off, (int64_t)nh * HD, q0, Sq, wtid);
+    // threads 0-63 fetch lse, 64-127 D, of the tile's 64 rows (zeros past Sq)
+    const int row = q0 + (wtid & (TILE - 1));
+    const float* src = (wtid < TILE ? lse : delta) + ((int64_t)b * nh + h) * Sq;
+    cp_async4(slot(s) + 2 * RT::BYTES + wtid * 4, row < Sq ? src + row : src, row < Sq ? 4 : 0);
+  };
+#pragma unroll
+  for (int s = 0; s < RS - 1; ++s) {
+    if (s < n_mine) load(s, s);
+    cp_async_commit();
+  }
+  const int64_t kv_off = ((int64_t)b * Tk * nkv + g) * HD;
+  split_hd_tile<BK, HD>(base + L::K_HI, base + L::K_LO, k + kv_off, (int64_t)nkv * HD, k0, Tk,
+                        tid, 128 * WGS);
+  split_hd_tile<BK, HD>(base + L::V_HI, base + L::V_LO, v + kv_off, (int64_t)nkv * HD, k0, Tk,
+                        tid, 128 * WGS);
+  fence_proxy_async();
+  __syncthreads();  // the split K and V tiles are whole
+  const float scale2 = scale * kLog2e;
+
+  // this thread's query rows r0, r0 + 8 of a pair's tile (and hd rows of
+  // dK^T, dV^T); key columns 8 j + 2 q4 + c
+  const int r0 = 16 * warp + lane / 4, q4 = lane % 4;
+  auto k_hi = [&](int kk) { return KT::desc(base + L::K_HI, kk); };
+  auto k_lo = [&](int kk) { return KT::desc(base + L::K_LO, kk); };
+  auto v_hi = [&](int kk) { return KT::desc(base + L::V_HI, kk); };
+  auto v_lo = [&](int kk) { return KT::desc(base + L::V_LO, kk); };
+  auto t_hi = [&](int kk) { return PT::desc(pd_hi, kk); };
+  auto t_lo = [&](int kk) { return PT::desc(pd_lo, kk); };
+  // x (rows = queries, columns = keys, in the accumulator's order), split,
+  // into the warpgroup's P / dS tiles (rows = keys)
+  auto store_t = [&](const float(&x)[BK / 2]) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint32_t off = PT::offset(8 * j + 2 * q4 + c, r0 + 8 * i);
+          uint32_t hi, lo;
+          split_tf32(x[4 * j + 2 * i + c], hi, lo);
+          st_shared1(pd_hi + off, hi);
+          st_shared1(pd_lo + off, lo);
+        }
+    fence_proxy_async();
+    wg_sync(wg);  // the tiles are whole
+  };
+  float acc_k[L::SLABS][BK / 2], acc_v[L::SLABS][BK / 2];
+#pragma unroll
+  for (int sl = 0; sl < L::SLABS; ++sl)
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) acc_k[sl][e] = acc_v[sl][e] = 0.0f;
+
+  for (int i = 0; i < n_mine; ++i) {
+    if constexpr (RS == 1) {
+      wg_sync(wg);  // the warpgroup is done with its slot and its P / dS tiles
+      load(i, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<RS - 2>();  // pair i has landed
+    }
+    wg_sync(wg);  // ... for every thread of the warpgroup; (RS > 1) the slot of i - 1 is free
+    if constexpr (RS > 1) {
+      if (i + RS - 1 < n_mine) load(i + RS - 1, (i + RS - 1) % RS);
+      cp_async_commit();
+    }
+    const int q0 = pair_q0(i);
+    const float* Qr = raw(slot(i % RS));
+    const float* Or = Qr + RT::BYTES / 4;
+    const float* Lr = Or + RT::BYTES / 4;  // lse, then D, of the tile's 64 rows
+
+    float s[BK / 2], dp[BK / 2];
+    {
+      auto cs = chain<BK>(s, [&](int kk, float(&a)[4]) { frag_rows<HD>(Qr, r0, q4, kk, a); },
+                          k_hi, k_lo);
+      auto cd = chain<BK>(dp, [&](int kk, float(&a)[4]) { frag_rows<HD>(Or, r0, q4, kk, a); },
+                          v_hi, v_lo);
+      mma_3xtf32<HD / 8>(cs, cd);
+    }
+
+    // p in place of s, ds in place of dp (rows = queries, lse and D per row)
+    const bool edge = k0 + BK > kvl || q0 + TILE > Sq || (causal && k0 + BK - 1 > qs + q0);
+    float lse_r[2], d_r[2];
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      lse_r[i2] = Lr[r0 + 8 * i2] * kLog2e;
+      d_r[i2] = Lr[TILE + r0 + 8 * i2];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i2 + c, row = q0 + r0 + 8 * i2;
+          const bool live =
+              !edge || (row < Sq && live_pair(k0 + 8 * j + 2 * q4 + c, qs + row, kvl, causal));
+          s[e] = live ? fast_exp2(fmaf(s[e], scale2, -lse_r[i2])) : 0.0f;
+          dp[e] = s[e] * (dp[e] - d_r[i2]) * scale;
+        }
+
+    // dV^T += dO^T P, then dK^T += Q^T dS through the same tiles, each
+    // pair's products into a fresh partial
+    // (a chain for each m64 slab of hd)
+    float part[L::SLABS][BK / 2];
+    auto cols = [&](const float* raw, float(&acc)[L::SLABS][BK / 2]) {
+      auto chain_of = [&](int sl) {
+        return chain<BK>(part[sl], [&, sl](int kk, float(&a)[4]) {
+          frag_cols<HD>(raw, 64 * sl + r0, q4, kk, a);
+        }, t_hi, t_lo);
+      };
+      auto c0 = chain_of(0);
+      if constexpr (L::SLABS == 2) {
+        auto c1 = chain_of(1);
+        mma_3xtf32<TILE / 8>(c0, c1);
+      } else {
+        mma_3xtf32<TILE / 8>(c0);
+      }
+#pragma unroll
+      for (int sl = 0; sl < L::SLABS; ++sl)
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) acc[sl][e] = __fadd_rn(acc[sl][e], part[sl][e]);
+    };
+    store_t(s);
+    cols(Or, acc_v);
+    wg_sync(wg);  // the products of P are done: dS takes the tiles
+    store_t(dp);
+    cols(Qr, acc_k);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every tile read: the partials take the shared memory over
+
+  // acc[sl][4 j + 2 i + c] is dK^T / dV^T (hd m = 64 sl + r0 + 8 i, key 8 j +
+  // 2 q4 + c): staged as rows of keys, warpgroup w's dK rows then its dV rows
+  float* red = reinterpret_cast<float*>(gbase);
+#pragma unroll
+  for (int sl = 0; sl < L::SLABS; ++sl)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int m = 64 * sl + r0 + 8 * i, row = 8 * j + 2 * q4 + c;
+          if (m < HD) {
+            red[(2 * wg * BK + row) * L::RED_LD + m] = acc_k[sl][4 * j + 2 * i + c];
+            red[((2 * wg + 1) * BK + row) * L::RED_LD + m] = acc_v[sl][4 * j + 2 * i + c];
+          }
+        }
+  cluster.sync();  // every block's partials are in its shared memory
+
+  // this block sums rows [rank * BK / C, (rank + 1) * BK / C) of dK and dV
+  // over the cluster's blocks and their warpgroups, in that order, and
+  // writes them
+  const int rows = BK / C, row0 = rank * rows;
+  constexpr int V4 = HD / 4;
+  for (int idx = tid; idx < 2 * rows * V4; idx += 128 * WGS) {
+    const int which = idx / (rows * V4), rem = idx % (rows * V4);
+    const int row = row0 + rem / V4, col = (rem % V4) * 4;
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int r = 0; r < C; ++r)
+#pragma unroll
+      for (int w = 0; w < WGS; ++w) {
+        float* src = red + ((2 * w + which) * BK + row) * L::RED_LD + col;
+        const float4 x = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, r));
+        sum.x += x.x;
+        sum.y += x.y;
+        sum.z += x.z;
+        sum.w += x.w;
+      }
+    if (k0 + row < Tk)
+      *reinterpret_cast<float4*>((which ? dv : dk) + (((int64_t)b * Tk + k0 + row) * nkv + g) * HD +
+                                 col) = sum;
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// The dK/dV launch: grid (C, nkv * B, key tiles of `bk` keys), clusters of
+// C blocks, C the smallest power of two up to 8 that gives two blocks an SM
+// and no more than the pairs a key tile can have (TinyLlama's s1024 shape:
+// 128 key tiles, C = 4, in both routes).
 struct DkvGrid {
   dim3 grid;
   int cluster;
 };
-DkvGrid dkv_grid(int B, int Sq, int Tk, int nh, int nkv) {
-  const int key_tiles = (Tk + TILE - 1) / TILE;
+DkvGrid dkv_grid(int B, int Sq, int Tk, int nh, int nkv, int bk) {
+  const int key_tiles = (Tk + bk - 1) / bk;
   const int base = key_tiles * nkv * B;
   const int max_pairs = (nh / nkv) * ((Sq + TILE - 1) / TILE);
   int c = 1;
@@ -588,105 +1083,117 @@ DkvGrid dkv_grid(int B, int Sq, int Tk, int nh, int nkv) {
   return {dim3(c, nkv * B, key_tiles), c};
 }
 
-template <int HD>
-int launch_bwd_sm90(bool dkv, const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* delta, const void* q_start, const void* kv_len,
-                    void* d0, void* d1, int B, int Sq, int Tk, int nh, int nkv, int causal,
-                    float scale, void* stream) {
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* dop = static_cast<const bf16*>(dout);
+// One kernel's launch at a shape: grid, cluster size, kernel, warpgroups
+// a block, dynamic shared bytes, ring stages (f32: slots a warpgroup).
+template <typename Kernel> struct Plan {
+  dim3 grid;
+  int cluster;
+  Kernel kernel;
+  int warpgroups;
+  size_t smem;
+  int stages;
+};
+template <typename Kernel>
+Plan<Kernel> plan(dim3 grid, int cluster, Kernel kernel, int warpgroups, size_t smem, int stages) {
+  return {grid, cluster, kernel, warpgroups, smem, stages};
+}
+
+// T (bf16 or float): the kernels of that route
+template <typename T, int HD> auto dq_plan(int B, int Sq, int nh) {
+  if constexpr (std::is_same<T, float>::value) {
+    using L = DqF32<HD>;
+    return plan(dim3(nh, B, (Sq + L::BQ - 1) / L::BQ), 1, flash_bwd_dq_f32<HD>, L::WGS,
+                L::bytes, L::RS);
+  } else {
+    return plan(dim3(nh, B, (Sq + TILE - 1) / TILE), 1, flash_bwd_dq_sm90<HD>, 1,
+                DqSmem<HD>::bytes, STAGES);
+  }
+}
+template <typename T, int HD> auto dkv_plan(int B, int Sq, int Tk, int nh, int nkv) {
+  if constexpr (std::is_same<T, float>::value) {
+    using L = DkvF32<HD>;
+    const DkvGrid lg = dkv_grid(B, Sq, Tk, nh, nkv, L::BK);
+    return plan(lg.grid, lg.cluster, flash_bwd_dkv_f32<HD>, L::WGS, L::bytes, L::RS);
+  } else {
+    const DkvGrid lg = dkv_grid(B, Sq, Tk, nh, nkv, TILE);
+    return plan(lg.grid, lg.cluster, flash_bwd_dkv_sm90<HD>, 1, DkvSmem<HD>::bytes, STAGES);
+  }
+}
+
+// dQ into d0, or dK into d0 and dV into d1
+template <typename T, int HD>
+int launch_bwd_hd(bool dkv, const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, const void* q_start, const void* kv_len,
+                  void* d0, void* d1, int B, int Sq, int Tk, int nh, int nkv, int causal,
+                  float scale, void* stream) {
+  const auto* qp = static_cast<const T*>(q);
+  const auto* kp = static_cast<const T*>(k);
+  const auto* vp = static_cast<const T*>(v);
+  const auto* dop = static_cast<const T*>(dout);
   const auto* lp = static_cast<const float*>(lse);
   const auto* dp = static_cast<const float*>(delta);
   const auto* qsp = static_cast<const int*>(q_start);
   const auto* klp = static_cast<const int*>(kv_len);
   auto* o0 = static_cast<float*>(d0);
   if (dkv) {
-    const DkvGrid lg = dkv_grid(B, Sq, Tk, nh, nkv);
-    return launch_cluster(flash_bwd_dkv_sm90<HD>, lg.grid, lg.cluster, THREADS,
-                          DkvSmem<HD>::bytes, stream, qp, kp, vp, dop, lp, dp, qsp, klp, o0,
-                          static_cast<float*>(d1), Sq, Tk, nh, nkv, causal, scale);
+    const auto p = dkv_plan<T, HD>(B, Sq, Tk, nh, nkv);
+    return launch_cluster(p.kernel, p.grid, p.cluster, 128 * p.warpgroups, p.smem, stream, qp,
+                          kp, vp, dop, lp, dp, qsp, klp, o0, static_cast<float*>(d1), Sq, Tk, nh,
+                          nkv, causal, scale);
   }
-  return launch(flash_bwd_dq_sm90<HD>, dim3(nh, B, (Sq + TILE - 1) / TILE), DqSmem<HD>::bytes,
-                stream, qp, kp, vp, dop, lp, dp, qsp, klp, o0, Sq, Tk, nh, nkv, causal, scale);
+  const auto p = dq_plan<T, HD>(B, Sq, nh);
+  return launch_n(p.kernel, p.grid, 128 * p.warpgroups, p.smem, stream, qp, kp, vp, dop, lp, dp,
+                  qsp, klp, o0, Sq, Tk, nh, nkv, causal, scale);
 }
 
-// bf16: the Hopper kernels
-int launch_bwd_bf16(bool dkv, const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* delta, const void* q_start, const void* kv_len,
-                    void* d0, void* d1, int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
-                    float scale, void* stream) {
+template <typename T>
+int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const void* q_start, const void* kv_len,
+               void* d0, void* d1, int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
+               float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Tk <= 0 || nkv <= 0 || nh % nkv != 0) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      return launch_bwd_sm90<32>(dkv, q, k, v, dout, lse, delta, q_start, kv_len, d0, d1, B, Sq,
-                                 Tk, nh, nkv, causal, scale, stream);
-    case 64:
-      return launch_bwd_sm90<64>(dkv, q, k, v, dout, lse, delta, q_start, kv_len, d0, d1, B, Sq,
-                                 Tk, nh, nkv, causal, scale, stream);
-    case 128:
-      return launch_bwd_sm90<128>(dkv, q, k, v, dout, lse, delta, q_start, kv_len, d0, d1, B, Sq,
+      return launch_bwd_hd<T, 32>(dkv, q, k, v, dout, lse, delta, q_start, kv_len, d0, d1, B, Sq,
                                   Tk, nh, nkv, causal, scale, stream);
+    case 64:
+      return launch_bwd_hd<T, 64>(dkv, q, k, v, dout, lse, delta, q_start, kv_len, d0, d1, B, Sq,
+                                  Tk, nh, nkv, causal, scale, stream);
+    case 128:
+      return launch_bwd_hd<T, 128>(dkv, q, k, v, dout, lse, delta, q_start, kv_len, d0, d1, B, Sq,
+                                   Tk, nh, nkv, causal, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// f32: the CUDA-core kernels
-int launch_bwd_f32(bool dkv, const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, const void* q_start, const void* kv_len,
-                   void* d0, void* d1, int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
-                   float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Tk <= 0 || nkv <= 0 || nh % nkv != 0) return (int)cudaErrorInvalidValue;
-  const auto* qp = static_cast<const float*>(q);
-  const auto* kp = static_cast<const float*>(k);
-  const auto* vp = static_cast<const float*>(v);
-  const auto* dop = static_cast<const float*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* dp = static_cast<const float*>(delta);
-  const auto* qsp = static_cast<const int*>(q_start);
-  const auto* klp = static_cast<const int*>(kv_len);
-  auto* o0 = static_cast<float*>(d0);
-  auto* o1 = static_cast<float*>(d1);
-  auto go = [&](auto dq_kernel, auto dkv_kernel, size_t smem) {
-    if (dkv)
-      return launch(dkv_kernel, dim3((Tk + TILE - 1) / TILE, nkv, B), smem, stream, qp, kp, vp, dop,
-                    lp, dp, qsp, klp, o0, o1, Sq, Tk, nh, nkv, causal, scale);
-    return launch(dq_kernel, dim3((Sq + TILE - 1) / TILE, nh, B), smem, stream, qp, kp, vp, dop, lp,
-                  dp, qsp, klp, o0, Sq, Tk, nh, nkv, causal, scale);
-  };
-  switch (hd) {
-    case 32: return go(flash_bwd_dq_kernel<32>, flash_bwd_dkv_kernel<32>, BwdSmem<32>::bytes);
-    case 64: return go(flash_bwd_dq_kernel<64>, flash_bwd_dkv_kernel<64>, BwdSmem<64>::bytes);
-    case 128: return go(flash_bwd_dq_kernel<128>, flash_bwd_dkv_kernel<128>, BwdSmem<128>::bytes);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <typename P> int report(const P& p, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t rc = cudaFuncGetAttributes(&attr, p.kernel);
+  const int vals[11] = {(int)p.grid.x, (int)p.grid.y, (int)p.grid.z, p.cluster,
+                        blocks_per_sm(p.kernel, p.smem, 128 * p.warpgroups), attr.numRegs,
+                        (int)p.smem, (int)attr.localSizeBytes, sm_count(), p.stages,
+                        p.warpgroups};
+  for (int i = 0; i < 11; ++i) out[i] = vals[i];
+  return (int)rc;
 }
 
-template <int HD> int design(bool dkv, int B, int Sq, int Tk, int nh, int nkv, int* out) {
-  cudaFuncAttributes attr;
-  size_t smem;
-  dim3 grid;
-  int cluster = 1, resident;
-  cudaError_t rc;
-  if (dkv) {
-    const DkvGrid lg = dkv_grid(B, Sq, Tk, nh, nkv);
-    grid = lg.grid;
-    cluster = lg.cluster;
-    smem = DkvSmem<HD>::bytes;
-    resident = blocks_per_sm(flash_bwd_dkv_sm90<HD>, smem, THREADS);
-    rc = cudaFuncGetAttributes(&attr, flash_bwd_dkv_sm90<HD>);
-  } else {
-    grid = dim3(nh, B, (Sq + TILE - 1) / TILE);
-    smem = DqSmem<HD>::bytes;
-    resident = blocks_per_sm(flash_bwd_dq_sm90<HD>, smem, THREADS);
-    rc = cudaFuncGetAttributes(&attr, flash_bwd_dq_sm90<HD>);
+template <typename T>
+int design(bool dkv, int hd, int B, int Sq, int Tk, int nh, int nkv, int* out) {
+  if (B <= 0 || Sq <= 0 || Tk <= 0 || nkv <= 0 || nh % nkv != 0) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 32:
+      return dkv ? report(dkv_plan<T, 32>(B, Sq, Tk, nh, nkv), out)
+                 : report(dq_plan<T, 32>(B, Sq, nh), out);
+    case 64:
+      return dkv ? report(dkv_plan<T, 64>(B, Sq, Tk, nh, nkv), out)
+                 : report(dq_plan<T, 64>(B, Sq, nh), out);
+    case 128:
+      return dkv ? report(dkv_plan<T, 128>(B, Sq, Tk, nh, nkv), out)
+                 : report(dq_plan<T, 128>(B, Sq, nh), out);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const int vals[10] = {(int)grid.x, (int)grid.y, (int)grid.z, cluster, resident,
-                        attr.numRegs, (int)smem, (int)attr.localSizeBytes, sm_count(), STAGES};
-  for (int i = 0; i < 10; ++i) out[i] = vals[i];
-  return (int)rc;
 }
 
 }  // namespace
@@ -698,8 +1205,8 @@ extern "C" int qt_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                     const void* q_start, const void* kv_len, void* dq, int B,
                                     int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                     float scale, void* stream) {
-  return launch_bwd_bf16(false, q, k, v, dout, lse, delta, q_start, kv_len, dq, nullptr, B, Sq,
-                         Tk, nh, nkv, hd, causal, scale, stream);
+  return launch_bwd<bf16>(false, q, k, v, dout, lse, delta, q_start, kv_len, dq, nullptr, B, Sq,
+                          Tk, nh, nkv, hd, causal, scale, stream);
 }
 
 extern "C" int qt_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
@@ -707,8 +1214,8 @@ extern "C" int qt_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                                    const void* q_start, const void* kv_len, void* dq, int B,
                                    int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                    float scale, void* stream) {
-  return launch_bwd_f32(false, q, k, v, dout, lse, delta, q_start, kv_len, dq, nullptr, B, Sq,
-                        Tk, nh, nkv, hd, causal, scale, stream);
+  return launch_bwd<float>(false, q, k, v, dout, lse, delta, q_start, kv_len, dq, nullptr, B, Sq,
+                           Tk, nh, nkv, hd, causal, scale, stream);
 }
 
 // ... dk, dv (f32, k's shape), B, Sq, T, nh, nkv, hd, causal, scale, stream
@@ -717,8 +1224,8 @@ extern "C" int qt_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v
                                      const void* q_start, const void* kv_len, void* dk, void* dv,
                                      int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                      float scale, void* stream) {
-  return launch_bwd_bf16(true, q, k, v, dout, lse, delta, q_start, kv_len, dk, dv, B, Sq, Tk,
-                         nh, nkv, hd, causal, scale, stream);
+  return launch_bwd<bf16>(true, q, k, v, dout, lse, delta, q_start, kv_len, dk, dv, B, Sq, Tk,
+                          nh, nkv, hd, causal, scale, stream);
 }
 
 extern "C" int qt_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
@@ -726,20 +1233,20 @@ extern "C" int qt_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                     const void* q_start, const void* kv_len, void* dk, void* dv,
                                     int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                     float scale, void* stream) {
-  return launch_bwd_f32(true, q, k, v, dout, lse, delta, q_start, kv_len, dk, dv, B, Sq, Tk,
-                        nh, nkv, hd, causal, scale, stream);
+  return launch_bwd<float>(true, q, k, v, dout, lse, delta, q_start, kv_len, dk, dv, B, Sq, Tk,
+                           nh, nkv, hd, causal, scale, stream);
 }
 
-// The bf16 route's launch, for a report: out[10] = grid x, y, z, cluster
-// size, blocks resident per SM, registers a thread, dynamic shared bytes,
-// local (spill) bytes a thread, SMs, cp.async stages; dkv 0 (dQ) or 1
+// A route's launch, for a report: out[11] = grid x, y, z, cluster size,
+// blocks resident per SM, registers a thread, dynamic shared bytes, local
+// (spill) bytes a thread, SMs, cp.async stages (f32: ring slots a
+// warpgroup), warpgroups a block; dkv 0 (dQ) or 1 (dK/dV)
 extern "C" int qt_flash_bwd_design(int dkv, int hd, int B, int Sq, int Tk, int nh, int nkv,
                                    int* out) {
-  if (B <= 0 || Sq <= 0 || Tk <= 0 || nkv <= 0 || nh % nkv != 0) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 32: return design<32>(dkv != 0, B, Sq, Tk, nh, nkv, out);
-    case 64: return design<64>(dkv != 0, B, Sq, Tk, nh, nkv, out);
-    case 128: return design<128>(dkv != 0, B, Sq, Tk, nh, nkv, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return design<bf16>(dkv != 0, hd, B, Sq, Tk, nh, nkv, out);
+}
+
+extern "C" int qt_flash_bwd_f32_design(int dkv, int hd, int B, int Sq, int Tk, int nh, int nkv,
+                                       int* out) {
+  return design<float>(dkv != 0, hd, B, Sq, Tk, nh, nkv, out);
 }

@@ -7,10 +7,11 @@
 // owns 16 rows of every product it computes.
 //
 // WarpAcc<float, N> is one warp's 16 x N f32 accumulator for the f32
-// kernels, with the one product they need, acc += A (16 x K) * B (K x N), A
-// and B in shared memory in either layout: plain FMAs on the CUDA cores (no
-// TF32), lane l holding row l / 2 at columns 2c + l % 2. Their elementwise
-// work (masks, softmax, ds) goes through shared memory. The bf16 kernels are
+// forward kernel, with the product it needs, acc += A (16 x K) * B (K x N),
+// A and B in shared memory in either layout: plain FMAs on the CUDA cores
+// (no TF32), lane l holding row l / 2 at columns 2c + l % 2. Its
+// elementwise work (masks, softmax) goes through shared memory. The bf16
+// kernels and the f32 backward (three TF32 products for each f32 one) are
 // built from sm90.cuh.
 
 #pragma once

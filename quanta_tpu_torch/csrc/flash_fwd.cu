@@ -25,8 +25,7 @@
 // cores; beside them the exponentials (one per live score, on the SFU at a
 // sixteenth of the FMA rate) and the staging of K/V tiles from L2.
 //
-// bf16, the route every timed path takes (the pieces are sm90.cuh's, as the
-// backward's dQ kernel): a block of FWD_WG consumer warpgroups owns FWD_WG
+// bf16 (the pieces are sm90.cuh's, as the backward's dQ kernel): a block of FWD_WG consumer warpgroups owns FWD_WG
 // consecutive 64-row query tiles of one (batch row, query head); the
 // warpgroups share one cp.async ring of FWD_STAGES (K, V) tiles, so a staged
 // tile feeds 64 * FWD_WG query rows. Per tile each warpgroup computes
@@ -54,11 +53,13 @@
 // place of a scaled copy and the accurate exp2f, took it from 75.1 to
 // 48.5 us.
 //
-// f32 (the cached-prefill f32 case; no timed path takes it): the design of
+// f32 (QLoRA on an f32 base at S >= 1024, timed by chip_smoke.py's phase
+// 33 and its f32 kernel rows; the f32 cached prefill): still the design of
 // the first port, CUDA-core FMAs (WarpAcc<float> of flash_common.cuh), one
 // block of 4 warps per (batch row, query head, 64 query rows), each warp
 // owning 16 rows, K and V staged per tile, the output accumulator in shared
-// memory.
+// memory. The backward's f32 kernels (flash_bwd.cu) show the Hopper form it
+// would take: three TF32 products for each f32 one.
 
 #include "flash_common.cuh"
 #include "sm90.cuh"

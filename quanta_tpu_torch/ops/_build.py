@@ -76,8 +76,9 @@ _SIGNATURES = {
     # ... dk, dv, B, Sq, T, nh, nkv, hd, causal, scale, stream
     "qt_flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 7 + [_F, _P],
     "qt_flash_bwd_dkv_f32": [_P] * 10 + [_I] * 7 + [_F, _P],
-    # dkv (0: dQ, 1: dK/dV), hd, B, Sq, T, nh, nkv, out (int[10])
+    # dkv (0: dQ, 1: dK/dV), hd, B, Sq, T, nh, nkv, out (int[11])
     "qt_flash_bwd_design": [_I] * 7 + [_P],
+    "qt_flash_bwd_f32_design": [_I] * 7 + [_P],
     # hd, B, Sq, nh, out (int[10])
     "qt_flash_fwd_design": [_I] * 4 + [_P],
     # M, N, K, out (int[11])

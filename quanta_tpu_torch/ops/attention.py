@@ -10,8 +10,9 @@ products with the scores kept in registers, cp.async tile rings;
 ``csrc/sm90.cuh``): the forward's blocks share each staged K/V tile
 between two 64-row query tiles, the backward splits dK/dV over
 thread-block clusters. All three are deterministic: two calls give the
-same bits. :func:`flash_fwd_design` and :func:`flash_bwd_design` report
-how they launch.
+same bits. The f32 backward runs each f32 product as three TF32
+tensor-core products (``csrc/flash_bwd.cu``). :func:`flash_fwd_design`
+and :func:`flash_bwd_design` report how they launch.
 
 Layouts are the JAX package's: q ``(B, Sq, nh, hd)``, k and v ``(B, T,
 nkv, hd)`` with ``nh % nkv == 0`` (query head h reads KV head ``h // (nh /
@@ -216,7 +217,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_start, kv_len, *, causal=True, use_
 
 
 _DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "cluster", "blocks_per_sm", "registers",
-                "shared_bytes", "spill_bytes", "sms", "stages")
+                "shared_bytes", "spill_bytes", "sms", "stages", "warpgroups")
 _FWD_DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "warpgroups", "blocks_per_sm", "registers",
                     "shared_bytes", "spill_bytes", "sms", "stages")
 
@@ -232,18 +233,23 @@ def flash_fwd_design(b, sq, nh, hd):
     return dict(zip(_FWD_DESIGN_KEYS, out))
 
 
-def flash_bwd_design(name, b, sq, t, nh, nkv, hd):
-    """How the bf16 kernel ``name`` (``"flash_bwd_dq"`` or
-    ``"flash_bwd_dkv"``) launches at this shape on this card: its grid,
+def flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=torch.bfloat16):
+    """How the kernel ``name`` (``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``)
+    launches for ``dtype`` operands at this shape on this card: its grid,
     cluster size (dK/dV), blocks resident per SM, registers a thread,
     dynamic shared bytes a block and spill bytes a thread (from
-    ``cudaFuncGetAttributes``), the SMs, and the stages of its cp.async
-    ring."""
+    ``cudaFuncGetAttributes``), the SMs, the stages of its cp.async ring
+    (f32: the slots of each warpgroup's) and its warpgroups a block;
+    ``design`` "wgmma" (bf16) or "wgmma_3xtf32" (f32)."""
+    if dtype not in _SUFFIX:
+        raise ValueError(f"{name}: the CUDA kernels take bf16 or f32, got {dtype}")
+    f32 = dtype == torch.float32
+    entry = "qt_flash_bwd_f32_design" if f32 else "qt_flash_bwd_design"
     out = (ctypes.c_int * len(_DESIGN_KEYS))()
-    rc = _build.library().qt_flash_bwd_design(int(name == "flash_bwd_dkv"), hd, b, sq, t, nh,
-                                              nkv, out)
+    rc = getattr(_build.library(), entry)(int(name == "flash_bwd_dkv"), hd, b, sq, t, nh, nkv,
+                                          out)
     _build.check(rc, name)
-    return dict(zip(_DESIGN_KEYS, out))
+    return {"design": "wgmma_3xtf32" if f32 else "wgmma", **dict(zip(_DESIGN_KEYS, out))}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -653,6 +653,46 @@ def test_flash_dkv_cluster_split_covers_every_pair(cuda, nkv, cluster):
     assert _rel(dk, dk_ref) <= 1e-3 and _rel(dv, dv_ref) <= 1e-3
 
 
+# (b, sq, t, nh, nkv, q_start, kv_len): GQA at rep 8 and MHA, each with a
+# ragged last query and key tile, a cached offset (q_start 30) and a dead
+# row (kv_len 0)
+F32_BWD_CASES = {"gqa": (3, 200, 230, 8, 1, [0, 30, 0], [200, 230, 0]),
+                 "mha": (3, 200, 230, 4, 4, [0, 30, 0], [200, 230, 0])}
+
+
+@pytest.mark.parametrize("shape", list(F32_BWD_CASES))
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_bwd_f32_kernels_match_plain(cuda, hd, shape):
+    """The f32 dQ and dK/dV kernels (each f32 product as three TF32
+    tensor-core products) against their plain versions: within 1e-4 of
+    max|plain|, zero gradients on the dead row, the same bits over two
+    calls, one launch a call."""
+    b, sq, t, nh, nkv, q_start, kv_len = F32_BWD_CASES[shape]
+    args = _bwd_args(cuda, b, sq, t, nh, nkv, hd, q_start, kv_len, torch.float32, seed=5)
+    before = {n: _build.launches[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    got = (tattn.flash_bwd_dq(*args), *tattn.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert {n: _build.launches[n] - c for n, c in before.items()} == dict.fromkeys(before, 1)
+    again = (tattn.flash_bwd_dq(*args), *tattn.flash_bwd_dkv(*args))
+    want = (tattn.flash_bwd_dq_reference(*args), *tattn.flash_bwd_dkv_reference(*args))
+    dead = args[7] == 0
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.float32 and torch.equal(g, a)
+        assert not bool(g[dead].any())
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_flash_bwd_f32_design_fills_the_card(cuda):
+    """At TinyLlama-1.1B's s1024 training shape (B 2, S = T = 1024, 32 / 4
+    heads, hd 64) each f32 backward kernel runs the 3xTF32 design on a grid
+    of at least two blocks an SM (dK/dV's 128 key tiles split over
+    clusters)."""
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        d = tattn.flash_bwd_design(name, 2, 1024, 1024, 32, 4, 64, dtype=torch.float32)
+        assert d["design"] == "wgmma_3xtf32"
+        assert d["grid_x"] * d["grid_y"] * d["grid_z"] >= 2 * d["sms"], d
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_autograd_kernel_matches_plain(cuda, dtype):
     """Autograd through flash_attention: the kernel route's dq, dk, dv

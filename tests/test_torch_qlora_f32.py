@@ -9,7 +9,13 @@ against those: tests/test_torch_cuda.py), and the kernel routes of the
 step run through ``torch_fakes.FakeKernels``, whose f32 entry points run
 the plain arithmetic on the tensors behind the pointers; the JAX side runs
 its Pallas kernels in interpret mode, or its XLA route inside the step.
-Inputs come from numpy seeds and are handed to both.
+The step runs with the einsum attention and, as ``finetune --dtype
+float32 --seq-len 1024`` runs it on the JAX package's chip, through flash
+attention (the Pallas flash kernels interpreted; the port's flash entry
+points faked; the CUDA kernels, the f32 dQ and dK/dV of
+``csrc/flash_bwd.cu``, against their plain versions:
+tests/test_torch_cuda.py). Inputs come from numpy seeds and are handed to
+both.
 
 Tolerances:
   - the transposed products, every format and block: rtol 1e-5 and atol
@@ -30,6 +36,7 @@ import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from unittest import mock
@@ -62,6 +69,10 @@ REL = 1e-5
 # TinyLlama-1.1B's 32 / 4 heads at 2 layers and a narrow width
 CFG_KW = dict(dim=256, n_layers=2, n_heads=32, n_kv_heads=4, hidden_dim=512)
 STEP_REL = 1e-4
+# the flash steps: head dim 32 (the least the flash kernels take), rep 8
+FLASH_CFG_KW = dict(dim=256, n_layers=2, n_heads=8, n_kv_heads=1, hidden_dim=512)
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_ENTRIES = {f"qt_{k}_f32" for k in FLASH_KERNELS}
 LR = 1e-2
 # the kernels an f32 base's linears launch, and the entry points they reach
 ROUTES = {"nf4": (("matmul_4bit", "matmul_4bit_t"), {"qt_matmul_4bit_f32", "qt_matmul_4bit_t_f32"}),
@@ -112,19 +123,14 @@ class _Recording(torch_fakes.FakeKernels):
         return fn
 
 
-@pytest.mark.parametrize("fmt", list(ROUTES))
-def test_f32_qlora_step_matches_jax(fmt):
-    """Three steps of JAX's ``make_qlora_train_step(use_kernel=False)`` and
-    of the port's, plain and through the kernel routes, on one batch: an f32
-    base in ``fmt`` with f32 rank-8 adapters on wq and wv and 8-bit Adam.
-    The port starts each step from JAX's adapters and state; losses and
-    lora_b gradients within 1e-4, lora_a gradients zero at step 1 (B starts
-    at zero), the loss falling. The kernel route reaches only the f32 entry
-    points, 15 forward and 12 transposed launches a step (layer 0's wq, wk
-    and wv read the frozen embedding) and one ``adam8bit_update``."""
+def _steps_against_jax(fmt, cfg_kw, use_flash):
+    """Three QLoRA steps of JAX's and of the port's, plain and through the
+    kernel routes, on one batch (see the tests below); with ``use_flash``
+    through flash attention on both sides. Returns the entry points the
+    kernel routes reached."""
     (fwd, bwd), entries = ROUTES[fmt]
-    cfg_j = jllama.LlamaConfig.tiny(dtype=jnp.float32, **CFG_KW)
-    cfg_t = tllama.LlamaConfig.tiny(dtype=torch.float32, **CFG_KW)
+    cfg_j = jllama.LlamaConfig.tiny(dtype=jnp.float32, **cfg_kw)
+    cfg_t = tllama.LlamaConfig.tiny(dtype=torch.float32, **cfg_kw)
     dense = jllama.init_params(jax.random.PRNGKey(0), cfg_j)
     pj = jtrain.add_lora(jnn.quantize_params(dense, mode=fmt, block_size=64, min_size=1024),
                          jax.random.PRNGKey(2), rank=8, dtype=jnp.float32)
@@ -134,23 +140,29 @@ def test_f32_qlora_step_matches_jax(fmt):
 
     def loss_fn(ad):
         logits, _ = jllama.forward(jtrain.merge_adapters(pj, ad), bj["inputs"], cfg_j,
-                                   use_kernel=False)
+                                   use_kernel=False, use_flash=use_flash, interpret=use_flash)
         return jtrain.causal_lm_loss(logits, bj["targets"])
 
     aj = jtrain.extract_adapters(pj)
     tx = joptim.adam8bit(LR)
     sj = tx.init(aj)
-    jstep = jax.jit(jtrain.make_qlora_train_step(cfg_j, tx, use_kernel=False))
+    # JAX's step: make_qlora_train_step's, which takes no flash option; with
+    # flash, its body (value_and_grad, update, apply) over loss_fn
+    loss_and_grad = jax.jit(jax.value_and_grad(loss_fn)) if use_flash else \
+        jax.value_and_grad(loss_fn)
+    jstep = None if use_flash else jax.jit(jtrain.make_qlora_train_step(cfg_j, tx,
+                                                                         use_kernel=False))
     ports = {}
     for route in (False, None):
         pt = interop.from_jax_params(pj)
         opt = Adam8bit(tnn.lora_parameters(pt), lr=LR, use_kernel=route)
-        ports[route] = (pt, opt, ttrain.make_qlora_train_step(cfg_t, opt, use_kernel=route))
+        ports[route] = (pt, opt, ttrain.make_qlora_train_step(cfg_t, opt, use_kernel=route,
+                                                              use_flash=use_flash))
     lib = _Recording()
     per_forward = 7 * cfg_t.n_layers + 1
     losses = []
     for step in range(1, 4):
-        gj = jax.grad(loss_fn)(aj)
+        lj, gj = loss_and_grad(aj)
         for route, (pt, opt, tstep) in ports.items():  # JAX's adapters and state into the port
             for ad_t, ad_j, st_j in zip(ttrain.extract_adapters(pt), aj, sj.qstate):
                 for name in ("wq", "wv"):
@@ -161,7 +173,11 @@ def test_f32_qlora_step_matches_jax(fmt):
                         if step > 1:
                             for k, q in zip(STATE_KEYS, st_j[name][ab]):
                                 opt.state[t][k].copy_(torch.from_numpy(np.array(q)))
-        aj, sj, lj = jstep(aj, sj, pj, bj)
+        if use_flash:
+            updates, sj = tx.update(gj, sj, aj)
+            aj = optax.apply_updates(aj, updates)
+        else:
+            aj, sj, lj = jstep(aj, sj, pj, bj)
         losses.append(float(lj))
         for route, (pt, opt, tstep) in ports.items():
             if route is None:
@@ -171,6 +187,8 @@ def test_f32_qlora_step_matches_jax(fmt):
                     launches = dict(_build.launches)
                 expected = dict.fromkeys(launches, 0)
                 expected.update({fwd: per_forward, bwd: per_forward - 3, "adam8bit_update": 1})
+                if use_flash:
+                    expected.update(dict.fromkeys(FLASH_KERNELS, cfg_t.n_layers))
                 assert launches == expected
             else:
                 lt = tstep(pt, bt).item()
@@ -183,3 +201,33 @@ def test_f32_qlora_step_matches_jax(fmt):
                     assert rel < STEP_REL, (route, step, name, rel)
     assert entries <= lib.entries and not {e for e in lib.entries if "bf16" in e}
     assert losses[2] < losses[0]
+    return lib.entries
+
+
+@pytest.mark.parametrize("fmt", list(ROUTES))
+def test_f32_qlora_step_matches_jax(fmt):
+    """Three steps of JAX's ``make_qlora_train_step(use_kernel=False)`` and
+    of the port's, plain and through the kernel routes, on one batch: an f32
+    base in ``fmt`` with f32 rank-8 adapters on wq and wv and 8-bit Adam.
+    The port starts each step from JAX's adapters and state; losses and
+    lora_b gradients within 1e-4, lora_a gradients zero at step 1 (B starts
+    at zero), the loss falling. The kernel route reaches only the f32 entry
+    points, 15 forward and 12 transposed launches a step (layer 0's wq, wk
+    and wv read the frozen embedding) and one ``adam8bit_update``."""
+    entries = _steps_against_jax(fmt, CFG_KW, use_flash=False)
+    assert not {e for e in entries if "flash" in e}
+
+
+@pytest.mark.parametrize("fmt", list(ROUTES))
+def test_f32_qlora_flash_step_matches_jax(fmt):
+    """The same three steps through flash attention, as the JAX package's
+    ``finetune --dtype float32 --seq-len 1024`` runs on its chip: JAX's
+    loss and gradients through ``llama.forward(use_flash=True)`` with its
+    Pallas flash kernels in interpret mode (forward and the dQ and dK/dV
+    backward), the port's through ``use_flash=True``, plain and through the
+    fake library's f32 flash entry points. Head dim 32 (the least the
+    kernels take) at rep 8, as TinyLlama-1.1B's 32 / 4 heads. The same
+    rules: losses and lora_b gradients within 1e-4; ``n_layers`` launches a
+    step of each flash kernel, f32 entry points only."""
+    entries = _steps_against_jax(fmt, FLASH_CFG_KW, use_flash=True)
+    assert FLASH_ENTRIES <= entries
