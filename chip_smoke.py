@@ -104,8 +104,8 @@ and the script exits non-zero (nothing is caught):
      heads), the f32 rows with their bounds; then per head_dim one
      ``flash_bwd_design`` line for each dtype (grid, cluster size,
      warpgroups, blocks resident per SM, registers and shared bytes, from
-     ``cudaFuncGetAttributes``; the f32 grids at TinyLlama's shape at least
-     two blocks an SM) and one ``flash_fwd_design`` line;
+     ``cudaFuncGetAttributes``) and one ``flash_fwd_design`` line (the f32
+     grids of all three at TinyLlama's shape at least two blocks an SM);
  11. QLoRA at batch 2 x seq 1024 (nf4 base, as phase 9): 3 steps through
      the flash kernels and 3 through the einsum attention from the same
      adapters, and one step with the einsum attention in f32 (the floor
@@ -476,13 +476,14 @@ EARLIER_US = {
                           "M2048_2048x5632": 1741.9, "M2048_5632x2048": 1783.9,
                           "M2048_2048x32000": 9889.4},
 }
-# the first port's f32 flash backward kernels (CUDA-core FMAs, before their
-# 3xTF32 redesign), ms a call on the f32 rows' inputs at the S = T shapes
-# (PERF.md's f32 flash table, "First port" column: kernel_sweep --what
-# flash --dtype float32 on the package before the redesign, the mean of two
-# runs)
+# the first port's f32 flash kernels (CUDA-core FMAs, before their 3xTF32
+# redesigns), ms a call on the f32 rows' inputs at the S = T shapes
+# (PERF.md's kernel table and f32 flash table: the backward's, kernel_sweep
+# --what flash --dtype float32 on the package before its redesign, the mean
+# of two runs; the forward's, this script's f32 rows before its redesign)
 EARLIER_F32_MS = {"flash_bwd_dq": {"tinyllama_s1024": 1.1383, "llama2_7b_s1024": 1.1879},
-                  "flash_bwd_dkv": {"tinyllama_s1024": 2.4608, "llama2_7b_s1024": 1.5401}}
+                  "flash_bwd_dkv": {"tinyllama_s1024": 2.4608, "llama2_7b_s1024": 1.5401},
+                  "flash_fwd": {"tinyllama_s1024": 0.730, "llama2_7b_s1024": 0.935}}
 LONG_BATCH, LONG_SEQ = 2, 1024  # QLoRA through flash: the reference's s1024 row
 PROMPT_LEN, PROMPT_NEW = 1024, 16  # greedy decode with a long prompt
 CROSSOVER_SEQS = (256, 512, 1024, 2048)  # long_prefill's S; 2048 is the reference's row
@@ -494,11 +495,12 @@ CROSSOVER_SEQS = (256, 512, 1024, 2048)  # long_prefill's S; 2048 is the referen
 # measured 0.188, 0.014, 0.831, -0.005 and 0.034 at 600, 900, 1200, 1500
 # and 3000 steps (PERF.md); 900 is the shortest count measured to pass.
 EIGHT_BIT = ("int8", "nf8", "fp8", "int8a")
-# the timed serve rows (phase 7b) and decode bench (phase 8) run the first
-# TIMED_DEPTH of the 22 layers: timing rows only, whose host-bound loops
-# took 420 s of a 785 s run at full depth (PERF.md); phases 5, 6 and 7a
-# check the same paths at full depth
-TIMED_DEPTH = 11
+# the timed serve rows (phase 7b), decode bench (phase 8) and phase 28's
+# trace run the first TIMED_DEPTH of the 22 layers: timing rows only, whose
+# host-bound loops took 420 s of a 785 s run at full depth, and at 11
+# layers phases 8 and 28 took 53 and 76 s of a 1118 s run (PERF.md);
+# phases 5, 6 and 7a check the same paths at full depth
+TIMED_DEPTH = 6
 F32_SHAPE = (2048, 5632, M_TRAIN)
 # matmul_8bit's middle M, on either side of its decode/prefill split (16
 # and 32 take the decode kernels of 16 and 32 rows), at the attention and
@@ -592,7 +594,7 @@ GPT2_REORDER_REL = 2.0 ** -22
 F32_QLORA = (("nf4", ("matmul_4bit", "matmul_4bit_t")),
              ("int8", ("matmul_8bit", "matmul_8bit_t")))
 F32_QLORA_REL = 1e-4
-# phase 31's depth: at TIMED_DEPTH (11) layers the phase took 72.7 s on an
+# phase 31's depth: at 11 layers the phase took 72.7 s on an
 # H100 80GB HBM3 at 700 W, most of it the host issuing profiled and timed
 # windows
 GAP_DEPTH = 8
@@ -1337,10 +1339,10 @@ def flash_checks(dev, work):
     inputs (the backward ones on the plain forward's lse and D), dead rows
     included; at the S = T shapes, times of the kernels, their plain
     versions and SDPA (forward; backward alone, dq, dk and dv in one call;
-    both), the f32 rows with their bounds (CUDA cores, and the backward's
-    three TF32 products); the f32 grids at TinyLlama's shape at least two
-    blocks an SM. Returns the bf16 times at TinyLlama's shape, the f32 rows
-    by shape and the largest errors."""
+    both), the f32 rows with their bounds (CUDA cores, and the three TF32
+    products each f32 one runs as); the f32 grids at TinyLlama's shape at
+    least two blocks an SM. Returns the bf16 times at TinyLlama's shape,
+    the f32 rows by shape and the largest errors."""
     gen = torch.Generator(device=dev).manual_seed(6)
     times, f32_times, max_err = {}, {}, dict.fromkeys(FLASH_KERNELS, 0.0)
     for name, dtype in FLASH_CASES:
@@ -1409,7 +1411,7 @@ def flash_checks(dev, work):
                         add_work(work, kname, n_bytes, ops)
             else:
                 # f32: bound on the CUDA cores, and by the three TF32 products
-                # that each f32 product of the backward kernels runs as
+                # that each f32 product of the kernels runs as
                 for kname, w in row_work.items():
                     row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = bound(w, "f32")
                     row[f"{kname}_tf32x3_bound_ms"] = bound((w[0], 3 * w[1]), "tf32")[0]
@@ -1421,14 +1423,15 @@ def flash_checks(dev, work):
         for dtype in (torch.bfloat16, torch.float32):
             design = {name: attention.flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=dtype)
                       for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+            fwd = attention.flash_fwd_design(b, sq, nh, hd, dtype=dtype)
             if dtype == torch.float32 and (hd, shape) == (64, "tinyllama_s1024"):
-                for name, d in design.items():
+                for name, d in {**design, "flash_fwd": fwd}.items():
                     check(d["grid_x"] * d["grid_y"] * d["grid_z"] >= 2 * d["sms"],
                           f"{name} f32 at {shape}: a grid under two blocks an SM: {d}")
             emit(flash_bwd_design=dict(head_dim=hd, dtype=str(dtype),
                                        shape=[b, sq, t, nh, nkv, hd], **design))
-        emit(flash_fwd_design=dict(head_dim=hd, shape=[b, sq, t, nh, nkv, hd],
-                                   **attention.flash_fwd_design(b, sq, nh, hd)))
+            emit(flash_fwd_design=dict(head_dim=hd, dtype=str(dtype),
+                                       shape=[b, sq, t, nh, nkv, hd], **fwd))
     return times["tinyllama_s1024"], f32_times, max_err
 
 

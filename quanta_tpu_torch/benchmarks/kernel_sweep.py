@@ -171,7 +171,9 @@ def flash_rows(dev, dtype):
                    dq_ms=time_ms(lambda i: attention.flash_bwd_dq(*bwd), 20),
                    dkv_ms=time_ms(lambda i: attention.flash_bwd_dkv(*bwd), 20),
                    **sdpa_times(q, k, v, do))
-        if dtype == torch.bfloat16:
+        if "dtype" in inspect.signature(attention.flash_fwd_design).parameters:
+            row["fwd_design"] = attention.flash_fwd_design(b, s, nh, hd, dtype=dtype)
+        elif dtype == torch.bfloat16:
             row["fwd_design"] = attention.flash_fwd_design(b, s, nh, hd)
         if "dtype" in inspect.signature(attention.flash_bwd_design).parameters:
             row["bwd_design"] = {n: attention.flash_bwd_design(n, b, s, s, nh, nkv, hd,

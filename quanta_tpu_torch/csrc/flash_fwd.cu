@@ -8,7 +8,8 @@
 //                                         j <= q_start[b] + i)
 //   out_i = sum_j softmax(s)_j v_j,  lse_i = log sum_j exp(s_j)
 //
-// with the online softmax: per tile of 64 keys, m' = max(m, max_j s_j),
+// with the online softmax: per key tile (64 keys; 32 in f32 at hd 128),
+// m' = max(m, max_j s_j),
 // alpha = exp(m - m'), p_j = exp(s_j - m'), l = l * alpha + sum_j p_j (one
 // rounded multiply, then one rounded add, as the TPU kernel's order),
 // o = o * alpha + T(p) @ v (p rounded to the operand type T before the
@@ -53,127 +54,317 @@
 // place of a scaled copy and the accurate exp2f, took it from 75.1 to
 // 48.5 us.
 //
-// f32 (QLoRA on an f32 base at S >= 1024, timed by chip_smoke.py's phase
-// 33 and its f32 kernel rows; the f32 cached prefill): still the design of
-// the first port, CUDA-core FMAs (WarpAcc<float> of flash_common.cuh), one
-// block of 4 warps per (batch row, query head, 64 query rows), each warp
-// owning 16 rows, K and V staged per tile, the output accumulator in shared
-// memory. The backward's f32 kernels (flash_bwd.cu) show the Hopper form it
-// would take: three TF32 products for each f32 one.
+// f32 (QLoRA on an f32 base at S >= 1024, the JAX package's `finetune
+// --dtype float32 --seq-len 1024`, timed by chip_smoke.py's phase 33 and
+// its f32 kernel rows; the f32 cached prefill). The TPU kernel's f32 dots
+// run at Precision.HIGHEST. Here each f32 product runs as three TF32 wgmma
+// products, a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi (flash_tf32x3.cuh): a
+// ceiling of 495 / 3 = 165 TFLOP/s, 0.052 ms at TinyLlama's shape (f32 FMAs
+// on the CUDA cores: 0.128 ms). tf32 wgmma reads K-major operands only, B
+// from shared memory. A block of FwdF32::WGS warpgroups owns 64 query rows
+// each, ordered as the bf16 blocks; a warpgroup reads Q's A fragments from
+// its raw tile (frag_rows) and splits them in registers. Per key tile (64
+// keys; 32 at hd 128, where the shared memory holds no more) the block's
+// threads split K into hi / lo B tiles (rows = keys, hd in the fragments'
+// order) and V into transposed hi / lo B tiles (rows = hd), staged through
+// registers a tile ahead (coalesced loads, 16-byte stores that meet each
+// bank once) into one of two buffers. Each warpgroup then computes S = Q
+// K^T, masks it and runs the online softmax on the accumulator registers as
+// the bf16 route does, and adds P V with P's accumulator registers as its A
+// fragments: S's accumulator holds columns 2q and 2q + 1 of each 8-key
+// chunk, a tf32 A fragment columns q and q + 4 of a k8 slice, so V^T's tiles
+// keep keys 0, 2, 4, 6 of each slice at positions 0-3 and 1, 3, 5, 7 at
+// 4-7, and p is split in registers: no tile of p goes through shared
+// memory. Each tile's P V goes into a fresh partial (the tensor cores add
+// with truncation), folded in on the CUDA cores as o = o alpha + partial,
+// rounded to nearest. Against the plain version: ~1e-6 of max|plain| at
+// chip_smoke.py's shapes, lse within 1e-6.
+//
+// Tried on the H100 (PERF.md's f32 flash forward findings; kernel_sweep.py
+// --what flash --dtype float32 on copies of this file, ms at TinyLlama
+// s1024 / Llama-2-7B's shape; the first port's CUDA-core design 0.730 /
+// 0.931): K and V staged a lane per key (a load touching 32 rows, 4-byte
+// V^T stores) 0.147 / 0.170; coalesced loads and 16-byte stores 0.128 /
+// 0.146 (kept; the V^T stores alone 0.144 / 0.167). No gain from:
+// warpgroup 1 running half a tile behind warpgroup 0, so one's softmax
+// meets the other's products (0.146 / 0.164 with P split up front, 0.191 /
+// 0.208 through the chain's waits); Q as split tiles that wgmma reads from
+// shared memory, the staging placed between the products' issue and wait
+// (0.155 / 0.189: a branch there makes ptxas serialize the products, so
+// every warpgroup multiplies every tile, masked); P split up front (0.147 /
+// 0.169); three warpgroups a block (0.157 at hd 64, 168 registers, spills).
+// Timing-only cuts from 0.147: no K / V staging -30%, no per-tile loads
+// -16%, one TF32 product for three -22%, no exponentials -4%.
 
 #include "flash_common.cuh"
+#include "flash_tf32x3.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-// ----------------------------------------------------- f32: CUDA-core FMAs
+// ------------------------------------------------------- f32: 3xTF32 on Hopper
 
-template <int HD>
-struct FwdSmem {
-  static constexpr int LD = HD + kPad<float>;  // Q, K, V tiles
-  static constexpr int S_LD = kAccLd(TILE);    // scores
-  static constexpr int P_LD = TILE + kPad<float>;
-  static constexpr int O_LD = kAccLd(HD);      // output accumulator
-  static constexpr size_t bytes = (3 * TILE * LD + TILE * S_LD + TILE * O_LD + TILE * P_LD) * 4;
+template <int HD> struct FwdF32 {
+  static constexpr int WGS = 2;                   // warpgroups a block, 64 query rows each
+  static constexpr int BK = HD == 128 ? 32 : 64;  // keys a tile
+  static constexpr int ROWS = 64 * WGS;           // query rows a block
+  static constexpr int THREADS = 128 * WGS;
+  using KT = KTile<BK, HD>;  // K hi / lo: the B of S = Q K^T (rows = keys)
+  using VT = KTile<HD, BK>;  // V^T hi / lo: the B of P V (rows = hd, keys in P's fragment order)
+  using RT = RawTile<HD>;    // each warpgroup's Q, the A of S
+  // the items of K (key, 8 hd) and of V (4 keys, 4 hd) each thread stages a tile
+  static constexpr int ITEMS = BK * HD / 8 / THREADS;
+  static_assert(ITEMS * THREADS * 8 == BK * HD, "whole K items a thread");
+  static constexpr int N_VITEMS = BK * HD / 16, VITEMS = (N_VITEMS + THREADS - 1) / THREADS;
+  static constexpr int BUFS = 2;  // split K / V tiles: the next tile's beside the current one
+  // buffer u: K hi, K lo, V^T hi, V^T lo at u BUF; warpgroup w's raw Q at Q0 + w RT::BYTES
+  static constexpr uint32_t BUF = 2 * KT::BYTES + 2 * VT::BYTES, Q0 = BUFS * BUF;
+  static constexpr size_t bytes = Q0 + WGS * RT::BYTES + 1024;
 };
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ q_start,
-              const int* __restrict__ kv_len, float* __restrict__ out, float* __restrict__ lse,
-              int Sq, int Tk, int nh, int nkv, int causal, float scale) {
-  using SM = FwdSmem<HD>;
-  constexpr int LD = SM::LD, S_LD = SM::S_LD, P_LD = SM::P_LD, O_LD = SM::O_LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + TILE * LD;
-  float* Vs = Ks + TILE * LD;
-  float* Ss = Vs + TILE * LD;
-  float* Os = Ss + TILE * S_LD;
-  float* Ps = Os + TILE * O_LD;
+// grid (query head, batch row, blocks of `rows` query rows)
+dim3 fwd_grid(int B, int Sq, int nh, int rows) { return dim3(nh, B, (Sq + rows - 1) / rows); }
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+template <int HD>
+__global__ void __launch_bounds__(FwdF32<HD>::THREADS, 1)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+              const int* __restrict__ q_start, const int* __restrict__ kv_len,
+              float* __restrict__ out, float* __restrict__ lse, int Sq, int Tk, int nh, int nkv,
+              int causal, float scale) {
+  using L = FwdF32<HD>;
+  using KT = typename L::KT;
+  using VT = typename L::VT;
+  using RT = typename L::RT;
+  constexpr int BK = L::BK, NT = L::THREADS;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  unsigned char* gbase = smem + (base - smem_addr(smem));  // generic pointer to the base
+
+  const int tid = threadIdx.x, wg = tid / 128, wtid = tid % 128;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * L::ROWS;  // the longest rows first
+  const int qw = q0 + wg * TILE;                          // this warpgroup's first row
   const int g = h / (nh / nkv);
   const int qs = q_start[b];
   const int kvl = max(0, min(kv_len[b], Tk));
-  const int kv_end = live_kv_end(qs, q0, Sq, kvl, causal);
-  const int n_tiles = kv_end > 0 ? (kv_end + TILE - 1) / TILE : 0;
+  // the block splits the key tiles up to the horizon of its last row; a
+  // warpgroup multiplies those up to its own (none when its rows are past Sq)
+  const int kv_end = causal ? min(kvl, qs + min(q0 + L::ROWS, Sq)) : kvl;
+  const int n_tiles = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+  const int kv_end_w = qw < Sq ? live_kv_end(qs, qw, Sq, kvl, causal) : 0;
+  const int n_tiles_w = kv_end_w > 0 ? (kv_end_w + BK - 1) / BK : 0;
 
-  const float* qb = q + ((int64_t)b * Sq * nh + h) * HD;
+  const uint32_t Qw = base + L::Q0 + wg * RT::BYTES;
+  const float* Qr = reinterpret_cast<const float*>(gbase + (Qw - base));
+  RT::load(Qw, q + ((int64_t)b * Sq * nh + h) * HD, (int64_t)nh * HD, qw, Sq, wtid);
+  cp_async_commit();
+
+  // Each thread stages its items of a key tile's K and V in registers, a
+  // tile ahead, and splits them into a buffer, 16-byte stores that meet
+  // each bank once, from loads that read 128 contiguous bytes of each row
+  // they touch. K: (key, 8 hd) items, lanes 0-7 of a warp 4 k8 slices of 2
+  // keys. V: (4 keys of one parity in a k8 slice, 4 hd) items, one V^T row
+  // a store: lanes 0-7 two hd chunks x both parities x two slices, lanes
+  // 8-31 the next hd chunks.
   const float* kb = k + ((int64_t)b * Tk * nkv + g) * HD;
   const float* vb = v + ((int64_t)b * Tk * nkv + g) * HD;
-  load_tile<float, HD>(Qs, qb, (int64_t)nh * HD, q0, Sq);
-  for (int idx = tid; idx < TILE * HD; idx += THREADS) Os[(idx / HD) * O_LD + idx % HD] = 0.0f;
+  const int64_t kv_stride = (int64_t)nkv * HD;
+  constexpr int NC = HD / 4;  // V's hd chunks
+  float4 kx[L::ITEMS][2], vx[L::VITEMS][4];
+  auto k_item = [&](int i, int& key, int& kk) {
+    key = ((i >> 3) / (HD / 32)) << 1 | ((i >> 2) & 1);
+    kk = (i & 3) | ((i >> 3) % (HD / 32)) << 2;
+  };
+  auto v_item = [&](int i, int& c, int& par, int& sl) {
+    c = (i & 1) | ((i >> 3) % (NC / 2)) << 1;
+    par = (i >> 1) & 1;
+    sl = ((i >> 2) & 1) | ((i >> 3) / (NC / 2)) << 1;
+  };
+  auto fetch = [&](int t) {  // tile t's items into the registers (zeros past Tk)
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int n = 0; n < L::ITEMS; ++n) {
+      int key, kk;
+      k_item(tid + NT * n, key, kk);
+      key += t * BK;
+      kx[n][0] = kx[n][1] = zero;
+      if (key < Tk) {
+        const float4* kp = reinterpret_cast<const float4*>(kb + key * kv_stride + 8 * kk);
+        kx[n][0] = __ldg(kp);
+        kx[n][1] = __ldg(kp + 1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < L::VITEMS; ++n) {
+      const int i = tid + NT * n;
+      int c, par, sl;
+      v_item(i, c, par, sl);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = t * BK + 8 * sl + par + 2 * j;
+        vx[n][j] = zero;
+        if (i < L::N_VITEMS && key < Tk)
+          vx[n][j] = __ldg(reinterpret_cast<const float4*>(vb + key * kv_stride + 4 * c));
+      }
+    }
+  };
+  auto stash = [&](int u) {  // the staged items, split, into buffer u
+    const uint32_t k_hi = base + u * L::BUF, k_lo = k_hi + KT::BYTES;
+    const uint32_t v_hi = k_lo + KT::BYTES, v_lo = v_hi + VT::BYTES;
+#pragma unroll
+    for (int n = 0; n < L::ITEMS; ++n) {
+      int key, kk;
+      k_item(tid + NT * n, key, kk);
+      split_store<BK, HD>(k_hi, k_lo, key, kk, kx[n][0], kx[n][1]);
+    }
+    // V^T: rows hd 4 c .. 4 c + 3; keys 8 sl + par + 2 j at positions 8 sl
+    // + 4 par + j (P's fragment order: keys 0, 2, 4, 6 of a k8 slice, then
+    // 1, 3, 5, 7)
+#pragma unroll
+    for (int n = 0; n < L::VITEMS; ++n) {
+      const int i = tid + NT * n;
+      int c, par, sl;
+      v_item(i, c, par, sl);
+      if (i >= L::N_VITEMS) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_tf32(reinterpret_cast<const float*>(&vx[n][j])[e], hi[j], lo[j]);
+        const uint32_t off = VT::offset(4 * c + e, 8 * sl + 4 * par);
+        st_shared4(v_hi + off, hi[0], hi[1], hi[2], hi[3]);
+        st_shared4(v_lo + off, lo[0], lo[1], lo[2], lo[3]);
+      }
+    }
+  };
+  if (n_tiles > 0) {
+    fetch(0);
+    stash(0);
+  }
+  if (n_tiles > 1) fetch(1);
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();  // Q and the first split tile are whole
 
-  // lanes 2r and 2r+1 own row r of this warp's 16; each takes the columns
-  // of its parity, and both hold the row's running max m and sum l
-  const int wr = lane >> 1, par = lane & 1;
-  const int row = warp * WROWS + wr;
-  const int qpos = qs + q0 + row;
-  const float* Qw = Qs + warp * WROWS * LD;
-  float* Sw = Ss + warp * WROWS * S_LD;
-  float* Ow = Os + warp * WROWS * O_LD;
-  float* Pw = Ps + warp * WROWS * P_LD;
-  float m = -INFINITY, l = 0.0f;
+  // this thread's rows r0 and r0 + 8 of the warpgroup's tile, columns 8 j +
+  // 2 q4 + c: running max (of the raw scores) and sum per row, in registers
+  const int r0 = 16 * warp + lane / 4, q4 = lane % 4;
+  const float scale2 = scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[HD / 2];
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) o[e] = 0.0f;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * TILE;
-    __syncthreads();  // the last tile's K/V reads are done; Q and O are staged
-    load_tile<float, HD>(Ks, kb, (int64_t)nkv * HD, k0, Tk);
-    load_tile<float, HD>(Vs, vb, (int64_t)nkv * HD, k0, Tk);
-    __syncthreads();
+    const uint32_t k_hi = base + (t % L::BUFS) * L::BUF, k_lo = k_hi + KT::BYTES;
+    const uint32_t v_hi = k_lo + KT::BYTES, v_lo = v_hi + VT::BYTES;
+    if (t < n_tiles_w) {
+      // S = Q K^T, Q's fragments read from its raw tile
+      float s[BK / 2];
+      {
+        auto cs = chain<BK>(s, [&](int kk, float(&a)[4]) { frag_rows<HD>(Qr, r0, q4, kk, a); },
+                            [&](int kk) { return KT::desc(k_hi, kk); },
+                            [&](int kk) { return KT::desc(k_lo, kk); });
+        mma_3xtf32<HD / 8>(cs);
+      }
 
-    WarpAcc<float, TILE> s;
-    s.zero();
-    s.template mma<RowMajor, ColMajor, HD>(Qw, LD, Ks, LD);  // Q K^T: K rows are K^T's columns
-    s.store(Sw, S_LD);
-    __syncwarp();
-
-    float sv[TILE / 2];
-    float mt = -INFINITY;
+      // -inf where masked, only on the tiles that straddle the causal
+      // diagonal or kv_len; then the row max m' of the raw scores (scale > 0)
+      const int k0 = t * BK;
+      if (k0 + BK > kvl || (causal && k0 + BK - 1 > qs + qw)) {
 #pragma unroll
-    for (int c = 0; c < TILE / 2; ++c) {
-      const int col = 2 * c + par;
-      sv[c] = live_pair(k0 + col, qpos, kvl, causal) ? Sw[wr * S_LD + col] * scale : -INFINITY;
-      mt = fmaxf(mt, sv[c]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    const float m_new = fmaxf(m, mt);
-    // no live key yet (m_new == -inf): nothing accumulated, nothing to scale
-    const float alpha = m_new == -INFINITY ? 1.0f : expf(m - m_new);
-    float ls = 0.0f;
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int c = 0; c < TILE / 2; ++c) {
-      const float p = sv[c] == -INFINITY ? 0.0f : expf(sv[c] - m_new);
-      Pw[wr * P_LD + 2 * c + par] = p;
-      ls += p;
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    l = __fadd_rn(__fmul_rn(l, alpha), ls);  // the TPU kernel's order, not an FMA
-    m = m_new;
-#pragma unroll 4
-    for (int c = 0; c < HD / 2; ++c) Ow[wr * O_LD + 2 * c + par] *= alpha;
-    __syncwarp();
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              if (!live_pair(k0 + 8 * j + 2 * q4 + c, qs + qw + r0 + 8 * i, kvl, causal))
+                s[4 * j + 2 * i + c] = -INFINITY;
+      }
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          mt[i] = fmaxf(mt[i], fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      // alpha = exp(m - m'), p = exp(s - m') as 2^((s - m') scale log2 e):
+      // one FFMA and one SFU op a score; a row with no live key yet (m' ==
+      // -inf) takes offset 0, so its -inf scores give p = 0 and not NaN
+      float alpha[2], mb[2], ls[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+        mt[i] = fmaxf(m[i], mt[i]);  // m'
+        alpha[i] = mt[i] == -INFINITY ? 1.0f : fast_exp2((m[i] - mt[i]) * scale2);
+        mb[i] = mt[i] == -INFINITY ? 0.0f : mt[i] * scale2;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * i + c;
+            s[e] = fast_exp2(fmaf(s[e], scale2, -mb[i]));
+            ls[i] += s[e];
+          }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 1);
+        ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 2);
+        l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), ls[i]);  // the TPU kernel's order, not an FMA
+        m[i] = mt[i];
+      }
 
-    WarpAcc<float, HD> o;
-    o.load(Ow, O_LD);
-    o.template mma<RowMajor, RowMajor, TILE>(Pw, P_LD, Vs, LD);
-    o.store(Ow, O_LD);
-    __syncwarp();
+      // the tile's P V into a fresh partial, P's accumulator registers
+      // being its A fragments: slice kk's columns q, q + 4 are keys 8 kk +
+      // 2 q, 8 kk + 2 q + 1, which V^T's tiles hold at positions q, q + 4
+      float part[HD / 2];
+      {
+        auto cp = chain<HD>(part, [&](int kk, float(&a)[4]) {
+          a[0] = s[4 * kk];
+          a[1] = s[4 * kk + 2];
+          a[2] = s[4 * kk + 1];
+          a[3] = s[4 * kk + 3];
+        }, [&](int kk) { return VT::desc(v_hi, kk); }, [&](int kk) { return VT::desc(v_lo, kk); });
+        mma_3xtf32<BK / 8>(cp);
+      }
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * i + c;
+            o[e] = fmaf(o[e], alpha[i], part[e]);
+          }
+    }
+    // the next tile, split into the other buffer (its last reader, tile t -
+    // 1, is done on every warpgroup), and the one after into the registers
+    if (t + 1 < n_tiles) {
+      stash((t + 1) % L::BUFS);
+      if (t + 2 < n_tiles) fetch(t + 2);
+    }
+    fence_proxy_async();
+    __syncthreads();  // the next tile's split is whole; every warpgroup is done with this one
   }
-  __syncthreads();  // O's zero fill, when no tile ran
 
-  if (q0 + row < Sq) {
-    float* orow = out + (((int64_t)b * Sq + q0 + row) * nh + h) * HD;
-#pragma unroll 4
-    for (int c = 0; c < HD / 2; ++c) {
-      const int col = 2 * c + par;
-      orow[col] = l > 0.0f ? Ow[wr * O_LD + col] / l : 0.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + r0 + 8 * i;
+    if (row >= Sq) continue;
+    float* orow = out + (((int64_t)b * Sq + row) * nh + h) * HD + 2 * q4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const float x0 = l[i] > 0.0f ? o[4 * j + 2 * i] / l[i] : 0.0f;
+      const float x1 = l[i] > 0.0f ? o[4 * j + 2 * i + 1] / l[i] : 0.0f;
+      *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(x0, x1);
     }
-    if (lse != nullptr && par == 0)
-      lse[((int64_t)b * nh + h) * Sq + q0 + row] = l > 0.0f ? m + logf(l) : kDeadLse;
+    if (lse != nullptr && q4 == 0)
+      lse[((int64_t)b * nh + h) * Sq + row] = l[i] > 0.0f ? m[i] * scale + logf(l[i]) : kDeadLse;
   }
 }
 
@@ -188,8 +379,6 @@ constexpr int FWD_ROWS = TILE * FWD_WG;  // query rows a block
 template <int HD> struct FwdSmem90 {  // FWD_WG Q tiles, then FWD_STAGES x (K, V)
   static constexpr size_t bytes = (FWD_WG + 2 * FWD_STAGES) * Tile<HD>::BYTES + 1024;
 };
-
-dim3 fwd_grid(int B, int Sq, int nh) { return dim3(nh, B, (Sq + FWD_ROWS - 1) / FWD_ROWS); }
 
 template <int HD>
 __global__ void __launch_bounds__(FWD_THREADS)
@@ -357,9 +546,10 @@ template <int HD>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* q_start,
                     const void* kv_len, void* out, void* lse, int B, int Sq, int Tk, int nh,
                     int nkv, int causal, float scale, void* stream) {
-  return launch_n(flash_fwd_sm90<HD>, fwd_grid(B, Sq, nh), FWD_THREADS, FwdSmem90<HD>::bytes,
-                  stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const int*>(q_start),
+  return launch_n(flash_fwd_sm90<HD>, fwd_grid(B, Sq, nh, FWD_ROWS), FWD_THREADS,
+                  FwdSmem90<HD>::bytes, stream, static_cast<const bf16*>(q),
+                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                  static_cast<const int*>(q_start),
                   static_cast<const int*>(kv_len), static_cast<bf16*>(out),
                   static_cast<float*>(lse), Sq, Tk, nh, nkv, causal, scale);
 }
@@ -368,23 +558,43 @@ template <int HD>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const void* q_start,
                    const void* kv_len, void* out, void* lse, int B, int Sq, int Tk, int nh,
                    int nkv, int causal, float scale, void* stream) {
-  return launch(flash_fwd_f32<HD>, dim3((Sq + TILE - 1) / TILE, nh, B), FwdSmem<HD>::bytes,
-                stream, static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<const int*>(q_start),
-                static_cast<const int*>(kv_len), static_cast<float*>(out),
-                static_cast<float*>(lse), Sq, Tk, nh, nkv, causal, scale);
+  using L = FwdF32<HD>;
+  return launch_n(flash_fwd_f32<HD>, fwd_grid(B, Sq, nh, L::ROWS), L::THREADS, L::bytes,
+                  stream, static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const int*>(q_start),
+                  static_cast<const int*>(kv_len), static_cast<float*>(out),
+                  static_cast<float*>(lse), Sq, Tk, nh, nkv, causal, scale);
 }
 
-template <int HD> int fwd_design(int B, int Sq, int nh, int* out) {
+// The launch of a route at a shape, for a report (see qt_flash_fwd_design)
+template <typename Kernel>
+int report(Kernel kernel, dim3 grid, int warpgroups, size_t smem, int stages, int* out) {
   cudaFuncAttributes attr;
-  const cudaError_t rc = cudaFuncGetAttributes(&attr, flash_fwd_sm90<HD>);
-  const size_t smem = FwdSmem90<HD>::bytes;
-  const dim3 grid = fwd_grid(B, Sq, nh);
-  const int vals[10] = {(int)grid.x, (int)grid.y, (int)grid.z, FWD_WG,
-                        blocks_per_sm(flash_fwd_sm90<HD>, smem, FWD_THREADS), attr.numRegs,
-                        (int)smem, (int)attr.localSizeBytes, sm_count(), FWD_STAGES};
+  const cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+  const int vals[10] = {(int)grid.x, (int)grid.y, (int)grid.z, warpgroups,
+                        blocks_per_sm(kernel, smem, 128 * warpgroups), attr.numRegs, (int)smem,
+                        (int)attr.localSizeBytes, sm_count(), stages};
   for (int i = 0; i < 10; ++i) out[i] = vals[i];
   return (int)rc;
+}
+
+template <int HD> int fwd_design(bool f32, int B, int Sq, int nh, int* out) {
+  using L = FwdF32<HD>;
+  if (f32)
+    return report(flash_fwd_f32<HD>, fwd_grid(B, Sq, nh, L::ROWS), L::WGS, L::bytes, L::BUFS,
+                  out);
+  return report(flash_fwd_sm90<HD>, fwd_grid(B, Sq, nh, FWD_ROWS), FWD_WG, FwdSmem90<HD>::bytes,
+                FWD_STAGES, out);
+}
+
+int design(bool f32, int hd, int B, int Sq, int nh, int* out) {
+  if (B <= 0 || Sq <= 0 || nh <= 0) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 32: return fwd_design<32>(f32, B, Sq, nh, out);
+    case 64: return fwd_design<64>(f32, B, Sq, nh, out);
+    case 128: return fwd_design<128>(f32, B, Sq, nh, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -417,15 +627,14 @@ extern "C" int qt_flash_fwd_f32(const void* q, const void* k, const void* v,
   }
 }
 
-// The bf16 route's launch, for a report: out[10] = grid x, y, z, consumer
-// warpgroups a block, blocks resident per SM, registers a thread, dynamic
-// shared bytes, local (spill) bytes a thread, SMs, cp.async stages
+// A route's launch, for a report: out[10] = grid x, y, z, warpgroups a
+// block (64 query rows each), blocks resident per SM, registers a thread,
+// dynamic shared bytes, local (spill) bytes a thread, SMs, stages (bf16:
+// the cp.async ring of K / V tiles; f32: the split K / V buffers)
 extern "C" int qt_flash_fwd_design(int hd, int B, int Sq, int nh, int* out) {
-  if (B <= 0 || Sq <= 0 || nh <= 0) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 32: return fwd_design<32>(B, Sq, nh, out);
-    case 64: return fwd_design<64>(B, Sq, nh, out);
-    case 128: return fwd_design<128>(B, Sq, nh, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return design(false, hd, B, Sq, nh, out);
+}
+
+extern "C" int qt_flash_fwd_f32_design(int hd, int B, int Sq, int nh, int* out) {
+  return design(true, hd, B, Sq, nh, out);
 }

@@ -81,6 +81,7 @@ _SIGNATURES = {
     "qt_flash_bwd_f32_design": [_I] * 7 + [_P],
     # hd, B, Sq, nh, out (int[10])
     "qt_flash_fwd_design": [_I] * 4 + [_P],
+    "qt_flash_fwd_f32_design": [_I] * 4 + [_P],
     # M, N, K, out (int[11])
     "qt_matmul_8bit_design": [_I] * 3 + [_P],
     "qt_matmul_8bit_f32_design": [_I] * 3 + [_P],

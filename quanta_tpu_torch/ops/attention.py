@@ -9,10 +9,11 @@ and how it is laid out. The bf16 kernels are built for Hopper (warpgroup
 products with the scores kept in registers, cp.async tile rings;
 ``csrc/sm90.cuh``): the forward's blocks share each staged K/V tile
 between two 64-row query tiles, the backward splits dK/dV over
-thread-block clusters. All three are deterministic: two calls give the
-same bits. The f32 backward runs each f32 product as three TF32
-tensor-core products (``csrc/flash_bwd.cu``). :func:`flash_fwd_design`
-and :func:`flash_bwd_design` report how they launch.
+thread-block clusters. The f32 kernels run each f32 product as three TF32
+warpgroup products (``csrc/flash_tf32x3.cuh``); the f32 forward keeps p
+in registers, as the bf16 one does. Every kernel, in either route, is
+deterministic: two calls give the same bits. :func:`flash_fwd_design` and :func:`flash_bwd_design`
+report how they launch.
 
 Layouts are the JAX package's: q ``(B, Sq, nh, hd)``, k and v ``(B, T,
 nkv, hd)`` with ``nh % nkv == 0`` (query head h reads KV head ``h // (nh /
@@ -222,15 +223,20 @@ _FWD_DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "warpgroups", "blocks_per_sm",
                     "shared_bytes", "spill_bytes", "sms", "stages")
 
 
-def flash_fwd_design(b, sq, nh, hd):
-    """How the bf16 forward kernel launches at this shape on this card: its
-    grid, consumer warpgroups a block (64 query rows each), blocks resident
-    per SM, registers a thread, dynamic shared bytes a block and spill
-    bytes a thread (from ``cudaFuncGetAttributes``), the SMs, and the
-    stages of its K/V ring."""
+def flash_fwd_design(b, sq, nh, hd, dtype=torch.bfloat16):
+    """How the forward kernel launches for ``dtype`` operands at this shape
+    on this card: its grid, warpgroups a block (64 query rows each), blocks
+    resident per SM, registers a thread, dynamic shared bytes a block and
+    spill bytes a thread (from ``cudaFuncGetAttributes``), the SMs, and its
+    stages (bf16: the K/V ring's; f32: the split K/V buffers); ``design``
+    "wgmma" (bf16) or "wgmma_3xtf32" (f32)."""
+    if dtype not in _SUFFIX:
+        raise ValueError(f"flash_fwd: the CUDA kernels take bf16 or f32, got {dtype}")
+    f32 = dtype == torch.float32
+    entry = "qt_flash_fwd_f32_design" if f32 else "qt_flash_fwd_design"
     out = (ctypes.c_int * len(_FWD_DESIGN_KEYS))()
-    _build.check(_build.library().qt_flash_fwd_design(hd, b, sq, nh, out), "flash_fwd")
-    return dict(zip(_FWD_DESIGN_KEYS, out))
+    _build.check(getattr(_build.library(), entry)(hd, b, sq, nh, out), "flash_fwd")
+    return {"design": "wgmma_3xtf32" if f32 else "wgmma", **dict(zip(_FWD_DESIGN_KEYS, out))}
 
 
 def flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=torch.bfloat16):

@@ -223,3 +223,17 @@ def test_init_quantized_params_refuses_affine():
     with pytest.raises(ValueError, match="affine"):
         tnn.init_quantized_params(torch.Generator().manual_seed(0), tllama.LlamaConfig.tiny(),
                                   mode="int4a")
+
+
+@pytest.mark.parametrize("report", [
+    lambda dtype: tattn.flash_fwd_design(2, 1024, 32, 64, dtype=dtype),
+    lambda dtype: tattn.flash_bwd_design("flash_bwd_dq", 2, 1024, 1024, 32, 4, 64, dtype=dtype)],
+    ids=["fwd", "bwd"])
+def test_flash_design_reports_refuse_other_dtypes(report):
+    """The flash design reports name the bf16 and f32 routes only, and say
+    so before they reach the kernels' library."""
+    def no_library():
+        raise AssertionError("the report reached the library")
+    with mock.patch.object(tattn._build, "library", no_library), \
+            pytest.raises(ValueError, match="bf16 or f32"):
+        report(torch.float16)

@@ -943,18 +943,53 @@ def test_matmul_8bit_split_covers_every_k_block(cuda, m, k, n):
         assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hd", [32, 64, 128])
-def test_flash_fwd_without_lse_and_deterministic(cuda, hd):
+def test_flash_fwd_without_lse_and_deterministic(cuda, hd, dtype):
     """save_lse=False (the prefill's call) writes the same output bits as
-    with the lse, and two calls agree bit for bit."""
-    q, k, v, _ = _flash_inputs(cuda, 2, 300, 330, 8, 2, hd, torch.bfloat16, seed=4)
+    with the lse, and two calls agree bit for bit (bf16 within 2 bf16 ulps
+    of max|plain|, f32 within 1e-5 of it)."""
+    q, k, v, _ = _flash_inputs(cuda, 2, 300, 330, 8, 2, hd, dtype, seed=4)
     qs = torch.tensor([0, 30], dtype=torch.int32, device=cuda)
     kl = torch.tensor([300, 330], dtype=torch.int32, device=cuda)
     out, lse = tattn.flash_forward(q, k, v, qs, kl, save_lse=True)
     again, none = tattn.flash_forward(q, k, v, qs, kl)
     assert none is None and lse is not None and torch.equal(out, again)
     ref, _ = tattn.flash_forward_reference(q, k, v, qs, kl)
-    assert (out.float() - ref.float()).abs().max().item() <= 2 * 2.0 ** -7 * ref.float().abs().max().item()
+    tol = 2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert (out.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+
+
+# (causal, q_start): 4096 keys for every query row, and the causal rows of a
+# 1096-token chunk cached after 0 and after 3000 tokens
+LONG_KEY_CASES = [(False, [0, 0]), (True, [0, 3000])]
+
+
+@pytest.mark.parametrize("causal,q_start", LONG_KEY_CASES)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_fwd_f32_long_keys(cuda, hd, causal, q_start):
+    """The f32 forward over T = 4096 keys (64 or 128 key tiles) stays within
+    1e-5 of max|plain| and its lse within 1e-4: each tile's P V goes into a
+    fresh partial that the CUDA cores fold in, so the tensor cores'
+    truncating adds do not pile up along the keys."""
+    b, sq, t, nh, nkv = 2, 1096, 4096, 8, 2
+    q, k, v, _ = _flash_inputs(cuda, b, sq, t, nh, nkv, hd, torch.float32, seed=7)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=cuda)
+    kl = torch.tensor([t, t], dtype=torch.int32, device=cuda)
+    out, lse = tattn.flash_forward(q, k, v, qs, kl, causal=causal, save_lse=True)
+    ref, ref_lse = tattn.flash_forward_reference(q, k, v, qs, kl, causal=causal)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def test_flash_fwd_f32_design_fills_the_card(cuda):
+    """At TinyLlama-1.1B's s1024 training shape (B 2, S 1024, 32 heads, hd
+    64) the f32 forward runs the 3xTF32 design on a grid of at least two
+    blocks an SM; the bf16 forward reports its wgmma design."""
+    d = tattn.flash_fwd_design(2, 1024, 32, 64, dtype=torch.float32)
+    assert d["design"] == "wgmma_3xtf32"
+    assert d["grid_x"] * d["grid_y"] * d["grid_z"] >= 2 * d["sms"], d
+    assert tattn.flash_fwd_design(2, 1024, 32, 64)["design"] == "wgmma"
 
 
 @pytest.mark.parametrize("m", [5, 40])
