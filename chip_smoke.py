@@ -34,10 +34,12 @@ and the script exits non-zero (nothing is caught):
      ``quantize_blockwise`` at the int8 KV writes of the serve path (a
      prefill of 256 tokens, a window of 8 steps for 8 slots, every layer
      in one call; and one layer's window), all bit for bit against their
-     plain versions, timed as in phase 3; then the fused K+V write into
-     the int8 pool (``kvcache.write_rows``, one launch) at the prefill and
-     window shapes against ``quantize_kv`` plus ``index_put``, equal
-     outside the null page 0 (whose rows repeat), timed;
+     plain versions, timed as in phase 3, and the op at block 100; then
+     the fused K+V write into the int8 pool (``kvcache.write_rows``, one
+     launch) at the prefill and window shapes against ``quantize_kv`` plus
+     ``index_put``, equal outside the null page 0 (whose rows repeat),
+     timed, and the same at OpenLLaMA-3B's head dim, 100 (26 layers, 32
+     KV heads), with its bound;
   5. the decode path at the full TinyLlama-1.1B geometry (22 layers, random
      bf16 weights from seed 0) in bf16, nf4a, nf4 and int4c: greedy decode
      of 8 prompts of 128 tokens for 32 new tokens, with the launch counts of
@@ -92,8 +94,10 @@ and the script exits non-zero (nothing is caught):
      TinyLlama-1.1B's training shape (B=2, S=T=1024, GQA rep 8, hd 64),
      Llama-2-7B's (B=1, MHA, hd 128), a cached prefill (1024 queries
      into 1152 slots at q_start 0 and 64, and a row whose kv_len is 0),
-     phase 12's prefill (1024 queries into 1040 slots) and phase 13's
-     S = T = 2048, in bf16, and the first two and the cached prefill also
+     phase 12's prefill (1024 queries into 1040 slots), phase 13's
+     S = T = 2048 and OpenLLaMA-3B's training shape (B=2, S=T=1024, 32
+     heads, hd 100, which the kernels run padded to 128 columns), in
+     bf16, and the first two, the cached prefill and OpenLLaMA-3B's also
      in f32: bf16 output within 2 bf16 ulps of
      max|plain| and rel-L2 1e-2, lse within 1e-4, gradients within rel-L2
      2e-2 (f32: 1e-5 and 1e-4 of max|plain|), dead rows zero with lse
@@ -101,7 +105,9 @@ and the script exits non-zero (nothing is caught):
      shapes the times of the kernels, their plain versions and SDPA
      (forward; backward; both; the backend it takes, and in f32, where
      that is math, the efficient backend on K and V expanded to the query
-     heads), the f32 rows with their bounds; then per head_dim one
+     heads), every row with its bound (at hd 100 also the bound of the 128
+     columns the kernels multiply), the f32 rows also with the bound of
+     their three TF32 products; then per head_dim (32, 64, 128, 100) one
      ``flash_bwd_design`` line for each dtype (grid, cluster size,
      warpgroups, blocks resident per SM, registers and shared bytes, from
      ``cudaFuncGetAttributes``) and one ``flash_fwd_design`` line (the f32
@@ -312,7 +318,26 @@ and the script exits non-zero (nothing is caught):
      products for each f32 one) and 1 ``adam8bit_update``, nothing else;
      then ``train_bench.bench_qlora``'s row (step ms, busy share,
      step-peak GiB) with the share of the device time of #1, #4 and each
-     flash kernel.
+     flash kernel;
+ 34. OpenLLaMA-3B v2 (``OPENLLAMA_3B``, from its published config: 3200
+     wide, 26 layers, 32 heads, head dim 100, 8640 hidden, vocab 32000) at
+     full width and depth, random weights from seed 0: ``matmul_4bit``
+     (nf4a, M 8 and 2048) and ``matmul_4bit_t`` (nf4, M 2048) against
+     their plain versions at its four (K, N) (K pads to 4096 and 9216, N
+     to 8704; N 3200 is 25 tiles of 128), with their designs; (a) a b1 x
+     S 2048 prefill with ``use_flash=None``: 26 ``flash_fwd`` launches,
+     logits against the einsum route by phase 12's rule, tok/s; (b)
+     greedy decode of 16 tokens after a 2032-token prompt (ending at its
+     2048 positions): 26 ``flash_fwd`` and 16 x 183 ``matmul_4bit``
+     launches, decode tok/s; (c) the Engine with the int8 KV pool over 8
+     requests (prompts 128-512, 48 new, 8 slots, multi_step 8), all
+     finishing, one ``quantize_blockwise`` a prefill and a window, tok/s
+     and TTFT; (d) phase 9's QLoRA path at b2 x s1024 on an nf4 base with
+     ``use_flash=None`` (flash by ``attention.kernel_takes``): per
+     kernel-route step 183 ``matmul_4bit``, 180 ``matmul_4bit_t``, 26 of
+     each flash kernel and one ``adam8bit_update``, phase 9's rules, the
+     loss falling; then ``train_bench``'s row (step ms, busy share,
+     step-peak GiB).
 
 Then the seconds each phase took, the redesigned kernels' earlier times
 as PERF.md records them (``earlier_times``, beside this run's), the
@@ -373,6 +398,10 @@ NF4_REL_L2 = logits_gate.REL_L2
 # int8 KV writes of the serve path (L, tokens.., nkv, hd), block = hd = 64:
 # a prefill of 256 tokens, a window of 8 steps x 8 slots (every layer in
 # one call, as the runner writes it), and one layer's window
+# the int8 KV writes at OpenLLaMA-3B's head dim, 100, off the kernel's
+# 8-lane groups: a prefill of 256 tokens and a window of 8 steps for 8
+# slots, every layer in one call (phase 34's serve path)
+KV_WRITES_HD100 = {"prefill_256_hd100": (26, 256, 32, 100), "window_8x8_hd100": (26, 8, 8, 32, 100)}
 KV_WRITES = {"prefill_256": (22, 256, 4, 64), "window_8x8": (22, 8, 8, 4, 64),
              "window_8x8_layer": (8, 8, 4, 64)}
 # the fused K+V writes into an int8 pool of KV_PAGES pages of 16 (the
@@ -427,9 +456,12 @@ FLASH_SHAPES = {
     "cached_prefill": (3, 1024, 1152, 32, 4, 64, [0, 64, 0], [1024, 1088, 0]),
     "prompt_prefill": (2, 1024, 1040, 32, 4, 64, [0, 0], [1024, 1024]),
     "long_prefill_s2048": (2, 2048, 2048, 32, 4, 64, [0, 0], [2048, 2048]),
+    # OpenLLaMA-3B's QLoRA shape (phase 34): hd 100, run padded to 128
+    "openllama_3b_s1024": (2, 1024, 1024, 32, 32, 100, [0, 0], [1024, 1024]),
 }
 FLASH_CASES = [(name, torch.bfloat16) for name in FLASH_SHAPES] + [
-    (name, torch.float32) for name in ("tinyllama_s1024", "llama2_7b_s1024", "cached_prefill")]
+    (name, torch.float32) for name in ("tinyllama_s1024", "llama2_7b_s1024", "cached_prefill",
+                                       "openllama_3b_s1024")]
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the times of the redesigned kernels before their Hopper redesigns, as
 # PERF.md's kernel table records them: the first port's flash kernels at
@@ -594,6 +626,24 @@ GPT2_REORDER_REL = 2.0 ** -22
 F32_QLORA = (("nf4", ("matmul_4bit", "matmul_4bit_t")),
              ("int8", ("matmul_8bit", "matmul_8bit_t")))
 F32_QLORA_REL = 1e-4
+# phase 34: OpenLLaMA-3B v2 (openlm-research/open_llama_3b_v2, a
+# LlamaForCausalLM; its config.json: hidden_size 3200, intermediate_size
+# 8640, num_hidden_layers 26, num_attention_heads 32, num_key_value_heads
+# 32, vocab_size 32000, max_position_embeddings 2048, rms_norm_eps 1e-6,
+# untied embeddings): head dim 100, which the flash kernels run padded to
+# 128 columns and the int8 KV write one warp a vector; at full width and
+# depth, random weights from seed 0. (a) a b1 x S 2048 prefill, use_flash
+# None; (b) greedy decode of OL_NEW tokens after a prompt of 2048 - OL_NEW
+# (the model's 2048 positions); (c) the Engine over OL_SERVE's requests
+# with the int8 KV pool; (d) QLoRA at b2 x s1024
+OPENLLAMA_3B = dict(vocab_size=32000, dim=3200, n_layers=26, n_heads=32, n_kv_heads=32,
+                    hidden_dim=8640, norm_eps=1e-6, max_seq_len=2048)
+OL_PREFILL, OL_NEW, OL_BATCH, OL_SEQ = 2048, 16, 2, 1024
+OL_SERVE = dict(n_requests=8, min_prompt=128, max_prompt=512, max_new=48, n_slots=8,
+                multi_step=8, buckets=(128, 256, 512))
+# its linears' (K, N): #1 and #4 meet K_pad 4096 and 9216, N_pad 8704, and
+# N 3200's 25 tiles of 128 there
+OL_SHAPES = ((3200, 3200), (3200, 8640), (8640, 3200), (3200, 32000))
 # phase 31's depth: at 11 layers the phase took 72.7 s on an
 # H100 80GB HBM3 at 700 W, most of it the host issuing profiled and timed
 # windows
@@ -911,8 +961,11 @@ def quantize_checks(dev, work):
     against quantize_kv plus index_put, equal outside the null page 0
     (whose rows repeat; attention never reads it), µs per call, inputs
     rotated past the L2, beside the unfused route (two calls of the op and
-    four index_put scatters). Returns the window write's (kernel, plain) ms,
-    the op's µs at the window's K and the largest difference."""
+    four index_put scatters); the same at OpenLLaMA-3B's head dim, 100
+    (``KV_WRITES_HD100``: one warp a vector, off the 8-lane groups), and
+    the op at block 100. Returns the window write's (kernel, plain) ms,
+    the op's µs at the window's K, the hd-100 rows by name and the largest
+    difference."""
     gen = torch.Generator(device=dev).manual_seed(3)
     op_us, max_err = {}, 0.0
     for name, shape in KV_WRITES.items():
@@ -931,6 +984,19 @@ def quantize_checks(dev, work):
         op_us[name] = ms * 1e3
         emit(kernel_check=dict(kernel="quantize_blockwise", fmt="int8_sym", shape=list(shape),
                                max_abs_err=err, tol=0.0, us=ms * 1e3))
+    # the op at block 100: one warp a block, lanes striding
+    x = (torch.randn(KV_WRITES_HD100["prefill_256_hd100"], generator=gen, device=dev) * 2).to(
+        torch.bfloat16)
+    x[0, 0] = 0.0
+    out = quantize.quantize_blockwise(x, fmt="int8_sym", block=100, use_kernel=True)
+    ref = quantize.quantize_blockwise(x, fmt="int8_sym", block=100, use_kernel=False)
+    check(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
+          "quantize_blockwise block 100 not bit-exact")
+    op_us["prefill_256_hd100"] = time_ms(lambda i: quantize.quantize_blockwise(
+        x, fmt="int8_sym", block=100), 100) * 1e3
+    emit(kernel_check=dict(kernel="quantize_blockwise", fmt="int8_sym", block=100,
+                           shape=list(x.shape), max_abs_err=0.0, tol=0.0,
+                           us=op_us["prefill_256_hd100"]))
     # the codebook branch, which the serve path does not take
     x = torch.randn((4096 * 64,), generator=gen, device=dev)
     for fmt in ("nf4", "nf4a", "fp4"):
@@ -939,10 +1005,10 @@ def quantize_checks(dev, work):
         check(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
               f"quantize_blockwise {fmt} not bit-exact")
 
-    cfg = llama.LlamaConfig.tinyllama_1b()
-    write_ms = {}
-    for name in ("prefill_256", "window_8x8"):
-        shape = KV_WRITES[name]
+    write_ms, hd100 = {}, {}
+    tiny, ol = llama.LlamaConfig.tinyllama_1b(), llama.LlamaConfig(**OPENLLAMA_3B)
+    for name, shape, cfg in [(n, KV_WRITES[n], tiny) for n in ("prefill_256", "window_8x8")] + \
+            [(n, sh, ol) for n, sh in KV_WRITES_HD100.items()]:
         n_rows = math.prod(shape[1:-2])
         k, v = ((torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
                 .reshape(cfg.n_layers, n_rows, *shape[-2:]) for _ in range(2))
@@ -975,15 +1041,20 @@ def quantize_checks(dev, work):
                 flat[f"{t}_scale"][:, rows] = scale
         write_ms[name] = (time_ms(run(True), 100), time_ms(run(False), 20))
         unfused_us = time_ms(unfused, 50) * 1e3
+        hd = shape[-1]
+        n_vec = 2 * k.numel() // hd
+        w = (nbytes(k, v, rows) + n_vec * (hd + 4), 3 * 2 * k.numel())
         if name == "window_8x8":
-            n_vec = 2 * k.numel() // 64
-            add_work(work, "quantize_blockwise", nbytes(k, v, rows) + n_vec * (64 + 4),
-                     3 * 2 * k.numel())
-        emit(kernel_check=dict(kernel="quantize_blockwise", write="kv_int8_pool", kv=name,
-                               shape=list(k.shape), pool_pages=KV_PAGES, max_abs_err=err,
-                               tol=0.0, us=write_ms[name][0] * 1e3,
-                               plain_us=write_ms[name][1] * 1e3, unfused_us=unfused_us))
-    return write_ms["window_8x8"], op_us["window_8x8"], max_err
+            add_work(work, "quantize_blockwise", *w)
+        row = dict(kernel="quantize_blockwise", write="kv_int8_pool", kv=name,
+                   shape=list(k.shape), pool_pages=KV_PAGES, max_abs_err=err, tol=0.0,
+                   us=write_ms[name][0] * 1e3, plain_us=write_ms[name][1] * 1e3,
+                   unfused_us=unfused_us)
+        if name in KV_WRITES_HD100:
+            row["bound_us"], row["bound_by"] = _bound_us(*w, "f32")
+            hd100[name] = row
+        emit(kernel_check=row)
+    return write_ms["window_8x8"], op_us["window_8x8"], hd100, max_err
 
 
 def int8_decode_routes(dev, cfg, params):
@@ -1252,8 +1323,9 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
     from the same adapters on one fixed batch, launches counted per step;
     then one step through the reordered plain versions (the noise floor).
     ``kernels``: the forward and transposed kernels of the base's layout;
-    ``use_flash`` goes to ``llama.forward`` (with True, ``n_layers`` of
-    each flash kernel a kernel-route step). The step-1 loss within 1e-2
+    ``use_flash`` goes to ``llama.forward`` (with True, or None at seq >=
+    ``llama.FLASH_MIN_SEQ`` where the kernels take the head dim,
+    ``n_layers`` of each flash kernel a kernel-route step). The step-1 loss within 1e-2
     relative of the plain route and each lora_b gradient within the floor
     rule; on an f32 base (``cfg.dtype``, f32 adapters) both within
     ``F32_QLORA_REL``, the floor printed beside. Returns the kernel route's
@@ -1262,6 +1334,9 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
     data = train_bench.make_batch(cfg, batch, seq, dev)
     init = train_bench.with_lora(base)
     per_forward = 7 * cfg.n_layers + 1
+    per_backward = per_forward - 3  # layer 0's wq, wk and wv need no dx
+    flash = use_flash if use_flash is not None else (
+        seq >= llama.FLASH_MIN_SEQ and attention.kernel_takes(cfg.head_dim, cfg.dtype))
     runs = {}
     for route in (None, False, "reordered"):
         adapters = [{k: {ab: t.detach().clone().requires_grad_() for ab, t in v.items()}
@@ -1286,9 +1361,9 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
                 grads = _adapter_grads(adapters)
         expected = dict.fromkeys(_build.launches, 0)
         if route is None:
-            expected.update({kernels[0]: per_forward, kernels[1]: PER_BACKWARD,
+            expected.update({kernels[0]: per_forward, kernels[1]: per_backward,
                              "adam8bit_update": 1})
-            if use_flash:
+            if flash:
                 expected.update(dict.fromkeys(FLASH_KERNELS, cfg.n_layers))
         for i, c in enumerate(counts):
             check(c == expected, f"qlora {fmt} route {route} step {i + 1}: launches {c}, "
@@ -1340,9 +1415,11 @@ def flash_checks(dev, work):
     included; at the S = T shapes, times of the kernels, their plain
     versions and SDPA (forward; backward alone, dq, dk and dv in one call;
     both), the f32 rows with their bounds (CUDA cores, and the three TF32
-    products each f32 one runs as); the f32 grids at TinyLlama's shape at
-    least two blocks an SM. Returns the bf16 times at TinyLlama's shape,
-    the f32 rows by shape and the largest errors."""
+    products each f32 one runs as), at a head dim off the compiled widths
+    (OpenLLaMA-3B's 100, run in 128 columns) also the bound of the work
+    those padded columns do; the f32 grids at TinyLlama's shape at least
+    two blocks an SM. Returns the bf16 rows by shape (those of the S = T
+    shapes timed), the f32 rows by shape and the largest errors."""
     gen = torch.Generator(device=dev).manual_seed(6)
     times, f32_times, max_err = {}, {}, dict.fromkeys(FLASH_KERNELS, 0.0)
     for name, dtype in FLASH_CASES:
@@ -1400,25 +1477,40 @@ def flash_checks(dev, work):
         if sq == t:
             row.update(flash_times(q, k, v, do, qs, kl, ref_lse, delta))
             pairs = nh * live_pairs(q_start, kv_len, sq, t)
-            row_work = {"flash_fwd": (nbytes(q, k, v, out, lse), 4 * hd * pairs),
-                        "flash_bwd_dq": (nbytes(q, k, v, do, lse, delta, dq), 6 * hd * pairs),
+            hdp = attention.padded_head_dim(hd)
+
+            def work_of(width):
+                return {"flash_fwd": (nbytes(q, k, v, out, lse), 4 * width * pairs),
+                        "flash_bwd_dq": (nbytes(q, k, v, do, lse, delta, dq), 6 * width * pairs),
                         "flash_bwd_dkv": (nbytes(q, k, v, do, lse, delta, dk, dv),
-                                          8 * hd * pairs)}
+                                          8 * width * pairs)}
+            row_work = work_of(hd)
+            row["padded_head_dim"] = hdp
+            for kname, w in row_work.items():
+                if dtype == torch.bfloat16:
+                    row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = bound(w, "bf16")
+                else:
+                    # f32: bound on the CUDA cores, and by the three TF32
+                    # products that each f32 product of the kernels runs as
+                    row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = bound(w, "f32")
+                    row[f"{kname}_tf32x3_bound_ms"] = bound((w[0], 3 * w[1]), "tf32")[0]
+                if hdp != hd:  # the work of the zero columns the kernels multiply too
+                    wp = work_of(hdp)[kname]
+                    row[f"{kname}_bound_ms_padded"] = bound(
+                        wp, "bf16" if dtype == torch.bfloat16 else "f32")[0]
+                    if dtype == torch.float32:
+                        row[f"{kname}_tf32x3_bound_ms_padded"] = bound(
+                            (wp[0], 3 * wp[1]), "tf32")[0]
             if dtype == torch.bfloat16:
                 times[name] = row
                 if name == "tinyllama_s1024":
                     for kname, (n_bytes, ops) in row_work.items():
                         add_work(work, kname, n_bytes, ops)
             else:
-                # f32: bound on the CUDA cores, and by the three TF32 products
-                # that each f32 product of the kernels runs as
-                for kname, w in row_work.items():
-                    row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = bound(w, "f32")
-                    row[f"{kname}_tf32x3_bound_ms"] = bound((w[0], 3 * w[1]), "tf32")[0]
                 f32_times[name] = row
         emit(kernel_check=row)
     for hd, shape in ((32, "tinyllama_s1024"), (64, "tinyllama_s1024"),
-                      (128, "llama2_7b_s1024")):
+                      (128, "llama2_7b_s1024"), (100, "openllama_3b_s1024")):
         b, sq, t, nh, nkv = FLASH_SHAPES[shape][:5]
         for dtype in (torch.bfloat16, torch.float32):
             design = {name: attention.flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=dtype)
@@ -1432,7 +1524,7 @@ def flash_checks(dev, work):
                                        shape=[b, sq, t, nh, nkv, hd], **design))
             emit(flash_fwd_design=dict(head_dim=hd, dtype=str(dtype),
                                        shape=[b, sq, t, nh, nkv, hd], **fwd))
-    return times["tinyllama_s1024"], f32_times, max_err
+    return times, f32_times, max_err
 
 
 def flash_times(q, k, v, do, qs, kl, lse, delta):
@@ -2613,6 +2705,192 @@ def qlora_f32_flash(dev):
     return launches
 
 
+def openllama_3b(dev):
+    """Phase 34: OpenLLaMA-3B v2 (``OPENLLAMA_3B``, head dim 100) at full
+    width and depth, random weights from seed 0, through the entry points a
+    user calls. First #1 (nf4a; M 8 and 2048) and #4 (nf4; M 2048) against
+    their plain versions at its four (K, N), where K pads to 4096 and 9216
+    and N to 8704, and N 3200 runs 25 tiles of 128. Then, nf4a: (a) a b1 x
+    S 2048 prefill with ``use_flash=None``, ``n_layers`` ``flash_fwd``
+    launches, its logits against the einsum route by phase 12's rule, the
+    prefill timed; (b) greedy decode of ``OL_NEW`` tokens after a prompt of
+    2048 - ``OL_NEW`` (ending at the model's 2048 positions): one prefill
+    through flash and ``OL_NEW`` forwards' ``matmul_4bit``, decode tok/s
+    from the decode's time less its prefill's; (c) the Engine with the
+    int8 KV pool over ``OL_SERVE``'s requests, all submitted at once, every
+    request finishing, one ``quantize_blockwise`` (the KV write at hd 100)
+    a prefill and a window, tok/s and TTFT. Then nf4: (d) phase 9's QLoRA
+    path at b2 x s1024 with ``use_flash=None`` (flash by the kernels' rule),
+    ``n_layers`` of each flash kernel a step, phase 9's rules; and
+    ``train_bench``'s row (step ms, busy share, step-peak GiB). Returns the
+    launches and the timed rows."""
+    cfg = llama.LlamaConfig(**OPENLLAMA_3B)
+    check(cfg.head_dim == 100 and attention.padded_head_dim(cfg.head_dim) == 128
+          and attention.kernel_takes(cfg.head_dim, cfg.dtype), f"openllama-3b: {cfg}")
+    t0 = time.perf_counter()
+    dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    trees = {fmt: qnn.quantize_params(dense, mode=fmt) for fmt in ("nf4a", "nf4")}
+    del dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rows = {"setup_s": time.perf_counter() - t0}
+    launches = dict.fromkeys(_build.launches, 0)
+
+    gen = torch.Generator(device=dev).manual_seed(34)
+    for (k, n), qt in _first_leaves(trees["nf4a"], OL_SHAPES).items():
+        k_pad = 2 * qt.codes.shape[0]
+        for m in (8, OL_BATCH * OL_SEQ):
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            _, row = _quantized_check(f"openllama-3b matmul_4bit M={m} K={k} N={n}", x, qt,
+                                      torch.bfloat16, 10)
+            emit(kernel_check=dict(kernel="matmul_4bit", model="openllama-3b", fmt="nf4a",
+                                   K_pad=k_pad, N_pad=qt.codes.shape[1], **row,
+                                   design=_checked_design(matmul.matmul_4bit_design, m,
+                                                          qt.codes.shape[1], k_pad,
+                                                          torch.bfloat16)))
+    for (k, n), qt in _first_leaves(trees["nf4"], OL_SHAPES).items():
+        g = torch.randn((OL_BATCH * OL_SEQ, qt.codes.shape[1]), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        out = matmul.matmul_4bit_t(g, qt.codes, qt.scale, codebook=qt.codebook)
+        ref = matmul.matmul_4bit_t(g, qt.codes, qt.scale, codebook=qt.codebook, use_kernel=False)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 2 * BF16_ULP * ref.float().abs().max().item()
+        check(out.shape == ref.shape and err <= tol,
+              f"openllama-3b matmul_4bit_t K={k} N={n}: err {err} > {tol}")
+        emit(kernel_check=dict(kernel="matmul_4bit_t", model="openllama-3b", fmt="nf4", K=k, N=n,
+                               K_pad=2 * qt.codes.shape[0], N_pad=qt.codes.shape[1],
+                               M=g.shape[0], max_abs_err=err, tol=tol,
+                               design=matmul.matmul_4bit_t_design(g.shape[0], qt.codes.shape[1],
+                                                                  2 * qt.codes.shape[0])))
+
+    # (a) the prefill: use_flash=None takes flash at hd 100; against the
+    # einsum route, the floor the f32 attention sets
+    params = trees["nf4a"]
+    prompt = torch.from_numpy(np.random.default_rng(34).integers(
+        0, cfg.vocab_size, (1, OL_PREFILL), dtype=np.int32)).to(dev)
+    logits, flash_n = {}, {}
+    with torch.no_grad():
+        for route in ("flash", "einsum", "f32_attention"):
+            cache = llama.init_cache(cfg, 1, max_len=OL_PREFILL, device=dev)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            with mock.patch.object(llama, "_attention", f32_attention
+                                   if route == "f32_attention" else EINSUM_ATTENTION):
+                logits[route], _ = llama.forward(params, prompt, cfg, cache=cache,
+                                                 use_flash=None if route == "flash" else False)
+            torch.cuda.synchronize()
+            flash_n[route] = _build.launches["flash_fwd"]
+            if route == "flash":
+                for name, c in _build.launches.items():
+                    launches[name] += c
+        check(flash_n == {"flash": cfg.n_layers, "einsum": 0, "f32_attention": 0},
+              f"openllama-3b prefill flash launches {flash_n}")
+        check(torch.isfinite(logits["flash"]).all().item(), "openllama-3b: non-finite logits")
+        rel = rel_l2(logits["flash"], logits["einsum"])
+        floor = rel_l2(logits["f32_attention"], logits["einsum"])
+        tol = max(1e-2, GRAD_FLOOR_X * floor + GRAD_FLOOR_ABS)
+        check(rel <= tol, f"openllama-3b prefill logits flash vs einsum rel-L2 {rel} > {tol}")
+        agree = (logits["flash"].argmax(-1) == logits["einsum"].argmax(-1)).float().mean().item()
+        del logits
+        prefill_s = []
+        for _ in range(3):
+            cache = llama.init_cache(cfg, 1, max_len=OL_PREFILL, device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            llama.forward(params, prompt, cfg, cache=cache)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t)
+        del cache
+    rows["prefill"] = dict(batch=1, seq=OL_PREFILL, rel_l2_flash_vs_einsum=rel, tol=tol,
+                           f32_attention_rel_l2_vs_einsum=floor, argmax_agreement=agree,
+                           flash_launches=flash_n["flash"], seconds=prefill_s,
+                           tok_s=OL_PREFILL / statistics.median(prefill_s))
+    emit(openllama_3b_prefill=rows["prefill"])
+
+    # (b) greedy decode after a prompt of OL_PREFILL - OL_NEW tokens
+    short = prompt[:, :OL_PREFILL - OL_NEW]
+    walls = {}
+    for new in (1, OL_NEW):  # the prefill alone, then with the decode steps
+        llama.greedy_decode(params, short, cfg, max_new_tokens=new)  # warm
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = llama.greedy_decode(params, short, cfg, max_new_tokens=new)
+        torch.cuda.synchronize()
+        walls[new] = time.perf_counter() - t
+        counts = dict(_build.launches)
+    expected = dict.fromkeys(counts, 0)
+    expected.update(flash_fwd=cfg.n_layers, matmul_4bit=OL_NEW * (7 * cfg.n_layers + 1))
+    check(counts == expected, f"openllama-3b decode: launches {counts}, expected {expected}")
+    check(out.shape == (1, OL_PREFILL) and torch.equal(out[:, :OL_PREFILL - OL_NEW], short)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()), "openllama-3b decode: output")
+    for name, c in counts.items():
+        launches[name] += c
+    rows["decode"] = dict(batch=1, prompt=OL_PREFILL - OL_NEW, new_tokens=OL_NEW,
+                          wall_s=walls[OL_NEW], prefill_s=walls[1],
+                          decode_tok_s=(OL_NEW - 1) / (walls[OL_NEW] - walls[1]),
+                          launches=counts)
+    emit(openllama_3b_decode=rows["decode"])
+
+    # (c) the Engine, int8 KV pool at hd 100
+    sv = OL_SERVE
+    rng = np.random.default_rng(35)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(sv["min_prompt"],
+                                                               sv["max_prompt"] + 1)),
+                            dtype=np.int32) for _ in range(sv["n_requests"])]
+    eng = Engine(params, cfg, n_slots=sv["n_slots"], page_size=16, prefill_buckets=sv["buckets"],
+                 kv_quant=True, multi_step=sv["multi_step"])
+    eng.warm_widths((sv["max_prompt"] + sv["max_new"] + sv["multi_step"]) // 16 + 1,
+                    max_prompt_len=sv["max_prompt"])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    done = eng.run([Request(uid=i, prompt=pr, max_new_tokens=sv["max_new"])
+                    for i, pr in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = _nonzero(_build.launches)
+    m = eng.metrics()
+    check(len(done) == sv["n_requests"] and all(len(r.output) == sv["max_new"] for r in done)
+          and all(0 <= tok < cfg.vocab_size for r in done for tok in r.output),
+          "openllama-3b serve: every request must finish in range")
+    check(set(counts) == {"matmul_4bit", "quantize_blockwise"}
+          and counts["quantize_blockwise"] == m["admissions"] + m["decode_steps"],
+          f"openllama-3b serve: launches {counts}, admissions {m['admissions']}, windows "
+          f"{m['decode_steps']}")
+    for name, c in counts.items():
+        launches[name] += c
+    rows["serve"] = dict(n_layers=cfg.n_layers, prompt_lens=[len(pr) for pr in prompts],
+                         max_new=sv["max_new"], n_slots=sv["n_slots"],
+                         multi_step=sv["multi_step"], seconds=wall,
+                         launches=counts, **{k: m[k] for k in (
+                             "throughput_tok_s", "admissions", "decode_steps", "preemptions",
+                             "ttft_p50_ms", "ttft_p99_ms")},
+                         kv_pool_mib=kvcache.pool_bytes(eng.pool) / 2**20)
+    emit(openllama_3b_serve=rows["serve"])
+    del eng, params, trees["nf4a"]
+    torch.cuda.empty_cache()
+
+    # (d) QLoRA through flash by the kernels' rule, then the timed row
+    got = qlora_path(dev, cfg, trees["nf4"], fmt="nf4 openllama-3b s1024", batch=OL_BATCH,
+                     seq=OL_SEQ, use_flash=None)
+    for name, c in got.items():
+        launches[name] = launches.get(name, 0) + c
+    row = train_bench.bench_qlora(trees["nf4"], cfg, batch=OL_BATCH, seq=OL_SEQ)
+    check(math.isfinite(row["loss_step1"]), f"train row openllama-3b: {row['loss_step1']}")
+    top, busy = row["top_device_ms"], row["device_busy_ms"]
+    keys = {"matmul_4bit": "mm4_", "matmul_4bit_t": "mm4t", "flash_fwd": "flash_fwd",
+            "flash_bwd_dq": "flash_bwd_dq", "flash_bwd_dkv": "flash_bwd_dkv"}
+    shares = {k: sum(ms for name, ms in top.items() if key in name) / busy if busy else None
+              for k, key in keys.items()}
+    rows["train"] = {"name": "openllama-3b nf4 s1024", "fmt": "nf4",
+                     "kernel_share_of_device_ms": shares, **row}
+    emit(train_row=rows["train"])
+    del trees
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def engine_gap(dev):
     """Phase 31: ``benchmarks.engine_gap_bench`` (nf4a, 8 slots, k 8) at
     TinyLlama-1.1B's width and ``GAP_DEPTH`` layers, beside
@@ -2684,7 +2962,7 @@ def main():
         int8_step, int8_per_call, int8_err = int8_kernel_checks(dev, work)
         per_step.update(int8_step)
         max_err.update(int8_err)
-        q_ms, q_op_us, max_err["quantize_blockwise"] = quantize_checks(dev, work)
+        q_ms, q_op_us, q_hd100, max_err["quantize_blockwise"] = quantize_checks(dev, work)
 
     cfg = llama.LlamaConfig.tinyllama_1b()
     dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
@@ -2715,7 +2993,8 @@ def main():
         train_rows(cfg, {"nf4": params["nf4"], "nf4a": params["nf4a"], "bf16": dense})
 
     with timed("10-13 flash"):
-        flash_ms, flash_f32, flash_err = flash_checks(dev, work)
+        flash_rows, flash_f32, flash_err = flash_checks(dev, work)
+        flash_ms = flash_rows["tinyllama_s1024"]
         max_err.update(flash_err)
         flash_launches = qlora_flash_path(dev, cfg, params["nf4"])
         decode_launches = long_prompt_decode(dev, cfg, params["nf4a"])
@@ -2799,6 +3078,11 @@ def main():
     with timed("33 qlora f32 base s1024 flash"):
         for k, v in qlora_f32_flash(dev).items():
             (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
+    with timed("34 openllama-3b hd 100"):
+        ol_launches, ol_rows = openllama_3b(dev)
+        for k, v in ol_launches.items():
+            (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
+        emit(openllama_3b={k: v for k, v in ol_rows.items() if k != "train"})
     emit(phase_seconds=phase_s)
 
     def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,
@@ -2840,8 +3124,26 @@ def main():
                         "tf32x3_bound_ms": row[f"{name}_tf32x3_bound_ms"],
                         "library_ms": row[library_key] if library_key else None,
                         "sdpa_backend": row["sdpa_backend"],
-                        **{k: v for k, v in row.items() if k.startswith("sdpa_efficient")}}
+                        **{k: v for k, v in row.items() if k.startswith("sdpa_efficient")},
+                        **{k.removeprefix(name + "_"): v for k, v in row.items()
+                           if k.startswith(name + "_") and k.endswith("_padded")}}
                 for shape, row in flash_f32.items()}
+    hd100_at = ("hd100: the same at OpenLLaMA-3B's QLoRA shape (B=2, S=T=1024, 32 heads, MHA, "
+                "hd 100, run in 128 columns), bf16, ms, with the bound of the real hd and of the "
+                "128 columns (bound_ms_padded) and the kernel's registers and spill bytes a thread; its "
+                "f32 row under f32")
+    hd100 = flash_rows["openllama_3b_s1024"]
+
+    def flash_hd100(name, library_key):
+        b, sq, t, nh, nkv = FLASH_SHAPES["openllama_3b_s1024"][:5]
+        design = (attention.flash_fwd_design(b, sq, nh, 100) if name == "flash_fwd"
+                  else attention.flash_bwd_design(name, b, sq, t, nh, nkv, 100))
+        return {"ms": hd100[f"{name}_ms"], "plain_ms": hd100[f"{name}_plain_ms"],
+                "bound_ms": hd100[f"{name}_bound_ms"], "bound_by": hd100[f"{name}_bound_by"],
+                "bound_ms_padded": hd100[f"{name}_bound_ms_padded"],
+                "library_ms": hd100[library_key] if library_key else None,
+                "sdpa_backend": hd100["sdpa_backend"],
+                **{k: design[k] for k in ("registers", "spill_bytes")}}
     measured = {name: flash_ms[f"{name}_ms"] for name in FLASH_KERNELS}
     measured["matmul_8bit"] = eight_step[("matmul_8bit", 8)][0]
     measured["matmul_4bit"] = per_step["matmul_4bit"][0]
@@ -2897,7 +3199,9 @@ def main():
               "one window's K+V write into the int8 pool (K and V 22 x 8 x 8 x 4 x 64 bf16, "
               "one launch; plain: quantize_kv and index_put), ms; library: none, no PyTorch "
               "call turns blockwise absmax into codes (op_us: the op quantize_blockwise alone "
-              "on the window's K)", op_us=q_op_us),
+              "on the window's K; hd100: the K+V writes at OpenLLaMA-3B's head dim, 100, off "
+              "the 8-lane groups, µs, prefill of 256 tokens and window of 8 x 8, 26 layers)",
+              op_us=q_op_us, hd100=q_hd100),
         entry("matmul_4bit_t", "matmul_4bit_t.cu", "quanta_tpu/ops/matmul.py:423",
               train_launches["matmul_4bit_t"], *t_step[:2], "bf16",
               "one QLoRA backward's 152 calls at M=2048, bf16 g, nf4, ms; library: none "
@@ -2916,19 +3220,22 @@ def main():
               gpt2_full_step=gpt2_adam),
         entry("flash_fwd", "flash_fwd.cu", "quanta_tpu/ops/attention.py:189",
               launches["flash_fwd"], flash_ms["flash_fwd_ms"], flash_ms["flash_fwd_plain_ms"],
-              "bf16", flash_at + sdpa + "forward" + f32_flash_at, flash_ms["sdpa_fwd_ms"],
-              f32=f32_flash("flash_fwd", "sdpa_fwd_ms")),
+              "bf16", flash_at + sdpa + "forward" + f32_flash_at + "; " + hd100_at,
+              flash_ms["sdpa_fwd_ms"], f32=f32_flash("flash_fwd", "sdpa_fwd_ms"),
+              hd100=flash_hd100("flash_fwd", "sdpa_fwd_ms")),
         entry("flash_bwd_dq", "flash_bwd.cu", "quanta_tpu/ops/attention.py:465",
               launches["flash_bwd_dq"], flash_ms["flash_bwd_dq_ms"],
               flash_ms["flash_bwd_dq_plain_ms"], "bf16",
               flash_at + "none: no call computes dq alone (SDPA's backward stands on "
-              "flash_bwd_dkv's line)" + f32_flash_at, f32=f32_flash("flash_bwd_dq", None)),
+              "flash_bwd_dkv's line)" + f32_flash_at + "; " + hd100_at,
+              f32=f32_flash("flash_bwd_dq", None), hd100=flash_hd100("flash_bwd_dq", None)),
         entry("flash_bwd_dkv", "flash_bwd.cu", "quanta_tpu/ops/attention.py:494",
               launches["flash_bwd_dkv"], flash_ms["flash_bwd_dkv_ms"],
               flash_ms["flash_bwd_dkv_plain_ms"], "bf16",
               flash_at + sdpa + "backward, dq, dk and dv in one call: compare it with this "
-              f"kernel's ms plus flash_bwd_dq's, {bwd_pair_ms}" + f32_flash_at,
-              flash_ms["sdpa_bwd_ms"], f32=f32_flash("flash_bwd_dkv", "sdpa_bwd_ms")),
+              f"kernel's ms plus flash_bwd_dq's, {bwd_pair_ms}" + f32_flash_at + "; " + hd100_at,
+              flash_ms["sdpa_bwd_ms"], f32=f32_flash("flash_bwd_dkv", "sdpa_bwd_ms"),
+              hd100=flash_hd100("flash_bwd_dkv", "sdpa_bwd_ms")),
         entry("matmul_8bit", "matmul_8bit.cu", "quanta_tpu/ops/matmul.py:306",
               launches["matmul_8bit"], *eight_step[("matmul_8bit", 8)][:2], "bf16",
               "one decode step's 155 calls at M=8, int8, bf16 x, ms; library: none, no "

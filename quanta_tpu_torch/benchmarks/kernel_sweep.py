@@ -16,7 +16,11 @@ the library, and run this again. One JSON object per line:
 - ``flash``: the forward (``save_lse=True``, the training call), the dQ
   and the dK/dV kernels on ``--dtype`` operands (bf16 by default) at
   TinyLlama-1.1B's (B=2, S=T=1024, 32/4 heads, hd 64) and Llama-2-7B's
-  (B=1, S=T=1024, 32 heads, hd 128) shapes, with their largest error
+  (B=1, S=T=1024, 32 heads, hd 128) shapes, TinyLlama's at hd 32 (the
+  three compiled widths) and OpenLLaMA-3B's (B=2, S=T=1024, 32 heads, hd
+  100, run padded to 128; skipped on a checkout whose kernels do not take
+  it; and the same shape at hd 128, what the padding is read against),
+  with their largest error
   against the plain versions, beside SDPA's forward and backward on the
   same inputs and the backend it takes (in f32, where that is math, also
   the efficient backend on K and V expanded to the query heads). It calls
@@ -78,7 +82,10 @@ from quanta_tpu_torch.benchmarks.kernel_bench import L2_BYTES, copies_past_l2, t
 from quanta_tpu_torch.core import codecs
 from quanta_tpu_torch.ops import attention, int4c, int8mm, matmul
 
-FLASH_SHAPES = {"tinyllama_s1024": (2, 1024, 32, 4, 64), "llama2_7b_s1024": (1, 1024, 32, 32, 128)}
+FLASH_SHAPES = {"tinyllama_s1024": (2, 1024, 32, 4, 64), "llama2_7b_s1024": (1, 1024, 32, 32, 128),
+                "tinyllama_hd32_s1024": (2, 1024, 32, 4, 32),
+                "openllama_3b_s1024": (2, 1024, 32, 32, 100),
+                "openllama_3b_hd128_s1024": (2, 1024, 32, 32, 128)}
 MM8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
 MM8_MS = (8, 16, 32, 64, 256, 1024, 2048)
 MM4T_SHAPES = MM8_SHAPES + [(4096, 4096), (4096, 11008), (11008, 4096)]
@@ -156,6 +163,10 @@ def flash_rows(dev, dtype):
         k, v = (torch.randn((b, s, nkv, hd), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
         pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        try:
+            attention.flash_forward(q, k, v, pos, pos + s)
+        except ValueError:  # a head dim this checkout's kernels refuse
+            continue
         ref, lse = attention.flash_forward_reference(q, k, v, pos, pos + s)
         delta = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
         bwd = (q, k, v, do, lse, delta, pos, pos + s)

@@ -1,11 +1,23 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_bwd_f32.cu).
 //
 // Tensors keep the model's layouts: q, out, dO (B, Sq, nh, hd), k, v (B, T,
 // nkv, hd), row-major and contiguous, so row s of head h starts at
 // ((b * S + s) * heads + h) * hd. The kernels work on 64-row tiles of them
 // (rows past the end read as zeros): the bf16 kernels are built from
 // sm90.cuh, the f32 ones (three TF32 products for each f32 one) from
-// flash_tf32x3.cuh. Here: the tile size, the masks and the launch.
+// flash_tf32x3.cuh. Here: the tile size, the masks, the head dims and the
+// launch.
+//
+// Head dims. Each kernel is compiled for HD = 32, 64 and 128 columns; a
+// head dim hd (a multiple of 4 up to 128) runs in the smallest HD >= hd,
+// with hd passed at run time (PAD true): loads zero columns hd..HD-1 in
+// shared memory, so q . k and dO . v (and so lse and D) are those of the
+// hd real columns, and stores skip them; the caller's scale is 1/sqrt(hd).
+// hd == HD takes the instantiation with PAD false, where hd folds to the
+// constant HD and the loads and stores are the unpadded ones; the f32
+// backward has none, as its masks cost it nothing (PERF.md). A multiple of
+// 4 keeps every f32 row 16-byte aligned and every bf16 row 8-byte aligned.
 
 #pragma once
 
@@ -13,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -36,6 +50,29 @@ __device__ __forceinline__ bool live_pair(int kpos, int qpos, int kv_len, int ca
 // of a batch row whose queries start at position q_start.
 __device__ __forceinline__ int live_kv_end(int q_start, int q0, int Sq, int kv_len, int causal) {
   return causal ? min(kv_len, q_start + min(q0 + TILE, Sq)) : kv_len;
+}
+
+// The compiled width a head dim runs in: the smallest of 32, 64 and 128
+// that holds it, for a multiple of 4 up to 128; else 0.
+inline int padded_hd(int hd) {
+  if (hd <= 0 || hd % 4 != 0 || hd > 128) return 0;
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+}
+
+// f(std::integral_constant<int, HD>, std::bool_constant<PAD>) for head dim
+// hd, or cudaErrorInvalidValue where no compiled width takes it.
+template <typename F> int with_hd(int hd, F f) {
+  using P = std::true_type;
+  using U = std::false_type;
+  switch (padded_hd(hd)) {
+    case 32: return hd == 32 ? f(std::integral_constant<int, 32>{}, U{})
+                             : f(std::integral_constant<int, 32>{}, P{});
+    case 64: return hd == 64 ? f(std::integral_constant<int, 64>{}, U{})
+                             : f(std::integral_constant<int, 64>{}, P{});
+    case 128: return hd == 128 ? f(std::integral_constant<int, 128>{}, U{})
+                               : f(std::integral_constant<int, 128>{}, P{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Set the dynamic shared memory a kernel may take, then launch it in blocks

@@ -26,6 +26,11 @@
 // cores; beside them the exponentials (one per live score, on the SFU at a
 // sixteenth of the FMA rate) and the staging of K/V tiles from L2.
 //
+// Head dims (flash_common.cuh): both routes are compiled at 32, 64 and 128
+// columns; a head dim in between runs padded to the next, the extra
+// columns zero in shared memory and never stored. The padded bf16 forward
+// is held to two blocks an SM.
+//
 // bf16 (the pieces are sm90.cuh's, as the backward's dQ kernel): a block of FWD_WG consumer warpgroups owns FWD_WG
 // consecutive 64-row query tiles of one (batch row, query head); the
 // warpgroups share one cp.async ring of FWD_STAGES (K, V) tiles, so a staged
@@ -125,13 +130,14 @@ template <int HD> struct FwdF32 {
 // grid (query head, batch row, blocks of `rows` query rows)
 dim3 fwd_grid(int B, int Sq, int nh, int rows) { return dim3(nh, B, (Sq + rows - 1) / rows); }
 
-template <int HD>
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(FwdF32<HD>::THREADS, 1)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
               const int* __restrict__ q_start, const int* __restrict__ kv_len,
               float* __restrict__ out, float* __restrict__ lse, int Sq, int Tk, int nh, int nkv,
-              int causal, float scale) {
+              int hd_arg, int causal, float scale) {
   using L = FwdF32<HD>;
+  const int hd = PAD ? hd_arg : HD;  // the real head dim, of HD columns
   using KT = typename L::KT;
   using VT = typename L::VT;
   using RT = typename L::RT;
@@ -157,7 +163,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
 
   const uint32_t Qw = base + L::Q0 + wg * RT::BYTES;
   const float* Qr = reinterpret_cast<const float*>(gbase + (Qw - base));
-  RT::load(Qw, q + ((int64_t)b * Sq * nh + h) * HD, (int64_t)nh * HD, qw, Sq, wtid);
+  RT::load(Qw, q + ((int64_t)b * Sq * nh + h) * hd, (int64_t)nh * hd, qw, Sq, wtid, hd);
   cp_async_commit();
 
   // Each thread stages its items of a key tile's K and V in registers, a
@@ -167,9 +173,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
   // keys. V: (4 keys of one parity in a k8 slice, 4 hd) items, one V^T row
   // a store: lanes 0-7 two hd chunks x both parities x two slices, lanes
   // 8-31 the next hd chunks.
-  const float* kb = k + ((int64_t)b * Tk * nkv + g) * HD;
-  const float* vb = v + ((int64_t)b * Tk * nkv + g) * HD;
-  const int64_t kv_stride = (int64_t)nkv * HD;
+  const float* kb = k + ((int64_t)b * Tk * nkv + g) * hd;
+  const float* vb = v + ((int64_t)b * Tk * nkv + g) * hd;
+  const int64_t kv_stride = (int64_t)nkv * hd;
   constexpr int NC = HD / 4;  // V's hd chunks
   float4 kx[L::ITEMS][2], vx[L::VITEMS][4];
   auto k_item = [&](int i, int& key, int& kk) {
@@ -181,7 +187,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
     par = (i >> 1) & 1;
     sl = ((i >> 2) & 1) | ((i >> 3) / (NC / 2)) << 1;
   };
-  auto fetch = [&](int t) {  // tile t's items into the registers (zeros past Tk)
+  auto fetch = [&](int t) {  // tile t's items into the registers (zeros past Tk and hd)
     const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
     for (int n = 0; n < L::ITEMS; ++n) {
@@ -191,8 +197,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
       kx[n][0] = kx[n][1] = zero;
       if (key < Tk) {
         const float4* kp = reinterpret_cast<const float4*>(kb + key * kv_stride + 8 * kk);
-        kx[n][0] = __ldg(kp);
-        kx[n][1] = __ldg(kp + 1);
+        if (!PAD || 8 * kk < hd) kx[n][0] = __ldg(kp);
+        if (!PAD || 8 * kk + 4 < hd) kx[n][1] = __ldg(kp + 1);
       }
     }
 #pragma unroll
@@ -204,7 +210,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
       for (int j = 0; j < 4; ++j) {
         const int key = t * BK + 8 * sl + par + 2 * j;
         vx[n][j] = zero;
-        if (i < L::N_VITEMS && key < Tk)
+        if (i < L::N_VITEMS && key < Tk && (!PAD || 4 * c < hd))
           vx[n][j] = __ldg(reinterpret_cast<const float4*>(vb + key * kv_stride + 4 * c));
       }
     }
@@ -356,9 +362,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
   for (int i = 0; i < 2; ++i) {
     const int row = qw + r0 + 8 * i;
     if (row >= Sq) continue;
-    float* orow = out + (((int64_t)b * Sq + row) * nh + h) * HD + 2 * q4;
+    float* orow = out + (((int64_t)b * Sq + row) * nh + h) * hd + 2 * q4;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
+      if (PAD && 8 * j + 2 * q4 >= hd) continue;  // a padded column
       const float x0 = l[i] > 0.0f ? o[4 * j + 2 * i] / l[i] : 0.0f;
       const float x1 = l[i] > 0.0f ? o[4 * j + 2 * i + 1] / l[i] : 0.0f;
       *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(x0, x1);
@@ -380,13 +387,19 @@ template <int HD> struct FwdSmem90 {  // FWD_WG Q tiles, then FWD_STAGES x (K, V
   static constexpr size_t bytes = (FWD_WG + 2 * FWD_STAGES) * Tile<HD>::BYTES + 1024;
 };
 
-template <int HD>
-__global__ void __launch_bounds__(FWD_THREADS)
+// A padded head dim is held to two blocks an SM (128 registers, 20-24
+// bytes spilled at HD 128): unbounded, its runtime column masks took 162,
+// one block an SM, 26% longer at hd 128's work. The unpadded widths stay
+// unbounded (0): 96-126 registers, two blocks an SM, where a bound of one
+// block gave them 104-146 and hd 128 one block an SM, 3% slower (PERF.md).
+template <int HD, bool PAD>
+__global__ void __launch_bounds__(FWD_THREADS, PAD ? 2 : 0)
 flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                const int* __restrict__ q_start, const int* __restrict__ kv_len,
                bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Tk, int nh, int nkv,
-               int causal, float scale) {
+               int hd_arg, int causal, float scale) {
   using TL = Tile<HD>;
+  const int hd = PAD ? hd_arg : HD;  // the real head dim, of HD columns
   extern __shared__ unsigned char smem[];
   const uint32_t Qs = aligned_base(smem);
   auto Ks = [&](int st) { return Qs + (FWD_WG + 2 * st) * TL::BYTES; };
@@ -407,16 +420,16 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   const int kv_end_w = qw < Sq ? live_kv_end(qs, qw, Sq, kvl, causal) : 0;
   const int n_tiles_w = kv_end_w > 0 ? (kv_end_w + TILE - 1) / TILE : 0;
 
-  const bf16* kb = k + ((int64_t)b * Tk * nkv + g) * HD;
-  const bf16* vb = v + ((int64_t)b * Tk * nkv + g) * HD;
-  const int64_t kv_stride = (int64_t)nkv * HD;
+  const bf16* kb = k + ((int64_t)b * Tk * nkv + g) * hd;
+  const bf16* vb = v + ((int64_t)b * Tk * nkv + g) * hd;
+  const int64_t kv_stride = (int64_t)nkv * hd;
   const uint32_t Qw = Qs + wg * TL::BYTES;
-  TL::load_part(Qw, q + ((int64_t)b * Sq * nh + h) * HD, (int64_t)nh * HD, qw, Sq, wtid, 128);
+  TL::load_part(Qw, q + ((int64_t)b * Sq * nh + h) * hd, (int64_t)nh * hd, qw, Sq, wtid, 128, hd);
 #pragma unroll
   for (int st = 0; st < FWD_STAGES - 1; ++st) {
     if (st < n_tiles) {
-      TL::load_part(Ks(st), kb, kv_stride, st * TILE, Tk, threadIdx.x, FWD_THREADS);
-      TL::load_part(Vs(st), vb, kv_stride, st * TILE, Tk, threadIdx.x, FWD_THREADS);
+      TL::load_part(Ks(st), kb, kv_stride, st * TILE, Tk, threadIdx.x, FWD_THREADS, hd);
+      TL::load_part(Vs(st), vb, kv_stride, st * TILE, Tk, threadIdx.x, FWD_THREADS, hd);
     }
     cp_async_commit();
   }
@@ -437,8 +450,10 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     __syncthreads();  // ... for every thread; and the ring slot of t - 1 is free
     if (t + FWD_STAGES - 1 < n_tiles) {
       const int tn = t + FWD_STAGES - 1;
-      TL::load_part(Ks(tn % FWD_STAGES), kb, kv_stride, tn * TILE, Tk, threadIdx.x, FWD_THREADS);
-      TL::load_part(Vs(tn % FWD_STAGES), vb, kv_stride, tn * TILE, Tk, threadIdx.x, FWD_THREADS);
+      TL::load_part(Ks(tn % FWD_STAGES), kb, kv_stride, tn * TILE, Tk, threadIdx.x, FWD_THREADS,
+                    hd);
+      TL::load_part(Vs(tn % FWD_STAGES), vb, kv_stride, tn * TILE, Tk, threadIdx.x, FWD_THREADS,
+                    hd);
     }
     cp_async_commit();
     if (t >= n_tiles_w) continue;  // past this warpgroup's horizon
@@ -526,9 +541,10 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   for (int i = 0; i < 2; ++i) {
     const int row = qw + r_lo + 8 * i;
     if (row >= Sq) continue;
-    bf16* orow = out + (((int64_t)b * Sq + row) * nh + h) * HD + c_lo;
+    bf16* orow = out + (((int64_t)b * Sq + row) * nh + h) * hd + c_lo;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
+      if (PAD && 8 * j + c_lo >= hd) continue;  // a padded column
       const float x0 = l[i] > 0.0f ? o[4 * j + 2 * i] / l[i] : 0.0f;
       const float x1 = l[i] > 0.0f ? o[4 * j + 2 * i + 1] / l[i] : 0.0f;
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(x0, x1);
@@ -542,28 +558,28 @@ bool bad_sizes(int B, int Sq, int Tk, int nh, int nkv) {
   return B <= 0 || Sq <= 0 || Tk <= 0 || nkv <= 0 || nh % nkv != 0;
 }
 
-template <int HD>
+template <int HD, bool PAD>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* q_start,
                     const void* kv_len, void* out, void* lse, int B, int Sq, int Tk, int nh,
-                    int nkv, int causal, float scale, void* stream) {
-  return launch_n(flash_fwd_sm90<HD>, fwd_grid(B, Sq, nh, FWD_ROWS), FWD_THREADS,
+                    int nkv, int hd, int causal, float scale, void* stream) {
+  return launch_n(flash_fwd_sm90<HD, PAD>, fwd_grid(B, Sq, nh, FWD_ROWS), FWD_THREADS,
                   FwdSmem90<HD>::bytes, stream, static_cast<const bf16*>(q),
                   static_cast<const bf16*>(k), static_cast<const bf16*>(v),
                   static_cast<const int*>(q_start),
                   static_cast<const int*>(kv_len), static_cast<bf16*>(out),
-                  static_cast<float*>(lse), Sq, Tk, nh, nkv, causal, scale);
+                  static_cast<float*>(lse), Sq, Tk, nh, nkv, hd, causal, scale);
 }
 
-template <int HD>
+template <int HD, bool PAD>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const void* q_start,
                    const void* kv_len, void* out, void* lse, int B, int Sq, int Tk, int nh,
-                   int nkv, int causal, float scale, void* stream) {
+                   int nkv, int hd, int causal, float scale, void* stream) {
   using L = FwdF32<HD>;
-  return launch_n(flash_fwd_f32<HD>, fwd_grid(B, Sq, nh, L::ROWS), L::THREADS, L::bytes,
+  return launch_n(flash_fwd_f32<HD, PAD>, fwd_grid(B, Sq, nh, L::ROWS), L::THREADS, L::bytes,
                   stream, static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const int*>(q_start),
                   static_cast<const int*>(kv_len), static_cast<float*>(out),
-                  static_cast<float*>(lse), Sq, Tk, nh, nkv, causal, scale);
+                  static_cast<float*>(lse), Sq, Tk, nh, nkv, hd, causal, scale);
 }
 
 // The launch of a route at a shape, for a report (see qt_flash_fwd_design)
@@ -578,23 +594,20 @@ int report(Kernel kernel, dim3 grid, int warpgroups, size_t smem, int stages, in
   return (int)rc;
 }
 
-template <int HD> int fwd_design(bool f32, int B, int Sq, int nh, int* out) {
+template <int HD, bool PAD> int fwd_design(bool f32, int B, int Sq, int nh, int* out) {
   using L = FwdF32<HD>;
   if (f32)
-    return report(flash_fwd_f32<HD>, fwd_grid(B, Sq, nh, L::ROWS), L::WGS, L::bytes, L::BUFS,
+    return report(flash_fwd_f32<HD, PAD>, fwd_grid(B, Sq, nh, L::ROWS), L::WGS, L::bytes, L::BUFS,
                   out);
-  return report(flash_fwd_sm90<HD>, fwd_grid(B, Sq, nh, FWD_ROWS), FWD_WG, FwdSmem90<HD>::bytes,
-                FWD_STAGES, out);
+  return report(flash_fwd_sm90<HD, PAD>, fwd_grid(B, Sq, nh, FWD_ROWS), FWD_WG,
+                FwdSmem90<HD>::bytes, FWD_STAGES, out);
 }
 
 int design(bool f32, int hd, int B, int Sq, int nh, int* out) {
   if (B <= 0 || Sq <= 0 || nh <= 0) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 32: return fwd_design<32>(f32, B, Sq, nh, out);
-    case 64: return fwd_design<64>(f32, B, Sq, nh, out);
-    case 128: return fwd_design<128>(f32, B, Sq, nh, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_hd(hd, [&](auto H, auto P) {
+    return fwd_design<decltype(H)::value, decltype(P)::value>(f32, B, Sq, nh, out);
+  });
 }
 
 }  // namespace
@@ -606,12 +619,10 @@ extern "C" int qt_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                  int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                  float scale, void* stream) {
   if (bad_sizes(B, Sq, Tk, nh, nkv)) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 32: return launch_fwd_bf16<32>(q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh, nkv, causal, scale, stream);
-    case 64: return launch_fwd_bf16<64>(q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh, nkv, causal, scale, stream);
-    case 128: return launch_fwd_bf16<128>(q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh, nkv, causal, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_hd(hd, [&](auto H, auto P) {
+    return launch_fwd_bf16<decltype(H)::value, decltype(P)::value>(
+        q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
+  });
 }
 
 extern "C" int qt_flash_fwd_f32(const void* q, const void* k, const void* v,
@@ -619,18 +630,17 @@ extern "C" int qt_flash_fwd_f32(const void* q, const void* k, const void* v,
                                 int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                 float scale, void* stream) {
   if (bad_sizes(B, Sq, Tk, nh, nkv)) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 32: return launch_fwd_f32<32>(q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh, nkv, causal, scale, stream);
-    case 64: return launch_fwd_f32<64>(q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh, nkv, causal, scale, stream);
-    case 128: return launch_fwd_f32<128>(q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh, nkv, causal, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_hd(hd, [&](auto H, auto P) {
+    return launch_fwd_f32<decltype(H)::value, decltype(P)::value>(
+        q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
+  });
 }
 
 // A route's launch, for a report: out[10] = grid x, y, z, warpgroups a
 // block (64 query rows each), blocks resident per SM, registers a thread,
 // dynamic shared bytes, local (spill) bytes a thread, SMs, stages (bf16:
-// the cp.async ring of K / V tiles; f32: the split K / V buffers)
+// the cp.async ring of K / V tiles; f32: the split K / V buffers), of the
+// kernel that head dim hd runs (its compiled width, padded or not)
 extern "C" int qt_flash_fwd_design(int hd, int B, int Sq, int nh, int* out) {
   return design(false, hd, B, Sq, nh, out);
 }

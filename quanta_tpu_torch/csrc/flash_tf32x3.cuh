@@ -1,4 +1,4 @@
-// The f32 pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
+// The f32 pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd_f32.cu):
 // each f32 product as three TF32 wgmma products on Hopper (sm_90a).
 //
 // The tensor cores multiply TF32 (10 fraction bits), so an f32 operand x is
@@ -37,16 +37,17 @@ __device__ __forceinline__ void wg_sync(int wg) {
 template <int HD> struct RawTile {
   static constexpr int LD = HD + RAW_PAD;
   static constexpr uint32_t BYTES = 64 * LD * 4;
-  // rows [r0, r0 + 64) of one head of a (B, S, heads, HD) f32 tensor, by
+  // rows [r0, r0 + 64) of one head of a (B, S, heads, hd) f32 tensor, by
   // the 128 threads of a warpgroup (this one `tid`); `src` is row 0 of that
-  // batch row and head, `row_stride` heads * HD; rows at or past `rows`
-  // read as zeros
+  // batch row and head, `row_stride` heads * hd; rows at or past `rows`,
+  // and columns at or past `cols` (hd, a multiple of 4 up to HD), read as
+  // zeros
   static __device__ __forceinline__ void load(uint32_t dst, const float* src, int64_t row_stride,
-                                              int r0, int rows, int tid) {
+                                              int r0, int rows, int tid, int cols = HD) {
     constexpr int CH = HD / 4;  // 16-byte chunks a row
     for (int i = tid; i < 64 * CH; i += 128) {
       const int r = i / CH, c = i % CH;
-      const bool in = r0 + r < rows;
+      const bool in = r0 + r < rows && (cols == HD || 4 * c < cols);
       const float* from = in ? src + (int64_t)(r0 + r) * row_stride + 4 * c : src;
       cp_async16(dst + (r * LD + 4 * c) * 4, from, in ? 16 : 0);
     }
@@ -100,21 +101,22 @@ __device__ __forceinline__ void split_store(uint32_t hi, uint32_t lo, int r, int
   }
 }
 
-// Rows [r0, r0 + ROWS) of one head of a (B, S, heads, HD) f32 tensor into
-// hi and lo KTile<ROWS, HD>s (zeros at or past `rows`), by `nt` threads (this
-// one `tid`), in split_store's hd order.
+// Rows [r0, r0 + ROWS) of one head of a (B, S, heads, hd) f32 tensor into
+// hi and lo KTile<ROWS, HD>s (zeros at or past `rows`, and at or past
+// column `cols`, hd, a multiple of 4 up to HD), by `nt` threads (this one
+// `tid`), in split_store's hd order.
 template <int ROWS, int HD>
 __device__ __forceinline__ void split_hd_tile(uint32_t hi, uint32_t lo,
                                               const float* __restrict__ src, int64_t row_stride,
-                                              int r0, int rows, int tid, int nt) {
+                                              int r0, int rows, int tid, int nt, int cols = HD) {
   for (int i = tid; i < ROWS * (HD / 8); i += nt) {
     const int r = i / (HD / 8), kk = i % (HD / 8);
     float4 x0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), x1 = x0;
     if (r0 + r < rows) {
       const float* row = src + (int64_t)(r0 + r) * row_stride + 8 * kk;
       const float4* s = reinterpret_cast<const float4*>(row);
-      x0 = __ldg(s);
-      x1 = __ldg(s + 1);
+      if (cols == HD || 8 * kk < cols) x0 = __ldg(s);
+      if (cols == HD || 8 * kk + 4 < cols) x1 = __ldg(s + 1);
     }
     split_store<ROWS, HD>(hi, lo, r, kk, x0, x1);
   }
@@ -137,7 +139,8 @@ __device__ __forceinline__ void frag_rows(const float* raw, int r, int q, int kk
 // The A fragment of a raw tile read transposed: rows m and m + 8 are hd
 // columns, the k8 slice kk is raw rows 8 kk.. in order (a[0] = raw[8 kk +
 // q][m], a[1] = raw[8 kk + q][m + 8], a[2], a[3] the same at row 8 kk + q +
-// 4); zeros where m >= HD (hd 32 fills half of wgmma's 64 rows).
+// 4); zeros where m >= HD (hd 32 fills half of wgmma's 64 rows). Columns
+// past a padded head dim read the zeros the load left there.
 template <int HD>
 __device__ __forceinline__ void frag_cols(const float* raw, int m, int q, int kk, float (&a)[4]) {
   constexpr int LD = RawTile<HD>::LD;

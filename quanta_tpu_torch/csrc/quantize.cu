@@ -33,7 +33,10 @@
 // (l, rows[r], h, :) and scale (l, rows[r], h) of a pool (L, pool_rows,
 // nkv, hd) / (L, pool_rows, nkv). Where several r name one row (the null
 // page that inactive slots and bucket padding write), the row ends up
-// with one of them, or a mix: attention never reads it.
+// with one of them, or a mix: attention never reads it. hd = 8 << k takes
+// the grouped layout; any other hd (OpenLLaMA-3B's 100, hd 80 or 96) the
+// first port's: one warp a vector, lanes striding over it, the same rule
+// and the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -227,6 +230,39 @@ kv_write_kernel(const T* __restrict__ k, const T* __restrict__ v,
   if (live && sub == 0) (is_v ? v_scale : k_scale)[dst] = s;
 }
 
+// The int8 KV write for a head dim the grouped layout does not take: one
+// warp a vector of K's then V's, lanes striding over its hd values.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+kv_write_warp_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                     const int64_t* __restrict__ rows, int8_t* __restrict__ k_codes,
+                     int8_t* __restrict__ v_codes, float* __restrict__ k_scale,
+                     float* __restrict__ v_scale, int n_vec, int R, int nkv, int hd,
+                     int64_t pool_rows) {
+  const int lane = threadIdx.x & 31;
+  const int gv = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (gv >= 2 * n_vec) return;  // warp-uniform: the whole warp leaves
+  const bool is_v = gv >= n_vec;
+  const int i = is_v ? gv - n_vec : gv;  // (l, r, h) of K or V
+  const T* x = (is_v ? v : k) + (int64_t)i * hd;
+  float amax = 0.f;
+  for (int e = lane; e < hd; e += 32) amax = fmaxf(amax, fabsf(to_float(x[e])));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float s = amax <= EPS ? 1.f : __fdiv_rn(amax, 127.f);
+  const int h = i % nkv, lr = i / nkv, r = lr % R, l = lr / R;
+  const int64_t row = rows[r];
+  if (row < 0 || row >= pool_rows) __trap();  // as index_put's bounds check
+  const int64_t dst = ((int64_t)l * pool_rows + row) * nkv + h;
+  int8_t* c = (is_v ? v_codes : k_codes) + dst * hd;
+  for (int e = lane; e < hd; e += 32) {
+    const float q = fminf(fmaxf(rintf(__fdiv_rn(to_float(x[e]), s)), -127.f), 127.f);
+    c[e] = static_cast<int8_t>(static_cast<int>(q));
+  }
+  if (lane == 0) (is_v ? v_scale : k_scale)[dst] = s;
+}
+
 // log2(block / 8) where block is 8 << lg for lg in [0, 5], else -1
 int group_lg(long long block) {
   for (int lg = 0; lg <= 5; ++lg)
@@ -264,16 +300,26 @@ int launch_kv(const void* k, const void* v, const void* rows, void* k_codes, voi
               void* k_scale, void* v_scale, int L, int R, int nkv, int hd, long long pool_rows,
               void* stream) {
   const int lg = group_lg(hd);
-  if (L <= 0 || R <= 0 || nkv <= 0 || lg < 0 || pool_rows <= 0 || !k || !v || !rows ||
+  if (L <= 0 || R <= 0 || nkv <= 0 || hd <= 0 || pool_rows <= 0 || !k || !v || !rows ||
       !k_codes || !v_codes || !k_scale || !v_scale)
     return (int)cudaErrorInvalidValue;
   const int64_t n_vec = (int64_t)L * R * nkv;
   if (2 * n_vec >= 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lg < 0) {
+    const int64_t grid = (2 * n_vec + THREADS / 32 - 1) / (THREADS / 32);
+    kv_write_warp_kernel<T><<<(unsigned)grid, THREADS, 0, s>>>(
+        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const int64_t*>(rows),
+        static_cast<int8_t*>(k_codes), static_cast<int8_t*>(v_codes),
+        static_cast<float*>(k_scale), static_cast<float*>(v_scale), (int)n_vec, R, nkv, hd,
+        pool_rows);
+    return (int)cudaGetLastError();
+  }
   const int64_t per_cta = (THREADS / 32) * (32 >> lg);
   const int64_t grid = (2 * n_vec + per_cta - 1) / per_cta;
   const bool vec = is_aligned(k, 16) && is_aligned(v, 16) && is_aligned(k_codes, 8) &&
                    is_aligned(v_codes, 8);
-  kv_write_kernel<T><<<(unsigned)grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  kv_write_kernel<T><<<(unsigned)grid, THREADS, 0, s>>>(
       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const int64_t*>(rows),
       static_cast<int8_t*>(k_codes), static_cast<int8_t*>(v_codes),
       static_cast<float*>(k_scale), static_cast<float*>(v_scale), (int)n_vec, R, nkv, lg,

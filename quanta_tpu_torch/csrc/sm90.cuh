@@ -13,7 +13,8 @@
 // next product without leaving the registers.
 //
 // Tiles. A tile is 64 rows of HD bf16 (HD = 32, 64 or 128), one row per
-// query or key, laid out as the wgmma swizzle wants it:
+// query or key (a head dim hd below HD fills the first hd columns and the
+// load zeroes the rest), laid out as the wgmma swizzle wants it:
 //   - HD 64: one 128-byte row per 128-byte line, the 16-byte chunk c of row
 //     r at chunk c ^ (r % 8) (the 128-byte swizzle, 8 rows per 1024 bytes);
 //   - HD 128: two such 64-column halves, one after the other (8 KB each);
@@ -128,6 +129,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
                "r"(src_bytes)
                : "memory");
 }
+// 8 bytes global -> shared; zeros where `src_bytes` is 0
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
 // 4 bytes global -> shared; zero where `src_bytes` is 0
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
@@ -154,7 +161,7 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 }
 
 template <int HD> struct Tile {
-  static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim 32, 64 or 128");
+  static_assert(HD == 32 || HD == 64 || HD == 128, "compiled widths 32, 64 or 128");
   static constexpr int ROWS = 64;
   static constexpr uint32_t BYTES = ROWS * HD * 2;
   static constexpr uint32_t ROW_BYTES = HD == 32 ? 64 : 128;  // bytes of a row in one half
@@ -176,22 +183,41 @@ template <int HD> struct Tile {
   static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int kk) {
     return smem_desc(base + kk * 16 * ROW_BYTES, HALF, 8 * ROW_BYTES, LAYOUT);
   }
-  // rows [r0, r0 + 64) of one head of a (B, S, heads, HD) bf16 tensor, by
+  // rows [r0, r0 + 64) of one head of a (B, S, heads, hd) bf16 tensor, by
   // cp.async; `src` is row 0 of that batch row and head, `row_stride` is
-  // heads * HD; rows at or past `rows` read as zeros
+  // heads * hd; rows at or past `rows`, and columns at or past `cols` (hd,
+  // a multiple of 4 up to HD), read as zeros
   static __device__ __forceinline__ void load(uint32_t dst, const __nv_bfloat16* src,
-                                              int64_t row_stride, int r0, int rows) {
-    load_part(dst, src, row_stride, r0, rows, threadIdx.x, 128);
+                                              int64_t row_stride, int r0, int rows,
+                                              int cols = HD) {
+    load_part(dst, src, row_stride, r0, rows, threadIdx.x, 128, cols);
   }
-  // the same, by `nt` threads, this one being thread `tid` of them
+  // the same, by `nt` threads (a multiple of 32), this one being thread
+  // `tid` of them. With cols == HD (a constant) it folds to whole 16-byte
+  // chunks. Below HD a row of hd % 8 == 4 bf16 may start only 8-byte
+  // aligned (OpenLLaMA-3B's 100: every other head), so padded tiles go by
+  // 8-byte copies, each thread keeping one half-chunk column. (16-byte
+  // copies for the aligned rows beside them measured 13% slower in dK/dV
+  // at hd 100, from the registers the second path holds; PERF.md.)
   static __device__ __forceinline__ void load_part(uint32_t dst, const __nv_bfloat16* src,
                                                    int64_t row_stride, int r0, int rows, int tid,
-                                                   int nt) {
-    for (int i = tid; i < ROWS * CHUNKS; i += nt) {
-      const int r = i / CHUNKS, c = i % CHUNKS;
-      const bool in = r0 + r < rows;
-      cp_async16(dst + offset(r, c), in ? src + (int64_t)(r0 + r) * row_stride + c * 8 : src,
-                 in ? 16 : 0);
+                                                   int nt, int cols = HD) {
+    if (cols == HD) {
+      for (int i = tid; i < ROWS * CHUNKS; i += nt) {
+        const int r = i / CHUNKS, c = i % CHUNKS;
+        const bool in = r0 + r < rows;
+        cp_async16(dst + offset(r, c), in ? src + (int64_t)(r0 + r) * row_stride + c * 8 : src,
+                   in ? 16 : 0);
+      }
+    } else {
+      const int c = (tid / 2) % CHUNKS, half = tid % 2;
+      const bool col_in = 8 * c + 4 * half < cols;
+      const __nv_bfloat16* col = src + c * 8 + 4 * half;
+      for (int r = tid / (2 * CHUNKS); r < ROWS; r += nt / (2 * CHUNKS)) {
+        const bool in = r0 + r < rows && col_in;
+        cp_async8(dst + offset(r, c) + 8 * half, in ? col + (int64_t)(r0 + r) * row_stride : src,
+                  in ? 8 : 0);
+      }
     }
   }
 };

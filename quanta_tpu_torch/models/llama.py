@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from quanta_tpu_torch.nn.linear import linear
-from quanta_tpu_torch.ops.attention import flash_attention
+from quanta_tpu_torch.ops.attention import flash_attention, kernel_takes
 
 # use_flash=None takes the flash kernels from this many tokens on (the
 # reference's own threshold, quanta_tpu/models/llama.py:199-201)
@@ -215,9 +215,11 @@ def forward(
 
     use_flash routes multi-token attention through ``ops.flash_attention``
     (scores never reach device memory): ``None`` means the flash kernels
-    when S >= ``FLASH_MIN_SEQ`` and the tokens are on CUDA, the einsum
-    attention otherwise; single-token decode (S == 1) always takes the
-    einsum attention. ``use_kernel`` governs the flash route as it governs
+    when S >= ``FLASH_MIN_SEQ``, the tokens are on CUDA and the kernels
+    take the config's head_dim and dtype (``attention.kernel_takes``), the
+    einsum attention otherwise; ``True`` on CUDA with a head_dim they do not
+    take raises. Single-token decode (S == 1) always takes the einsum
+    attention. ``use_kernel`` governs the flash route as it governs
     the linears: ``False`` runs its plain version. ``layout``: one
     device's (:class:`Layout`) or a mesh's (``parallel.spmd``; the cache
     then holds the rank's KV heads).
@@ -226,10 +228,10 @@ def forward(
     """
     b, s = tokens.shape
     dev = tokens.device
-    if use_flash is None:
-        use_flash = s >= FLASH_MIN_SEQ and tokens.is_cuda
-    use_flash = use_flash and s > 1
     nh, nkv, hd = cfg.n_heads // layout.tp, cfg.n_kv_heads // layout.tp, cfg.head_dim
+    if use_flash is None:
+        use_flash = s >= FLASH_MIN_SEQ and tokens.is_cuda and kernel_takes(hd, cfg.dtype)
+    use_flash = use_flash and s > 1
 
     def lin(x, w, local=False):
         return layout.linear(x, w, use_kernel, local)

@@ -3,8 +3,9 @@ and their plain versions.
 
 Port of ``quanta_tpu/ops/attention.py``. The kernels are
 ``csrc/flash_fwd.cu`` (the Pallas ``_flash_kernel``) and
-``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``); each source says what bounds it on the H100
+``csrc/flash_bwd.cu`` and, their f32 route, ``csrc/flash_bwd_f32.cu``
+(``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``); each source
+says what bounds it on the H100
 and how it is laid out. The bf16 kernels are built for Hopper (warpgroup
 products with the scores kept in registers, cp.async tile rings;
 ``csrc/sm90.cuh``): the forward's blocks share each staged K/V tile
@@ -29,8 +30,11 @@ layout are not ported.
 Dispatch: ``use_kernel=None`` means the kernels for CUDA tensors and the
 plain versions for CPU ones; ``True`` on a CPU tensor raises; ``False``
 runs the plain versions anywhere. A CUDA tensor never falls back to the
-plain versions on its own. The kernels take bf16 or f32 and head_dim 32,
-64 or 128; anything else raises a ``ValueError`` on the kernel route.
+plain versions on its own. The kernels take bf16 or f32 and any head_dim
+that is a multiple of 4 up to 128 (:func:`kernel_takes`); each is compiled
+for 32, 64 and 128 columns, and a head_dim runs in the smallest that holds
+it (:func:`padded_head_dim`), its extra columns zero, at the scale of its
+own head_dim. Anything else raises a ``ValueError`` on the kernel route.
 ``flash_attention`` is differentiable in q, k and v through
 ``_FlashAttention``, whose backward computes ``D = rowsum(dO * O)`` in
 plain torch and then runs the dQ and the dK/dV kernels.
@@ -46,9 +50,25 @@ import torch
 from quanta_tpu_torch.ops import _build
 from quanta_tpu_torch.ops.matmul import _aligned
 
-HEAD_DIMS = (32, 64, 128)
+PADDED_HEAD_DIMS = (32, 64, 128)  # the widths the kernels are compiled for
 DEAD_LSE = 1e30  # logsumexp of a row with no live key
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_TAKES = "head_dim a multiple of 4 up to 128"
+
+
+def padded_head_dim(hd: int) -> int:
+    """The compiled width a head_dim runs in: the smallest of
+    ``PADDED_HEAD_DIMS`` that holds it (0 where none does, or hd % 4 != 0)."""
+    if hd <= 0 or hd % 4:
+        return 0
+    return next((p for p in PADDED_HEAD_DIMS if hd <= p), 0)
+
+
+def kernel_takes(hd: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernels take this head_dim and dtype: bf16 or f32,
+    head_dim a multiple of 4 up to 128. ``llama.forward(use_flash=None)``
+    picks flash on CUDA only where they do."""
+    return dtype in _SUFFIX and padded_head_dim(hd) > 0
 
 
 def _check(q, k, v, q_start, kv_len):
@@ -67,9 +87,8 @@ def _kernel_args(name, q, *tensors):
     suffix = _SUFFIX.get(q.dtype)
     if suffix is None:
         raise ValueError(f"{name}: the CUDA kernels take bf16 or f32, got {q.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{name}: the CUDA kernels take head_dim in {HEAD_DIMS}, "
-                         f"got {q.shape[-1]}")
+    if not padded_head_dim(q.shape[-1]):
+        raise ValueError(f"{name}: the CUDA kernels take {_TAKES}, got head_dim {q.shape[-1]}")
     for t in tensors:
         if t.device != q.device:
             raise ValueError(f"{name}: every operand must be on {q.device}")
@@ -223,20 +242,30 @@ _FWD_DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "warpgroups", "blocks_per_sm",
                     "shared_bytes", "spill_bytes", "sms", "stages")
 
 
+def _design_check(name, hd, dtype):
+    if dtype not in _SUFFIX:
+        raise ValueError(f"{name}: the CUDA kernels take bf16 or f32, got {dtype}")
+    if not padded_head_dim(hd):
+        raise ValueError(f"{name}: the CUDA kernels take {_TAKES}, got head_dim {hd}")
+    return padded_head_dim(hd)
+
+
 def flash_fwd_design(b, sq, nh, hd, dtype=torch.bfloat16):
     """How the forward kernel launches for ``dtype`` operands at this shape
     on this card: its grid, warpgroups a block (64 query rows each), blocks
     resident per SM, registers a thread, dynamic shared bytes a block and
     spill bytes a thread (from ``cudaFuncGetAttributes``), the SMs, and its
     stages (bf16: the K/V ring's; f32: the split K/V buffers); ``design``
-    "wgmma" (bf16) or "wgmma_3xtf32" (f32)."""
-    if dtype not in _SUFFIX:
-        raise ValueError(f"flash_fwd: the CUDA kernels take bf16 or f32, got {dtype}")
+    "wgmma" (bf16) or "wgmma_3xtf32" (f32); ``padded_head_dim`` the
+    compiled width the head_dim runs in (the kernel reported is that
+    width's, padded where the two differ)."""
+    padded = _design_check("flash_fwd", hd, dtype)
     f32 = dtype == torch.float32
     entry = "qt_flash_fwd_f32_design" if f32 else "qt_flash_fwd_design"
     out = (ctypes.c_int * len(_FWD_DESIGN_KEYS))()
     _build.check(getattr(_build.library(), entry)(hd, b, sq, nh, out), "flash_fwd")
-    return {"design": "wgmma_3xtf32" if f32 else "wgmma", **dict(zip(_FWD_DESIGN_KEYS, out))}
+    return {"design": "wgmma_3xtf32" if f32 else "wgmma", "padded_head_dim": padded,
+            **dict(zip(_FWD_DESIGN_KEYS, out))}
 
 
 def flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=torch.bfloat16):
@@ -246,16 +275,17 @@ def flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=torch.bfloat16):
     dynamic shared bytes a block and spill bytes a thread (from
     ``cudaFuncGetAttributes``), the SMs, the stages of its cp.async ring
     (f32: the slots of each warpgroup's) and its warpgroups a block;
-    ``design`` "wgmma" (bf16) or "wgmma_3xtf32" (f32)."""
-    if dtype not in _SUFFIX:
-        raise ValueError(f"{name}: the CUDA kernels take bf16 or f32, got {dtype}")
+    ``design`` "wgmma" (bf16) or "wgmma_3xtf32" (f32); ``padded_head_dim``
+    as for :func:`flash_fwd_design`."""
+    padded = _design_check(name, hd, dtype)
     f32 = dtype == torch.float32
     entry = "qt_flash_bwd_f32_design" if f32 else "qt_flash_bwd_design"
     out = (ctypes.c_int * len(_DESIGN_KEYS))()
     rc = getattr(_build.library(), entry)(int(name == "flash_bwd_dkv"), hd, b, sq, t, nh, nkv,
                                           out)
     _build.check(rc, name)
-    return {"design": "wgmma_3xtf32" if f32 else "wgmma", **dict(zip(_DESIGN_KEYS, out))}
+    return {"design": "wgmma_3xtf32" if f32 else "wgmma", "padded_head_dim": padded,
+            **dict(zip(_DESIGN_KEYS, out))}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -36,7 +36,6 @@ _EPS = 1e-12
 _ENTRY = {torch.float32: "qt_quantize_blockwise_f32",
           torch.bfloat16: "qt_quantize_blockwise_bf16"}
 _KV_ENTRY = {torch.float32: "qt_kv_write_int8_f32", torch.bfloat16: "qt_kv_write_int8_bf16"}
-_KV_HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # hd = 8 lanes' values times a power of two
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,8 +129,8 @@ def write_kv_int8(k: torch.Tensor, v: torch.Tensor, rows: torch.Tensor, k_codes:
 
     k, v: (L, R, nkv, hd) f32 or bf16; rows: (R,) int64, the pool row of
     each r (page * page_size + offset); k_codes, v_codes: (L, P, nkv, hd)
-    int8 and k_scale, v_scale: (L, P, nkv) f32, the pool's P rows. Vector
-    (l, r, h) lands in row rows[r]. Where several r name one row, it ends
+    int8 and k_scale, v_scale: (L, P, nkv) f32, the pool's P rows; any
+    head_dim. Vector (l, r, h) lands in row rows[r]. Where several r name one row, it ends
     up holding one of them (the plain version: the last) or, on the
     kernel, a mix of them: the serve path sends only the null page's rows
     twice, and attention never reads them.
@@ -144,8 +143,6 @@ def write_kv_int8(k: torch.Tensor, v: torch.Tensor, rows: torch.Tensor, k_codes:
     if entry is None or v.dtype != k.dtype:
         raise TypeError(f"the int8 KV write kernel takes f32 or bf16 K and V, got {k.dtype}, "
                         f"{v.dtype}")
-    if hd not in _KV_HEAD_DIMS:
-        raise ValueError(f"the int8 KV write kernel takes head_dim in {_KV_HEAD_DIMS}, got {hd}")
     if v.shape != k.shape or rows.shape != (n_rows,) or rows.dtype != torch.int64 or \
             k_codes.shape != (n_layers, pool_rows, nkv, hd) or v_codes.shape != k_codes.shape or \
             k_scale.shape != k_codes.shape[:-1] or v_scale.shape != k_scale.shape:

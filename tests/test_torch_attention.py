@@ -111,6 +111,93 @@ def test_grad_matches_jax(b, s, t, nh, nkv, hd, tq, tk, q_start):
         np.testing.assert_allclose(got.numpy(), np.asarray(wnt), **GRAD)
 
 
+# head dims the kernels run padded to a compiled width (100 in 128, as
+# OpenLLaMA-3B's; 80 in 128): b, s, t, nh, nkv, tq, tk, q_start (GQA, ragged
+# tiles, a cached offset)
+PADDED_HDS = [100, 80]
+
+
+@pytest.mark.parametrize("hd", PADDED_HDS)
+def test_forward_and_grad_at_padded_head_dims_match_jax(hd):
+    """The plain flash forward and its gradients at a head dim off the
+    compiled widths against the Pallas kernels (interpret mode), whose
+    blocks span the whole head dim: forward within 2e-5, q, k and v
+    gradients within 2e-4 (tests/test_attention.py's tolerances)."""
+    b, s, t, nh, nkv = 2, 48, 80, 4, 2
+    q, k, v, qs, kl = _inputs(b, s, t, nh, nkv, hd, [0, 24], seed=11)
+    kl = np.asarray([48, 72], np.int32)
+    want = _jax_flash(q, k, v, qs, kl, 16, 32)
+    got = tattn.flash_attention(*_t(q, k, v, qs, kl))
+    assert got.shape == (b, s, nh, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    w = np.random.default_rng(12).standard_normal((b, s, nh, hd)).astype(np.float32)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(_jax_flash(q_, k_, v_, qs, kl, 16, 32) * w)
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq_, tk_, tv_ = (x.requires_grad_() for x in _t(q, k, v))
+    (tattn.flash_attention(tq_, tk_, tv_, *_t(qs, kl)) * torch.from_numpy(w)).sum().backward()
+    for got_g, want_g in zip((tq_.grad, tk_.grad, tv_.grad), grads):
+        np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **GRAD)
+
+
+def test_kernel_takes_and_padded_head_dims():
+    """The one rule for which head dims the CUDA kernels take: bf16 or f32,
+    a multiple of 4 up to 128, each run in the smallest compiled width that
+    holds it."""
+    for hd, width in ((4, 32), (32, 32), (48, 64), (64, 64), (80, 128), (96, 128),
+                      (100, 128), (128, 128)):
+        assert tattn.padded_head_dim(hd) == width
+        assert tattn.kernel_takes(hd, torch.bfloat16) and tattn.kernel_takes(hd, torch.float32)
+        assert not tattn.kernel_takes(hd, torch.float16)
+    for hd in (0, 2, 102, 132, 160, 256):
+        assert tattn.padded_head_dim(hd) == 0 and not tattn.kernel_takes(hd, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd,flash", [(64, True), (100, True), (160, False)])
+def test_use_flash_default_follows_the_kernels(hd, flash):
+    """use_flash=None on CUDA tokens at S >= FLASH_MIN_SEQ takes flash only
+    where the kernels take the head dim (64 and 100; not 160, which takes
+    the einsum attention); on the CPU it never does. Rehearsed on the CPU
+    with the tokens' ``is_cuda`` patched (the plain versions computing) and
+    the flash route counted."""
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32, n_layers=1, dim=2 * hd, n_heads=2,
+                                  n_kv_heads=1)
+    params = tllama.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(13).integers(0, 256, (1, 5)))
+    with mock.patch.object(tllama, "FLASH_MIN_SEQ", 4), \
+            mock.patch.object(tllama, "flash_attention", wraps=tllama.flash_attention) as fa:
+        tllama.forward(params, toks, cfg)
+        assert fa.call_count == 0
+        with mock.patch.object(torch.Tensor, "is_cuda", True):
+            tllama.forward(params, toks, cfg, use_kernel=False)
+        assert fa.call_count == (cfg.n_layers if flash else 0)
+
+
+def test_llama_forward_use_flash_at_head_dim_100_matches_jax():
+    """llama.forward(use_flash=True) on a tiny Llama of OpenLLaMA-3B's head
+    dim (dim 200, 2 heads on one KV head, 2 layers) against JAX's, without
+    and with a cache larger than the prompt."""
+    kw = dict(dim=200, n_heads=2, n_kv_heads=1, n_layers=2)
+    jcfg = jllama.LlamaConfig.tiny(dtype=jnp.float32, **kw)
+    tcfg = tllama.LlamaConfig.tiny(dtype=torch.float32, **kw)
+    assert tcfg.head_dim == 100
+    jparams = jllama.init_params(jax.random.PRNGKey(1), jcfg)
+    tparams = interop.from_jax_params(jparams)
+    toks = np.random.default_rng(14).integers(0, jcfg.vocab_size, (2, 40), dtype=np.int32)
+    want, _ = jllama.forward(jparams, jnp.asarray(toks), jcfg, use_kernel=False,
+                             use_flash=True, interpret=True)
+    got, _ = tllama.forward(tparams, torch.from_numpy(toks), tcfg, use_flash=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD)
+    want_c, _ = jllama.forward(jparams, jnp.asarray(toks), jcfg,
+                               cache=jllama.init_cache(jcfg, 2, max_len=64), use_kernel=False,
+                               use_flash=True, interpret=True)
+    got_c, _ = tllama.forward(tparams, torch.from_numpy(toks), tcfg,
+                              cache=tllama.init_cache(tcfg, 2, max_len=64), use_flash=True)
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), **GRAD)
+
+
 def test_backward_references_match_jax_vjp():
     """Each backward plain version alone, on the forward's lse and D, against
     jax.vjp of the JAX kernel (dead row included: its gradients are zero)."""

@@ -17,7 +17,10 @@ running maximum rather than the final one: bf16 outputs within 2 bf16 ulps
 of max|plain| and rel-L2 1e-2, lse within 1e-4 (1e30 exactly on rows with
 no live key), gradients within rel-L2 2e-2; in f32, 1e-5 of max|plain| for
 the output and 1e-4 for gradients; the backward kernels are deterministic,
-two calls give the same bits. ``matmul_8bit`` and ``matmul_8bit_t``
+two calls give the same bits. The flash kernels take any head dim that is a
+multiple of 4 up to 128, run in the smallest compiled width of 32, 64 and
+128 that holds it (FLASH_HDS: each compiled width unpadded and, padded,
+48, 80, 96 and OpenLLaMA-3B's 100). ``matmul_8bit`` and ``matmul_8bit_t``
 read the same 256-entry level table as their plain versions and differ
 only in f32 summation order: bf16 within 2 bf16 ulps of max|plain|, f32
 within 1e-5 of it; the bf16 ``matmul_4bit`` and ``matmul_8bit`` sum their
@@ -458,13 +461,17 @@ def _kv_write_case(cuda, shape, seed):
 
 
 @pytest.mark.parametrize("shape", [(22, 256, 4, 64), (22, 8, 8, 4, 64), (3, 40, 2, 128),
-                                   (12, 256, 12, 64), (12, 8, 8, 12, 64)])
+                                   (12, 256, 12, 64), (12, 8, 8, 12, 64), (3, 40, 2, 24),
+                                   (4, 40, 3, 80), (4, 8, 8, 2, 96), (26, 256, 32, 100),
+                                   (26, 8, 8, 32, 100)])
 def test_kv_write_int8_matches_quantize_and_index_put(cuda, shape):
     """The fused K+V write into the int8 pool (one launch) against
     ``quantize_kv`` plus ``index_put`` by row, at a prefill's and a
-    window's shape (every layer at once) and at head_dim 128: codes and
-    scales equal outside page 0. Page 0 takes several writers (its rows
-    repeat), and attention never reads it."""
+    window's shape (every layer at once), at head_dim 128 and at head dims
+    off the kernel's 8-lane groups (24, 80, 96, and OpenLLaMA-3B's 100 at
+    its prefill and window shapes): codes and scales equal outside page 0.
+    Page 0 takes several writers (its rows repeat), and attention never
+    reads it."""
     from quanta_tpu_torch.serve import kvcache as tkv
 
     cfg = tllama.LlamaConfig.tiny(n_layers=shape[0], n_heads=shape[-2], n_kv_heads=shape[-2],
@@ -558,6 +565,12 @@ FLASH_CASES = [
 ]
 
 
+# head dims: the compiled widths 32, 64 and 128, and head dims run padded
+# to them (48 in 64; 80, 96 and OpenLLaMA-3B's 100 in 128; 100 is off the
+# 16-byte rows of bf16)
+FLASH_HDS = [32, 48, 64, 80, 96, 100, 128]
+
+
 def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
@@ -569,7 +582,7 @@ def _flash_inputs(cuda, b, sq, t, nh, nkv, hd, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", FLASH_HDS)
 @pytest.mark.parametrize("b,sq,t,nh,nkv,q_start,kv_len,causal", FLASH_CASES)
 def test_flash_kernels_match_plain(cuda, dtype, hd, b, sq, t, nh, nkv, q_start, kv_len, causal):
     """Each of the three flash kernels against its plain version on the same
@@ -616,7 +629,7 @@ def _bwd_args(cuda, b, sq, t, nh, nkv, hd, q_start, kv_len, dtype=torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 100, 128])
 def test_flash_bwd_deterministic(cuda, dtype, hd):
     """Two calls on the same inputs give the same bits: dK/dV's blocks sum
     their partials in a fixed order, and nothing uses atomics."""
@@ -661,7 +674,7 @@ F32_BWD_CASES = {"gqa": (3, 200, 230, 8, 1, [0, 30, 0], [200, 230, 0]),
 
 
 @pytest.mark.parametrize("shape", list(F32_BWD_CASES))
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 100, 128])
 def test_flash_bwd_f32_kernels_match_plain(cuda, hd, shape):
     """The f32 dQ and dK/dV kernels (each f32 product as three TF32
     tensor-core products) against their plain versions: within 1e-4 of
@@ -730,17 +743,52 @@ def test_flash_in_tiny_model_matches_plain(cuda):
 
 
 def test_flash_refuses_what_the_kernels_do_not_take(cuda):
-    q, k, v, _ = _flash_inputs(cuda, 1, 16, 16, 2, 2, 80, torch.bfloat16)
+    q, k, v, _ = _flash_inputs(cuda, 1, 16, 16, 2, 2, 160, torch.bfloat16)
     pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tattn.flash_attention(q, k, v, pos, pos + 16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.flash_attention(*(x[..., :102].contiguous() for x in (q, k, v)), pos, pos + 16)
     with pytest.raises(ValueError, match="bf16 or f32"):
         tattn.flash_attention(*(x[..., :64].half() for x in (q, k, v)), pos, pos + 16)
-    q, k, v, do = (x[..., :64].contiguous() for x in _flash_inputs(cuda, 1, 16, 16, 2, 2, 80,
+    q, k, v, do = (x[..., :64].contiguous() for x in _flash_inputs(cuda, 1, 16, 16, 2, 2, 160,
                                                                   torch.bfloat16))
     stats = torch.zeros((1, 2, 15), device=cuda)  # one query row short
     with pytest.raises(ValueError, match="lse"):
         tattn.flash_bwd_dq(q, k, v, do, stats, stats, pos, pos + 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_default_at_head_dim_80_matches_plain(cuda, dtype):
+    """A tiny Llama with head dim 80 at S = 1024 with use_flash=None (which
+    once took flash and raised there): n_layers flash launches, logits
+    within rel-L2 1e-2 (bf16) / 1e-4 (f32) of the plain route. At head dim
+    160, which the kernels do not take, use_flash=None takes the einsum
+    attention (no launch) and use_flash=True raises."""
+    cfg = tllama.LlamaConfig.tiny(dim=160, n_heads=2, n_kv_heads=1, max_seq_len=1024,
+                                  dtype=dtype)
+    assert cfg.head_dim == 80
+    params = tllama.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1024), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    logits = {}
+    for use_kernel in (None, False):
+        before = _build.launches["flash_fwd"]
+        logits[use_kernel], _ = tllama.forward(params, toks, cfg, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        assert _build.launches["flash_fwd"] - before == (cfg.n_layers if use_kernel is None
+                                                         else 0)
+    assert torch.isfinite(logits[None]).all()
+    assert _rel(logits[None], logits[False]) <= (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    wide = tllama.LlamaConfig.tiny(dim=320, n_heads=2, n_kv_heads=1, max_seq_len=1024,
+                                   dtype=dtype)
+    assert wide.head_dim == 160
+    wparams = tllama.init_params(torch.Generator(device=cuda).manual_seed(0), wide, device=cuda)
+    before = _build.launches["flash_fwd"]
+    out, _ = tllama.forward(wparams, toks, wide)
+    assert _build.launches["flash_fwd"] == before and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="head_dim"):
+        tllama.forward(wparams, toks, wide, use_flash=True)
 
 
 # ------------------------------------------------------------------ 8-bit
@@ -944,7 +992,7 @@ def test_matmul_8bit_split_covers_every_k_block(cuda, m, k, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 100, 128])
 def test_flash_fwd_without_lse_and_deterministic(cuda, hd, dtype):
     """save_lse=False (the prefill's call) writes the same output bits as
     with the lse, and two calls agree bit for bit (bf16 within 2 bf16 ulps
@@ -1099,6 +1147,44 @@ def test_matmul_4bit_model_scale_shapes_match_plain(cuda, m):
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= _tol(ref, torch.bfloat16), (k, n, err)
         assert torch.equal(out, tmm.matmul_quantized(x, tq)), (k, n)
+
+
+# OpenLLaMA-3B v2's (K, N) (q/k/v/o, gate/up, down, the head) with the
+# quantizer's own padding at block 64: K 3200 -> 4096 and 8640 -> 9216, N
+# 8640 -> 8704; N 3200 is 25 tiles of 128, an odd count
+OPENLLAMA_3B_SHAPES = [(3200, 3200), (3200, 8640), (8640, 3200), (3200, 32000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m", [8, 256, 2048])
+def test_openllama_3b_shapes_match_plain(cuda, m, dtype):
+    """#1 (nf4a) and #3 (int8) forward and, through autograd, #4 and #5's
+    dx at OpenLLaMA-3B's (K, N) for a decode step (M 8), a prefill bucket
+    (256) and its QLoRA row (b2 x s1024): each within 2 bf16 ulps (f32:
+    1e-5) of max|plain|, one launch of each kernel a call."""
+    g = torch.Generator(device=cuda).manual_seed(m + 3)
+    for k, n in OPENLLAMA_3B_SHAPES:
+        w = torch.randn((k, n), generator=g, device=cuda) / math.sqrt(k)
+        x0 = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+        gr = torch.randn((m, n), generator=g, device=cuda).to(dtype)
+        for fmt, fwd, bwd in (("nf4a", "matmul_4bit", "matmul_4bit_t"),
+                              ("int8", "matmul_8bit", "matmul_8bit_t")):
+            tq = tcore.quantize_matmul_weight(w, fmt=fmt, block_size=64)
+            outs = {}
+            for use_kernel in (None, False):
+                x = x0.clone().requires_grad_()
+                before = dict(_build.launches)
+                out = tmm.matmul_quantized(x, tq, use_kernel=use_kernel)
+                out.backward(gr)
+                torch.cuda.synchronize()
+                n_launch = int(use_kernel is None)
+                assert (_build.launches[fwd] - before[fwd], _build.launches[bwd] - before[bwd]) \
+                    == (n_launch, n_launch), (k, n, fmt)
+                outs[use_kernel] = (out.detach(), x.grad)
+            for got, ref in zip(outs[None], outs[False]):
+                assert got.shape == ref.shape and got.dtype == dtype
+                err = (got.float() - ref.float()).abs().max().item()
+                assert err <= _tol(ref, dtype), (k, n, fmt, m, err)
 
 
 # (m, k, n): decode with K2 = 800 packed rows, 50 slices of 16 over a split

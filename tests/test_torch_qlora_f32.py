@@ -13,7 +13,7 @@ The step runs with the einsum attention and, as ``finetune --dtype
 float32 --seq-len 1024`` runs it on the JAX package's chip, through flash
 attention (the Pallas flash kernels interpreted; the port's flash entry
 points faked; the CUDA kernels, the f32 dQ and dK/dV of
-``csrc/flash_bwd.cu``, against their plain versions:
+``csrc/flash_bwd_f32.cu``, against their plain versions:
 tests/test_torch_cuda.py). Inputs come from numpy seeds and are handed to
 both.
 
@@ -69,8 +69,11 @@ REL = 1e-5
 # TinyLlama-1.1B's 32 / 4 heads at 2 layers and a narrow width
 CFG_KW = dict(dim=256, n_layers=2, n_heads=32, n_kv_heads=4, hidden_dim=512)
 STEP_REL = 1e-4
-# the flash steps: head dim 32 (the least the flash kernels take), rep 8
+# the flash steps: head dim 32 (the smallest compiled width of the flash
+# kernels), rep 8; and OpenLLaMA-3B's head dim, 100, which they run padded
+# to 128 columns (2 heads, MHA as OpenLLaMA's)
 FLASH_CFG_KW = dict(dim=256, n_layers=2, n_heads=8, n_kv_heads=1, hidden_dim=512)
+FLASH_HD100_KW = dict(dim=200, n_layers=2, n_heads=2, n_kv_heads=2, hidden_dim=512)
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 FLASH_ENTRIES = {f"qt_{k}_f32" for k in FLASH_KERNELS}
 LR = 1e-2
@@ -230,4 +233,15 @@ def test_f32_qlora_flash_step_matches_jax(fmt):
     rules: losses and lora_b gradients within 1e-4; ``n_layers`` launches a
     step of each flash kernel, f32 entry points only."""
     entries = _steps_against_jax(fmt, FLASH_CFG_KW, use_flash=True)
+    assert FLASH_ENTRIES <= entries
+
+
+def test_f32_qlora_flash_step_at_head_dim_100_matches_jax():
+    """The flash steps above on a tiny Llama of OpenLLaMA-3B's head dim
+    (dim 200, 2 heads, 2 layers; nf4): JAX's Pallas flash kernels, whose
+    blocks span the whole head dim, against the port's plain flash and its
+    fake f32 flash entry points, under the same rules (losses and lora_b
+    gradients within 1e-4, 2 launches a step of each flash kernel)."""
+    assert tllama.LlamaConfig.tiny(**FLASH_HD100_KW).head_dim == 100
+    entries = _steps_against_jax("nf4", FLASH_HD100_KW, use_flash=True)
     assert FLASH_ENTRIES <= entries

@@ -261,6 +261,45 @@ def test_int8_pool_rows_match_jax_kernel_rule():
     assert (pool["k_scale"][:, 1, 1, 1] == 1.0).all() and (pool["k"][:, 1, 1, 1] == 0).all()
 
 
+@pytest.mark.parametrize("hd", [100, 80])
+def test_kv_write_int8_at_any_head_dim_matches_jax(hd):
+    """The int8 KV write at head dims off the kernel's 8-lane groups:
+    OpenLLaMA-3B's 100 against JAX's XLA rule (the one JAX takes there:
+    codes within a step, scales within rtol 1e-5 but the zero vector's),
+    and 80 against JAX's kernel rule (``quantize_blockwise``, interpreted);
+    the plain version and the kernel route (``FakeQuantKernels``, the
+    wrapper refusing no head dim) write the same pool."""
+    page, n_pages, L, nkv = 8, 6, 2, 2
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32, n_layers=L, dim=nkv * hd,
+                                  n_heads=nkv, n_kv_heads=nkv)
+    rows = np.asarray([4 * page + 3, 9, 5 * page + 7, 1 * page, 2 * page + 1], np.int64)
+    k, v = (_kv_inputs(seed, (L, len(rows), nkv, hd)) * 2 for seed in (10, 11))
+    k[:, 1, 0] = 0.0  # a zero vector: scale 1, codes 0
+    pools = {}
+    with mock.patch.object(_build, "use_kernel_for", lambda uk, t: uk is not False), \
+            mock.patch.object(_build, "library", lambda: FakeQuantKernels()), \
+            mock.patch.object(torch.cuda, "current_stream", lambda dev=None: _Stream()):
+        for route in (None, False):
+            _build.reset_launches()
+            pools[route] = tkv.write_rows(tkv.init_pool(cfg, n_pages, page, kv_quant=True),
+                                          torch.from_numpy(rows), torch.from_numpy(k),
+                                          torch.from_numpy(v), use_kernel=route)
+            assert _build.launches["quantize_blockwise"] == (route is None)
+    for name in pools[None]:
+        assert torch.equal(pools[None][name], pools[False][name]), name
+    for name, x in (("k", k), ("v", v)):
+        if hd % 8 == 0:
+            jc, js = jquantize.quantize_blockwise(jnp.asarray(x), fmt="int8_sym", block=hd,
+                                                  interpret=True)
+        else:
+            jc, js = jkv.quantize_kv(jnp.asarray(x), use_kernel=False)
+        got_c = pools[None][name].reshape(L, -1, nkv, hd)[:, rows].numpy()
+        got_s = pools[None][f"{name}_scale"].reshape(L, -1, nkv)[:, rows].numpy()
+        _assert_kv_codes(got_c, got_s, np.asarray(jc).reshape(x.shape),
+                         np.asarray(js).reshape(x.shape[:-1]), exact_rule=hd % 8 == 0)
+    assert (pools[None]["k_scale"].reshape(L, -1, nkv)[:, rows[1], 0] == 1.0).all()
+
+
 def _view(ptr: int, shape, dtype) -> torch.Tensor:
     """The tensor behind a data pointer (a CPU tensor here)."""
     nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()

@@ -701,7 +701,20 @@ def test_qlora_flash_kernel_route_launches(fake_kernels):
     launches the flash forward once and, through the autograd Function's
     backward, the dQ and the dK/dV kernels once each; losses and lora_b
     gradients are the plain route's."""
-    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
+    _flash_step_launches(tllama.LlamaConfig.tiny(dtype=torch.float32))
+
+
+def test_qlora_flash_kernel_route_launches_at_head_dim_100(fake_kernels):
+    """The same step on a tiny Llama of OpenLLaMA-3B's head dim, 100 (dim
+    200, 2 heads, 2 layers), which the kernels run padded to 128 columns:
+    2 launches of each flash kernel, the plain route's losses and lora_b
+    gradients."""
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32, dim=200, n_heads=2, n_kv_heads=2)
+    assert cfg.head_dim == 100 and cfg.n_layers == 2
+    _flash_step_launches(cfg)
+
+
+def _flash_step_launches(cfg):
     dense = tllama.init_params(torch.Generator().manual_seed(0), cfg)
     base = tnn.quantize_params(dense, mode="nf4", min_size=1024)
     toks = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 17)))
