@@ -95,10 +95,12 @@ and the script exits non-zero (nothing is caught):
      Llama-2-7B's (B=1, MHA, hd 128), a cached prefill (1024 queries
      into 1152 slots at q_start 0 and 64, and a row whose kv_len is 0),
      phase 12's prefill (1024 queries into 1040 slots), phase 13's
-     S = T = 2048 and OpenLLaMA-3B's training shape (B=2, S=T=1024, 32
-     heads, hd 100, which the kernels run padded to 128 columns), in
-     bf16, and the first two, the cached prefill and OpenLLaMA-3B's also
-     in f32: bf16 output within 2 bf16 ulps of
+     S = T = 2048, OpenLLaMA-3B's training shape (B=2, S=T=1024, 32
+     heads, hd 100, which the kernels run padded to 128 columns), Gemma-2B's
+     geometry's (B=2, S=T=1024, 8 heads to 1 KV head, hd 256) and two
+     small ones at hd 160 (run in 256 columns) and 37 (padded by the
+     wrapper to 40, run in 64), in bf16, and all but phases 12's and 13's
+     also in f32: bf16 output within 2 bf16 ulps of
      max|plain| and rel-L2 1e-2, lse within 1e-4, gradients within rel-L2
      2e-2 (f32: 1e-5 and 1e-4 of max|plain|), dead rows zero with lse
      1e30, and dq, dk, dv bit-identical over two calls; at the S = T
@@ -107,7 +109,8 @@ and the script exits non-zero (nothing is caught):
      that is math, the efficient backend on K and V expanded to the query
      heads), every row with its bound (at hd 100 also the bound of the 128
      columns the kernels multiply), the f32 rows also with the bound of
-     their three TF32 products; then per head_dim (32, 64, 128, 100) one
+     their three TF32 products; then per head_dim (32, 64, 128, 100,
+     256, 160, 192: ``FLASH_DESIGN_HDS``) one
      ``flash_bwd_design`` line for each dtype (grid, cluster size,
      warpgroups, blocks resident per SM, registers and shared bytes, from
      ``cudaFuncGetAttributes``) and one ``flash_fwd_design`` line (the f32
@@ -338,6 +341,20 @@ and the script exits non-zero (nothing is caught):
      each flash kernel and one ``adam8bit_update``, phase 9's rules, the
      loss falling; then ``train_bench``'s row (step ms, busy share,
      step-peak GiB).
+ 35. Gemma-2B's geometry (``GEMMA_2B``, from google/gemma-2b's published
+     config: 2048 wide, 18 layers, 8 heads to 1 KV head, head dim 256,
+     16384 hidden, vocab 256000, tied embeddings) in the repo's Llama
+     block (not Gemma's: no GeGLU, (1 + w) RMSNorm or embedding scale) at
+     full width and depth, random weights from seed 0: first the int8 KV
+     write at hd 256 with one KV head (the grouped layout at hd = 8 << 5)
+     against quantize_kv plus index_put, prefill and window, then phase
+     34's parts: #1 and #4 at its four quantized (K, N) (the tied head
+     stays bf16); (a) the b1 x S 2048 prefill, 18 ``flash_fwd`` launches
+     at hd 256, rep 8; (b) the decode, 18 ``flash_fwd`` and 16 x 126
+     ``matmul_4bit``; (c) the Engine with the int8 KV pool; (d) QLoRA at
+     b2 x s1024, per kernel-route step 126 ``matmul_4bit``, 123
+     ``matmul_4bit_t``, 18 of each flash kernel and one ``adam8bit_update``,
+     phase 9's rules; then ``train_bench``'s row.
 
 Then the seconds each phase took, the redesigned kernels' earlier times
 as PERF.md records them (``earlier_times``, beside this run's), the
@@ -446,10 +463,12 @@ GRAD_FLOOR_X, GRAD_FLOOR_ABS = logits_gate.FLOOR_X, logits_gate.FLOOR_ABS
 # Llama-2-7B's (MHA, hd 128), a cached prefill of 1024 tokens into 1152
 # slots at q_start 0 and 64 beside a row whose kv_len is 0, the long-prompt
 # decode's prefill (1024 tokens into its 1040-slot cache: a ragged last key
-# tile) and long_prefill's reference row (S = T = 2048):
-# (B, Sq, T, nh, nkv, hd, q_start, kv_len); each in bf16; in f32 too the
-# prefill and the two training shapes (the f32 QLoRA of phase 33 runs the
-# first)
+# tile) and long_prefill's reference row (S = T = 2048), OpenLLaMA-3B's and
+# Gemma-2B's QLoRA shapes, and two small ones at head dims off the compiled
+# widths (160, run in 256 columns; 37, off a multiple of 4, which the
+# wrapper pads to 40 and runs in 64): (B, Sq, T, nh, nkv, hd, q_start,
+# kv_len); each in bf16; in f32 too the prefill, the training shapes (the
+# f32 QLoRA of phase 33 runs the first) and the small ones
 FLASH_SHAPES = {
     "tinyllama_s1024": (2, 1024, 1024, 32, 4, 64, [0, 0], [1024, 1024]),
     "llama2_7b_s1024": (1, 1024, 1024, 32, 32, 128, [0], [1024]),
@@ -458,10 +477,20 @@ FLASH_SHAPES = {
     "long_prefill_s2048": (2, 2048, 2048, 32, 4, 64, [0, 0], [2048, 2048]),
     # OpenLLaMA-3B's QLoRA shape (phase 34): hd 100, run padded to 128
     "openllama_3b_s1024": (2, 1024, 1024, 32, 32, 100, [0, 0], [1024, 1024]),
+    # Gemma-2B's geometry's QLoRA shape (phase 35): hd 256, 8 query heads to one KV head
+    "gemma_2b_s1024": (2, 1024, 1024, 8, 1, 256, [0, 0], [1024, 1024]),
+    "hd160_small": (2, 300, 330, 8, 2, 160, [0, 30], [300, 330]),
+    "hd37_small": (3, 200, 230, 8, 1, 37, [0, 30, 0], [200, 230, 0]),
 }
 FLASH_CASES = [(name, torch.bfloat16) for name in FLASH_SHAPES] + [
     (name, torch.float32) for name in ("tinyllama_s1024", "llama2_7b_s1024", "cached_prefill",
-                                       "openllama_3b_s1024")]
+                                       "openllama_3b_s1024", "gemma_2b_s1024", "hd160_small",
+                                       "hd37_small")]
+# the head dims, and their shapes, whose kernels' launch designs are printed
+# (flash_fwd_design / flash_bwd_design lines)
+FLASH_DESIGN_HDS = ((32, "tinyllama_s1024"), (64, "tinyllama_s1024"), (128, "llama2_7b_s1024"),
+                    (100, "openllama_3b_s1024"), (256, "gemma_2b_s1024"),
+                    (160, "gemma_2b_s1024"), (192, "gemma_2b_s1024"))
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the times of the redesigned kernels before their Hopper redesigns, as
 # PERF.md's kernel table records them: the first port's flash kernels at
@@ -644,6 +673,25 @@ OL_SERVE = dict(n_requests=8, min_prompt=128, max_prompt=512, max_new=48, n_slot
 # its linears' (K, N): #1 and #4 meet K_pad 4096 and 9216, N_pad 8704, and
 # N 3200's 25 tiles of 128 there
 OL_SHAPES = ((3200, 3200), (3200, 8640), (8640, 3200), (3200, 32000))
+# phase 35: Gemma-2B's geometry (google/gemma-2b's config.json:
+# hidden_size 2048, num_attention_heads 8, num_key_value_heads 1 (MQA),
+# head_dim 256 = 2048 / 8, intermediate_size 16384, num_hidden_layers 18,
+# vocab_size 256000, max_position_embeddings 8192, rms_norm_eps 1e-6,
+# rope_theta 10000, tied embeddings) run in the repo's Llama block: neither
+# package runs Gemma's own block (GeGLU, the (1 + w) RMSNorm, the sqrt(d)
+# embedding scale), so this is Gemma-2B's geometry, not Gemma-2B. Its
+# attention is Gemma-2B's: hd 256 (the flash kernels' 256-column width)
+# with one KV head (the int8 KV write's grouped layout at hd = 8 << 5).
+# Full width and all 18 layers, random weights from seed 0, bf16; phase
+# 34's four parts at its sizes (OL_PREFILL, OL_NEW, OL_BATCH x OL_SEQ,
+# OL_SERVE). The tied head is the bf16 embedding, which stays unquantized:
+# 7 quantized linears a layer and none after them.
+GEMMA_2B = dict(vocab_size=256000, dim=2048, n_layers=18, n_heads=8, n_kv_heads=1,
+                hidden_dim=16384, norm_eps=1e-6, max_seq_len=8192, tie_embeddings=True)
+GM_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
+# its int8 KV writes, every layer in one call: a prefill of 256 tokens and a
+# window of 8 steps for 8 slots
+KV_WRITES_HD256 = {"prefill_256_hd256": (18, 256, 1, 256), "window_8x8_hd256": (18, 8, 8, 1, 256)}
 # phase 31's depth: at 11 layers the phase took 72.7 s on an
 # H100 80GB HBM3 at 700 W, most of it the host issuing profiled and timed
 # windows
@@ -1333,7 +1381,7 @@ def qlora_path(dev, cfg, base, fmt="nf4", kernels=("matmul_4bit", "matmul_4bit_t
     f32_rel = F32_QLORA_REL if cfg.dtype == torch.float32 else None
     data = train_bench.make_batch(cfg, batch, seq, dev)
     init = train_bench.with_lora(base)
-    per_forward = 7 * cfg.n_layers + 1
+    per_forward = 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)  # a tied head is bf16
     per_backward = per_forward - 3  # layer 0's wq, wk and wv need no dx
     flash = use_flash if use_flash is not None else (
         seq >= llama.FLASH_MIN_SEQ and attention.kernel_takes(cfg.head_dim, cfg.dtype))
@@ -1509,8 +1557,7 @@ def flash_checks(dev, work):
             else:
                 f32_times[name] = row
         emit(kernel_check=row)
-    for hd, shape in ((32, "tinyllama_s1024"), (64, "tinyllama_s1024"),
-                      (128, "llama2_7b_s1024"), (100, "openllama_3b_s1024")):
+    for hd, shape in FLASH_DESIGN_HDS:
         b, sq, t, nh, nkv = FLASH_SHAPES[shape][:5]
         for dtype in (torch.bfloat16, torch.float32):
             design = {name: attention.flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=dtype)
@@ -2708,9 +2755,58 @@ def qlora_f32_flash(dev):
 def openllama_3b(dev):
     """Phase 34: OpenLLaMA-3B v2 (``OPENLLAMA_3B``, head dim 100) at full
     width and depth, random weights from seed 0, through the entry points a
-    user calls. First #1 (nf4a; M 8 and 2048) and #4 (nf4; M 2048) against
-    their plain versions at its four (K, N), where K pads to 4096 and 9216
-    and N to 8704, and N 3200 runs 25 tiles of 128. Then, nf4a: (a) a b1 x
+    user calls (:func:`full_width_model`; #1 and #4 at its four (K, N),
+    where K pads to 4096 and 9216 and N to 8704, and N 3200 runs 25 tiles of
+    128)."""
+    cfg = llama.LlamaConfig(**OPENLLAMA_3B)
+    check(cfg.head_dim == 100 and attention.padded_head_dim(cfg.head_dim) == 128
+          and attention.kernel_takes(cfg.head_dim, cfg.dtype), f"openllama-3b: {cfg}")
+    return full_width_model(dev, cfg, "openllama-3b", OL_SHAPES, seed=34)
+
+
+def gemma_2b_geometry(dev):
+    """Phase 35: Gemma-2B's geometry (``GEMMA_2B``: hd 256, 8 query heads to
+    one KV head, tied embeddings) in the repo's Llama block at full width
+    and all 18 layers, random weights from seed 0 (:func:`full_width_model`;
+    its prefill, decode and QLoRA run the 256-column flash kernels). First
+    the int8 KV write at its hd 256 with one KV head (``KV_WRITES_HD256``:
+    ``quantize.cu``'s grouped layout at hd = 8 << 5) against quantize_kv
+    plus index_put, equal outside page 0, µs a call."""
+    cfg = llama.LlamaConfig(**GEMMA_2B)
+    check(cfg.head_dim == 256 and attention.padded_head_dim(cfg.head_dim) == 256
+          and attention.kernel_takes(cfg.head_dim, cfg.dtype), f"gemma-2b geometry: {cfg}")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    kv_rows = {}
+    for name, shape in KV_WRITES_HD256.items():
+        n_rows = math.prod(shape[1:-2])
+        k, v = ((torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
+                .reshape(cfg.n_layers, n_rows, *shape[-2:]) for _ in range(2))
+        k[:, 3] = 0.0
+        rows = _kv_rows(gen, dev, n_rows)
+        pools = {uk: kvcache.init_pool(cfg, KV_PAGES, 16, kv_quant=True, device=dev)
+                 for uk in (True, False)}
+        _build.reset_launches()
+        for uk, pool in pools.items():
+            kvcache.write_rows(pool, rows, k, v, use_kernel=uk)
+        torch.cuda.synchronize()
+        check(_build.launches["quantize_blockwise"] == 1, f"kv write {name}: one launch")
+        check(all(torch.equal(pools[True][t][:, 1:], pools[False][t][:, 1:])
+                  for t in pools[True]),
+              f"kv write {name}: the pool outside page 0 differs from quantize_kv + index_put")
+        us = time_ms(lambda i: kvcache.write_rows(pools[True], rows, k, v), 50) * 1e3
+        kv_rows[name] = dict(kernel="quantize_blockwise", write="kv_int8_pool", kv=name,
+                             shape=list(k.shape), max_abs_err=0.0, tol=0.0, us=us)
+        emit(kernel_check=kv_rows[name])
+    launches, rows = full_width_model(dev, cfg, "gemma-2b-geometry", GM_SHAPES, seed=36)
+    rows["kv_write"] = kv_rows
+    return launches, rows
+
+
+def full_width_model(dev, cfg, label, shapes, seed):
+    """A model configuration at full width and depth, random weights from
+    seed 0, through the entry points a user calls. First #1 (nf4a; M 8 and
+    2048) and #4 (nf4; M 2048) against their plain versions at its
+    quantized linears' (K, N) ``shapes``. Then, nf4a: (a) a b1 x
     S 2048 prefill with ``use_flash=None``, ``n_layers`` ``flash_fwd``
     launches, its logits against the einsum route by phase 12's rule, the
     prefill timed; (b) greedy decode of ``OL_NEW`` tokens after a prompt of
@@ -2722,11 +2818,12 @@ def openllama_3b(dev):
     a prefill and a window, tok/s and TTFT. Then nf4: (d) phase 9's QLoRA
     path at b2 x s1024 with ``use_flash=None`` (flash by the kernels' rule),
     ``n_layers`` of each flash kernel a step, phase 9's rules; and
-    ``train_bench``'s row (step ms, busy share, step-peak GiB). Returns the
-    launches and the timed rows."""
-    cfg = llama.LlamaConfig(**OPENLLAMA_3B)
-    check(cfg.head_dim == 100 and attention.padded_head_dim(cfg.head_dim) == 128
-          and attention.kernel_takes(cfg.head_dim, cfg.dtype), f"openllama-3b: {cfg}")
+    ``train_bench``'s row (step ms, busy share, step-peak GiB). ``label``
+    names it in messages and its lines (``label``, dashes as underscores,
+    then ``_prefill``, ``_decode``, ``_serve``); ``seed`` and ``seed`` + 1
+    draw its inputs. Returns the launches and the timed rows."""
+    tag = label.replace("-", "_")
+    per_forward = 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
     t0 = time.perf_counter()
     dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
     trees = {fmt: qnn.quantize_params(dense, mode=fmt) for fmt in ("nf4a", "nf4")}
@@ -2736,19 +2833,19 @@ def openllama_3b(dev):
     rows = {"setup_s": time.perf_counter() - t0}
     launches = dict.fromkeys(_build.launches, 0)
 
-    gen = torch.Generator(device=dev).manual_seed(34)
-    for (k, n), qt in _first_leaves(trees["nf4a"], OL_SHAPES).items():
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for (k, n), qt in _first_leaves(trees["nf4a"], shapes).items():
         k_pad = 2 * qt.codes.shape[0]
         for m in (8, OL_BATCH * OL_SEQ):
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            _, row = _quantized_check(f"openllama-3b matmul_4bit M={m} K={k} N={n}", x, qt,
+            _, row = _quantized_check(f"{label} matmul_4bit M={m} K={k} N={n}", x, qt,
                                       torch.bfloat16, 10)
-            emit(kernel_check=dict(kernel="matmul_4bit", model="openllama-3b", fmt="nf4a",
+            emit(kernel_check=dict(kernel="matmul_4bit", model=label, fmt="nf4a",
                                    K_pad=k_pad, N_pad=qt.codes.shape[1], **row,
                                    design=_checked_design(matmul.matmul_4bit_design, m,
                                                           qt.codes.shape[1], k_pad,
                                                           torch.bfloat16)))
-    for (k, n), qt in _first_leaves(trees["nf4"], OL_SHAPES).items():
+    for (k, n), qt in _first_leaves(trees["nf4"], shapes).items():
         g = torch.randn((OL_BATCH * OL_SEQ, qt.codes.shape[1]), generator=gen,
                         device=dev).to(torch.bfloat16)
         out = matmul.matmul_4bit_t(g, qt.codes, qt.scale, codebook=qt.codebook)
@@ -2756,17 +2853,17 @@ def openllama_3b(dev):
         err = (out.float() - ref.float()).abs().max().item()
         tol = 2 * BF16_ULP * ref.float().abs().max().item()
         check(out.shape == ref.shape and err <= tol,
-              f"openllama-3b matmul_4bit_t K={k} N={n}: err {err} > {tol}")
-        emit(kernel_check=dict(kernel="matmul_4bit_t", model="openllama-3b", fmt="nf4", K=k, N=n,
+              f"{label} matmul_4bit_t K={k} N={n}: err {err} > {tol}")
+        emit(kernel_check=dict(kernel="matmul_4bit_t", model=label, fmt="nf4", K=k, N=n,
                                K_pad=2 * qt.codes.shape[0], N_pad=qt.codes.shape[1],
                                M=g.shape[0], max_abs_err=err, tol=tol,
                                design=matmul.matmul_4bit_t_design(g.shape[0], qt.codes.shape[1],
                                                                   2 * qt.codes.shape[0])))
 
-    # (a) the prefill: use_flash=None takes flash at hd 100; against the
-    # einsum route, the floor the f32 attention sets
+    # (a) the prefill: use_flash=None takes flash at the config's head dim;
+    # against the einsum route, the floor the f32 attention sets
     params = trees["nf4a"]
-    prompt = torch.from_numpy(np.random.default_rng(34).integers(
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, OL_PREFILL), dtype=np.int32)).to(dev)
     logits, flash_n = {}, {}
     with torch.no_grad():
@@ -2784,12 +2881,12 @@ def openllama_3b(dev):
                 for name, c in _build.launches.items():
                     launches[name] += c
         check(flash_n == {"flash": cfg.n_layers, "einsum": 0, "f32_attention": 0},
-              f"openllama-3b prefill flash launches {flash_n}")
-        check(torch.isfinite(logits["flash"]).all().item(), "openllama-3b: non-finite logits")
+              f"{label} prefill flash launches {flash_n}")
+        check(torch.isfinite(logits["flash"]).all().item(), f"{label}: non-finite logits")
         rel = rel_l2(logits["flash"], logits["einsum"])
         floor = rel_l2(logits["f32_attention"], logits["einsum"])
         tol = max(1e-2, GRAD_FLOOR_X * floor + GRAD_FLOOR_ABS)
-        check(rel <= tol, f"openllama-3b prefill logits flash vs einsum rel-L2 {rel} > {tol}")
+        check(rel <= tol, f"{label} prefill logits flash vs einsum rel-L2 {rel} > {tol}")
         agree = (logits["flash"].argmax(-1) == logits["einsum"].argmax(-1)).float().mean().item()
         del logits
         prefill_s = []
@@ -2805,7 +2902,7 @@ def openllama_3b(dev):
                            f32_attention_rel_l2_vs_einsum=floor, argmax_agreement=agree,
                            flash_launches=flash_n["flash"], seconds=prefill_s,
                            tok_s=OL_PREFILL / statistics.median(prefill_s))
-    emit(openllama_3b_prefill=rows["prefill"])
+    emit(**{f"{tag}_prefill": rows["prefill"]})
 
     # (b) greedy decode after a prompt of OL_PREFILL - OL_NEW tokens
     short = prompt[:, :OL_PREFILL - OL_NEW]
@@ -2820,21 +2917,21 @@ def openllama_3b(dev):
         walls[new] = time.perf_counter() - t
         counts = dict(_build.launches)
     expected = dict.fromkeys(counts, 0)
-    expected.update(flash_fwd=cfg.n_layers, matmul_4bit=OL_NEW * (7 * cfg.n_layers + 1))
-    check(counts == expected, f"openllama-3b decode: launches {counts}, expected {expected}")
+    expected.update(flash_fwd=cfg.n_layers, matmul_4bit=OL_NEW * per_forward)
+    check(counts == expected, f"{label} decode: launches {counts}, expected {expected}")
     check(out.shape == (1, OL_PREFILL) and torch.equal(out[:, :OL_PREFILL - OL_NEW], short)
-          and bool(((out >= 0) & (out < cfg.vocab_size)).all()), "openllama-3b decode: output")
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"{label} decode: output")
     for name, c in counts.items():
         launches[name] += c
     rows["decode"] = dict(batch=1, prompt=OL_PREFILL - OL_NEW, new_tokens=OL_NEW,
                           wall_s=walls[OL_NEW], prefill_s=walls[1],
                           decode_tok_s=(OL_NEW - 1) / (walls[OL_NEW] - walls[1]),
                           launches=counts)
-    emit(openllama_3b_decode=rows["decode"])
+    emit(**{f"{tag}_decode": rows["decode"]})
 
-    # (c) the Engine, int8 KV pool at hd 100
+    # (c) the Engine, int8 KV pool at the config's head dim
     sv = OL_SERVE
-    rng = np.random.default_rng(35)
+    rng = np.random.default_rng(seed + 1)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(sv["min_prompt"],
                                                                sv["max_prompt"] + 1)),
                             dtype=np.int32) for _ in range(sv["n_requests"])]
@@ -2853,10 +2950,10 @@ def openllama_3b(dev):
     m = eng.metrics()
     check(len(done) == sv["n_requests"] and all(len(r.output) == sv["max_new"] for r in done)
           and all(0 <= tok < cfg.vocab_size for r in done for tok in r.output),
-          "openllama-3b serve: every request must finish in range")
+          f"{label} serve: every request must finish in range")
     check(set(counts) == {"matmul_4bit", "quantize_blockwise"}
           and counts["quantize_blockwise"] == m["admissions"] + m["decode_steps"],
-          f"openllama-3b serve: launches {counts}, admissions {m['admissions']}, windows "
+          f"{label} serve: launches {counts}, admissions {m['admissions']}, windows "
           f"{m['decode_steps']}")
     for name, c in counts.items():
         launches[name] += c
@@ -2867,23 +2964,23 @@ def openllama_3b(dev):
                              "throughput_tok_s", "admissions", "decode_steps", "preemptions",
                              "ttft_p50_ms", "ttft_p99_ms")},
                          kv_pool_mib=kvcache.pool_bytes(eng.pool) / 2**20)
-    emit(openllama_3b_serve=rows["serve"])
+    emit(**{f"{tag}_serve": rows["serve"]})
     del eng, params, trees["nf4a"]
     torch.cuda.empty_cache()
 
     # (d) QLoRA through flash by the kernels' rule, then the timed row
-    got = qlora_path(dev, cfg, trees["nf4"], fmt="nf4 openllama-3b s1024", batch=OL_BATCH,
+    got = qlora_path(dev, cfg, trees["nf4"], fmt=f"nf4 {label} s1024", batch=OL_BATCH,
                      seq=OL_SEQ, use_flash=None)
     for name, c in got.items():
         launches[name] = launches.get(name, 0) + c
     row = train_bench.bench_qlora(trees["nf4"], cfg, batch=OL_BATCH, seq=OL_SEQ)
-    check(math.isfinite(row["loss_step1"]), f"train row openllama-3b: {row['loss_step1']}")
+    check(math.isfinite(row["loss_step1"]), f"train row {label}: {row['loss_step1']}")
     top, busy = row["top_device_ms"], row["device_busy_ms"]
     keys = {"matmul_4bit": "mm4_", "matmul_4bit_t": "mm4t", "flash_fwd": "flash_fwd",
             "flash_bwd_dq": "flash_bwd_dq", "flash_bwd_dkv": "flash_bwd_dkv"}
     shares = {k: sum(ms for name, ms in top.items() if key in name) / busy if busy else None
               for k, key in keys.items()}
-    rows["train"] = {"name": "openllama-3b nf4 s1024", "fmt": "nf4",
+    rows["train"] = {"name": f"{label} nf4 s1024", "fmt": "nf4",
                      "kernel_share_of_device_ms": shares, **row}
     emit(train_row=rows["train"])
     del trees
@@ -3083,6 +3180,11 @@ def main():
         for k, v in ol_launches.items():
             (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
         emit(openllama_3b={k: v for k, v in ol_rows.items() if k != "train"})
+    with timed("35 gemma-2b geometry hd 256"):
+        gm_launches, gm_rows = gemma_2b_geometry(dev)
+        for k, v in gm_launches.items():
+            (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
+        emit(gemma_2b_geometry={k: v for k, v in gm_rows.items() if k != "train"})
     emit(phase_seconds=phase_s)
 
     def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,
@@ -3112,7 +3214,8 @@ def main():
                 "heads, hd 64, bf16), ms; library: ")
     sdpa = "SDPA (is_causal, enable_gqa) "
     bwd_pair_ms = flash_ms["flash_bwd_dq_ms"] + flash_ms["flash_bwd_dkv_ms"]
-    f32_flash_at = ("; f32: the f32 route at TinyLlama-1.1B's and Llama-2-7B's S = T shapes, "
+    f32_flash_at = ("; f32: the f32 route at the S = T shapes (TinyLlama-1.1B's, Llama-2-7B's, "
+                    "OpenLLaMA-3B's, Gemma-2B's geometry's), "
                     "ms a call with its plain version, its f32 bound (CUDA cores), the bound "
                     "of three TF32 products for each f32 one (tf32x3_bound_ms) and SDPA's f32 "
                     "time (library_ms; the backend it takes named, and where that is math, the "
@@ -3132,17 +3235,21 @@ def main():
                 "hd 100, run in 128 columns), bf16, ms, with the bound of the real hd and of the "
                 "128 columns (bound_ms_padded) and the kernel's registers and spill bytes a thread; its "
                 "f32 row under f32")
-    hd100 = flash_rows["openllama_3b_s1024"]
+    hd256_at = ("hd256: the same at Gemma-2B's geometry's QLoRA shape (B=2, S=T=1024, 8 "
+                "heads, 1 KV head, hd 256, the 256-column kernels), bf16, ms, with the kernel's "
+                "registers and spill bytes a thread; its f32 row under f32")
 
-    def flash_hd100(name, library_key):
-        b, sq, t, nh, nkv = FLASH_SHAPES["openllama_3b_s1024"][:5]
-        design = (attention.flash_fwd_design(b, sq, nh, 100) if name == "flash_fwd"
-                  else attention.flash_bwd_design(name, b, sq, t, nh, nkv, 100))
-        return {"ms": hd100[f"{name}_ms"], "plain_ms": hd100[f"{name}_plain_ms"],
-                "bound_ms": hd100[f"{name}_bound_ms"], "bound_by": hd100[f"{name}_bound_by"],
-                "bound_ms_padded": hd100[f"{name}_bound_ms_padded"],
-                "library_ms": hd100[library_key] if library_key else None,
-                "sdpa_backend": hd100["sdpa_backend"],
+    def flash_row_at(shape, name, library_key):
+        row = flash_rows[shape]
+        b, sq, t, nh, nkv, hd = FLASH_SHAPES[shape][:6]
+        design = (attention.flash_fwd_design(b, sq, nh, hd) if name == "flash_fwd"
+                  else attention.flash_bwd_design(name, b, sq, t, nh, nkv, hd))
+        return {"ms": row[f"{name}_ms"], "plain_ms": row[f"{name}_plain_ms"],
+                "bound_ms": row[f"{name}_bound_ms"], "bound_by": row[f"{name}_bound_by"],
+                **({"bound_ms_padded": row[f"{name}_bound_ms_padded"]}
+                   if f"{name}_bound_ms_padded" in row else {}),
+                "library_ms": row[library_key] if library_key else None,
+                "sdpa_backend": row["sdpa_backend"],
                 **{k: design[k] for k in ("registers", "spill_bytes")}}
     measured = {name: flash_ms[f"{name}_ms"] for name in FLASH_KERNELS}
     measured["matmul_8bit"] = eight_step[("matmul_8bit", 8)][0]
@@ -3220,22 +3327,27 @@ def main():
               gpt2_full_step=gpt2_adam),
         entry("flash_fwd", "flash_fwd.cu", "quanta_tpu/ops/attention.py:189",
               launches["flash_fwd"], flash_ms["flash_fwd_ms"], flash_ms["flash_fwd_plain_ms"],
-              "bf16", flash_at + sdpa + "forward" + f32_flash_at + "; " + hd100_at,
-              flash_ms["sdpa_fwd_ms"], f32=f32_flash("flash_fwd", "sdpa_fwd_ms"),
-              hd100=flash_hd100("flash_fwd", "sdpa_fwd_ms")),
+              "bf16", flash_at + sdpa + "forward" + f32_flash_at + "; " + hd100_at + "; "
+              + hd256_at, flash_ms["sdpa_fwd_ms"], f32=f32_flash("flash_fwd", "sdpa_fwd_ms"),
+              hd100=flash_row_at("openllama_3b_s1024", "flash_fwd", "sdpa_fwd_ms"),
+              hd256=flash_row_at("gemma_2b_s1024", "flash_fwd", "sdpa_fwd_ms")),
         entry("flash_bwd_dq", "flash_bwd.cu", "quanta_tpu/ops/attention.py:465",
               launches["flash_bwd_dq"], flash_ms["flash_bwd_dq_ms"],
               flash_ms["flash_bwd_dq_plain_ms"], "bf16",
               flash_at + "none: no call computes dq alone (SDPA's backward stands on "
-              "flash_bwd_dkv's line)" + f32_flash_at + "; " + hd100_at,
-              f32=f32_flash("flash_bwd_dq", None), hd100=flash_hd100("flash_bwd_dq", None)),
+              "flash_bwd_dkv's line)" + f32_flash_at + "; " + hd100_at + "; " + hd256_at,
+              f32=f32_flash("flash_bwd_dq", None),
+              hd100=flash_row_at("openllama_3b_s1024", "flash_bwd_dq", None),
+              hd256=flash_row_at("gemma_2b_s1024", "flash_bwd_dq", None)),
         entry("flash_bwd_dkv", "flash_bwd.cu", "quanta_tpu/ops/attention.py:494",
               launches["flash_bwd_dkv"], flash_ms["flash_bwd_dkv_ms"],
               flash_ms["flash_bwd_dkv_plain_ms"], "bf16",
               flash_at + sdpa + "backward, dq, dk and dv in one call: compare it with this "
-              f"kernel's ms plus flash_bwd_dq's, {bwd_pair_ms}" + f32_flash_at + "; " + hd100_at,
-              flash_ms["sdpa_bwd_ms"], f32=f32_flash("flash_bwd_dkv", "sdpa_bwd_ms"),
-              hd100=flash_hd100("flash_bwd_dkv", "sdpa_bwd_ms")),
+              f"kernel's ms plus flash_bwd_dq's, {bwd_pair_ms}" + f32_flash_at + "; " + hd100_at
+              + "; " + hd256_at, flash_ms["sdpa_bwd_ms"],
+              f32=f32_flash("flash_bwd_dkv", "sdpa_bwd_ms"),
+              hd100=flash_row_at("openllama_3b_s1024", "flash_bwd_dkv", "sdpa_bwd_ms"),
+              hd256=flash_row_at("gemma_2b_s1024", "flash_bwd_dkv", "sdpa_bwd_ms")),
         entry("matmul_8bit", "matmul_8bit.cu", "quanta_tpu/ops/matmul.py:306",
               launches["matmul_8bit"], *eight_step[("matmul_8bit", 8)][:2], "bf16",
               "one decode step's 155 calls at M=8, int8, bf16 x, ms; library: none, no "

@@ -18,12 +18,17 @@ the library, and run this again. One JSON object per line:
   TinyLlama-1.1B's (B=2, S=T=1024, 32/4 heads, hd 64) and Llama-2-7B's
   (B=1, S=T=1024, 32 heads, hd 128) shapes, TinyLlama's at hd 32 (the
   three compiled widths) and OpenLLaMA-3B's (B=2, S=T=1024, 32 heads, hd
-  100, run padded to 128; skipped on a checkout whose kernels do not take
-  it; and the same shape at hd 128, what the padding is read against),
-  with their largest error
+  100, run padded to 128; and the same shape at hd 128, what the padding
+  is read against), Gemma-2B's geometry's (B=2, S=T=1024, 8 heads to 1 KV
+  head, hd 256) and the same shape at hd 160 and 192 (each run padded to
+  256: what a width of 192 would save), and head dims off a multiple of 4
+  beside the multiple of 8 the wrapper pads them to (37 and 40 at
+  TinyLlama's shape, 98 and 104 at OpenLLaMA-3B's); a shape whose head dim
+  a checkout's kernels refuse is skipped; with their largest error
   against the plain versions, beside SDPA's forward and backward on the
   same inputs and the backend it takes (in f32, where that is math, also
-  the efficient backend on K and V expanded to the query heads). It calls
+  the efficient backend on K and V expanded to the query heads, where it
+  takes the head dim). It calls
   nothing newer than the flash wrappers either, so ``--what flash --dtype
   float32`` run as a file times another checkout's f32 kernels the same
   way;
@@ -85,7 +90,14 @@ from quanta_tpu_torch.ops import attention, int4c, int8mm, matmul
 FLASH_SHAPES = {"tinyllama_s1024": (2, 1024, 32, 4, 64), "llama2_7b_s1024": (1, 1024, 32, 32, 128),
                 "tinyllama_hd32_s1024": (2, 1024, 32, 4, 32),
                 "openllama_3b_s1024": (2, 1024, 32, 32, 100),
-                "openllama_3b_hd128_s1024": (2, 1024, 32, 32, 128)}
+                "openllama_3b_hd128_s1024": (2, 1024, 32, 32, 128),
+                "gemma_2b_s1024": (2, 1024, 8, 1, 256),
+                "gemma_2b_hd160_s1024": (2, 1024, 8, 1, 160),
+                "gemma_2b_hd192_s1024": (2, 1024, 8, 1, 192),
+                "tinyllama_hd37_s1024": (2, 1024, 32, 4, 37),
+                "tinyllama_hd40_s1024": (2, 1024, 32, 4, 40),
+                "openllama_3b_hd98_s1024": (2, 1024, 32, 32, 98),
+                "openllama_3b_hd104_s1024": (2, 1024, 32, 32, 104)}
 MM8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
 MM8_MS = (8, 16, 32, 64, 256, 1024, 2048)
 MM4T_SHAPES = MM8_SHAPES + [(4096, 4096), (4096, 11008), (11008, 4096)]
@@ -145,8 +157,11 @@ def sdpa_times(q, k, v, do, iters=20):
     if taken == SDPBackend.MATH:
         rep = q.shape[2] // k.shape[2]
         ke, ve = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            fwd, bwd, both = times(qt, ke, ve)
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                fwd, bwd, both = times(qt, ke, ve)
+        except RuntimeError:  # it refuses this head dim too (f32 at hd 37)
+            return out
         out.update(sdpa_efficient_fwd_ms=fwd, sdpa_efficient_bwd_ms=bwd,
                    sdpa_efficient_fwd_bwd_ms=both)
     return out

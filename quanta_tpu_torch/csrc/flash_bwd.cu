@@ -51,9 +51,14 @@
 // No score tile goes through shared memory, and both kernels are
 // deterministic.
 //
-// Head dims: compiled at 32, 64 and 128 columns, a head dim in between run
-// padded (flash_common.cuh). The f32 route: flash_bwd_f32.cu; the launch
-// both share: flash_bwd.cuh.
+// Head dims: compiled at 32, 64, 128 and (flash_bwd_w256.cu) 256 columns, a
+// head dim in between run padded (flash_common.cuh). At 256 the dQ kernel is
+// the same (its m64 x 256 accumulator 128 registers a thread, as the
+// forward's O); the dK/dV kernel's two accumulators are not, so grid y
+// splits each (batch row, KV head) into two blocks that each own 128
+// columns of dK and dV, each computing S^T and dP^T over all 256 (DkvSmem::
+// SPLITS). The f32 route: flash_bwd_f32.cu; the launch both share:
+// flash_bwd.cuh.
 
 #include <cooperative_groups.h>
 
@@ -75,8 +80,12 @@ template <int HD> struct DqSmem {  // Q, dO, then STAGES x (K, V)
 };
 
 template <int HD> struct DkvSmem {  // K, V, then STAGES x (Q, dO), STAGES x (lse, D)
+  // columns of dK and dV a block owns: at HD 256 the two m64 x 256
+  // accumulators do not fit one warpgroup's registers, so SPLITS blocks
+  // each own 128 columns (S^T and dP^T, over all 256, computed by each)
+  static constexpr int OW = HD == 256 ? 128 : HD, SPLITS = HD / OW;
   static constexpr uint32_t STATS = (2 + 2 * STAGES) * Tile<HD>::BYTES;
-  static constexpr int RED_LD = HD + 8;  // f32 partial rows: 32-byte shift, few bank conflicts
+  static constexpr int RED_LD = OW + 8;  // f32 partial rows: 32-byte shift, few bank conflicts
   static constexpr size_t tiles = STATS + STAGES * 2 * TILE * 4;
   static constexpr size_t red = 2 * TILE * RED_LD * 4;  // dK, dV partials, after the loop
   static constexpr size_t bytes = (tiles > red ? tiles : red) + 1024;
@@ -225,7 +234,12 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
-  const int g = blockIdx.y % nkv, b = blockIdx.y / nkv, k0 = blockIdx.z * TILE;
+  constexpr int OW = SM::OW;
+  // unsigned, as blockIdx.y: g and b are an unsigned remainder and quotient
+  // (signed ones changed the 128-column kernel's register allocation)
+  const unsigned by = blockIdx.y / SM::SPLITS;
+  const int oc = (blockIdx.y % SM::SPLITS) * OW;  // the block's first column of dK, dV
+  const int g = by % nkv, b = by / nkv, k0 = blockIdx.z * TILE;
   const int rep = nh / nkv;
   const int qs = q_start[b];
   const int kvl = max(0, min(kv_len[b], Tk));
@@ -259,9 +273,9 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's key rows r_lo and r_lo + 8; query columns 8j + c_lo + c
   const int r_lo = warp * 16 + lane / 4, c_lo = 2 * (lane % 4);
   const float scale2 = scale * kLog2e;
-  float acc_k[HD / 2], acc_v[HD / 2];
+  float acc_k[OW / 2], acc_v[OW / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
+  for (int i = 0; i < OW / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
   for (int p = p_lo; p < p_hi; ++p) {
     const int it = p - p_lo, st = it % STAGES;
     cp_async_wait<STAGES - 2>();  // pair p has landed
@@ -325,10 +339,13 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
     fence_regs(acc_v);
     fence_regs(acc_k);
+    // (the block's columns of dO and Q: from the 64-column block oc / 64)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<HD>(acc_v, pa[kk], TL::mn_major(dOt, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb<OW>(acc_v, pa[kk], TL::mn_major(dOt + (oc / 64) * TL::HALF, kk));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<HD>(acc_k, da[kk], TL::mn_major(Qt, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb<OW>(acc_k, da[kk], TL::mn_major(Qt + (oc / 64) * TL::HALF, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_v);
@@ -343,7 +360,7 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float* rk = red + (r_lo + 8 * i) * SM::RED_LD + c_lo;
     float* rv = rk + TILE * SM::RED_LD;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < OW / 8; ++j) {
       const int e = 4 * j + 2 * i;
       *reinterpret_cast<float2*>(rk + 8 * j) = make_float2(acc_k[e], acc_k[e + 1]);
       *reinterpret_cast<float2*>(rv + 8 * j) = make_float2(acc_v[e], acc_v[e + 1]);
@@ -354,7 +371,7 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this block sums rows [rank * 64 / C, (rank + 1) * 64 / C) of dK and dV
   // over the cluster, in rank order, and writes them
   const int rows = TILE / C, row0 = rank * rows;
-  constexpr int V4 = HD / 4;
+  constexpr int V4 = OW / 4;
   for (int idx = tid; idx < 2 * rows * V4; idx += 128) {
     const int which = idx / (rows * V4), rem = idx % (rows * V4);
     const int row = row0 + rem / V4, col = (rem % V4) * 4;
@@ -367,21 +384,22 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
       sum.z += x.z;
       sum.w += x.w;
     }
-    if (k0 + row < Tk && (!PAD || col < hd))
+    if (k0 + row < Tk && (!PAD || oc + col < hd))
       *reinterpret_cast<float4*>((which ? dv : dk) + (((int64_t)b * Tk + k0 + row) * nkv + g) * hd +
-                                 col) = sum;
+                                 oc + col) = sum;
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// The bf16 route's kernels at compiled width HD, padded or not
+// The bf16 route's kernels at compiled width HD, padded or not (dK/dV: grid
+// y counts each (batch row, KV head) SPLITS times, one block a column slab)
 struct Bf16Route {
   template <int HD, bool PAD> static auto dq(int B, int Sq, int nh) {
     return plan(dim3(nh, B, (Sq + TILE - 1) / TILE), 1, flash_bwd_dq_sm90<HD, PAD>, 1,
                 DqSmem<HD>::bytes, STAGES);
   }
   template <int HD, bool PAD> static auto dkv(int B, int Sq, int Tk, int nh, int nkv) {
-    const DkvGrid lg = dkv_grid(B, Sq, Tk, nh, nkv, TILE);
+    const DkvGrid lg = dkv_grid(B * DkvSmem<HD>::SPLITS, Sq, Tk, nh, nkv, TILE);
     return plan(lg.grid, lg.cluster, flash_bwd_dkv_sm90<HD, PAD>, 1, DkvSmem<HD>::bytes, STAGES);
   }
 };
@@ -390,7 +408,7 @@ struct Bf16Route {
 
 // q, k, v, dO, lse, D (f32 (B, nh, Sq)), q_start, kv_len (int32), dq (f32,
 // q's shape), B, Sq, T, nh, nkv, hd, causal, scale, stream
-extern "C" int qt_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_dq_bf16)(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     const void* q_start, const void* kv_len, void* dq, int B,
                                     int Sq, int Tk, int nh, int nkv, int hd, int causal,
@@ -400,7 +418,7 @@ extern "C" int qt_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
 }
 
 // ... dk, dv (f32, k's shape), B, Sq, T, nh, nkv, hd, causal, scale, stream
-extern "C" int qt_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_dkv_bf16)(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
                                      const void* q_start, const void* kv_len, void* dk, void* dv,
                                      int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
@@ -410,7 +428,7 @@ extern "C" int qt_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v
 }
 
 // The launch of this route's kernel for a report (flash_bwd.cuh's design)
-extern "C" int qt_flash_bwd_design(int dkv, int hd, int B, int Sq, int Tk, int nh, int nkv,
+extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_design)(int dkv, int hd, int B, int Sq, int Tk, int nh, int nkv,
                                    int* out) {
   return design<Bf16Route>(dkv != 0, hd, B, Sq, Tk, nh, nkv, out);
 }

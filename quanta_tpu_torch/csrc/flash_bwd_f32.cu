@@ -17,11 +17,11 @@
 // every B operand sits in shared memory as split hi and lo tiles: the
 // block's own operands, split once, and each tile's p and ds, split as they
 // leave the accumulators. Every product is read the other way round from
-// the bf16 kernels'. A block runs two warpgroups below hd 128 (one at 128,
+// the bf16 kernels'. A block runs two warpgroups below hd 128 (one from 128,
 // where the shared memory holds one), each taking every second item of the
 // block with a ring slot and p / ds tiles of its own (two slots alone):
 //   - dQ: one block per (BQ query rows, head, batch row), BQ = 64 (32 at
-//     hd 128), ordered as the bf16 kernel's blocks. Q and dO are split once
+//     hd 128, 16 at 256), ordered as the bf16 kernel's blocks. Q and dO are split once
 //     into hi / lo tiles (rows = queries); the key tiles stream as raw K
 //     and V tiles. Per key tile, S^T = K Q^T and dP^T = V dO^T (rows =
 //     keys; lse and D per column, from shared memory), ds^T formed in the
@@ -29,7 +29,7 @@
 //     queries, columns = keys), then dQ^T += K^T dS^T, K^T's fragments read
 //     from the raw K tile. The warpgroups' dQ rows are summed in order.
 //   - dK/dV: one cluster of C blocks per (BK keys, KV head, batch row), BK
-//     = 64 (32 at hd 128), C picked as for the bf16 kernel (TinyLlama's
+//     = 64 (32 at hd 128, 16 at 256), C picked as for the bf16 kernel (TinyLlama's
 //     s1024 shape: 128 key tiles, C = 4, 512 blocks). K and V are split
 //     once into hi / lo tiles (rows = keys); the block's share of the (rep
 //     head, query tile) pairs streams as raw Q and dO tiles with their lse
@@ -42,7 +42,7 @@
 // An A fragment holds columns q and q + 4 of a k8 slice; the B tiles of S
 // and dP keep hd 2q and 2q + 1 there, so each fragment row is one 8-byte
 // load of a raw tile (RAW_PAD floats a row put the rows a half-warp reads
-// on distinct banks). Independent products (S and dP; hd 128's two slabs)
+// on distinct banks). Independent products (S and dP; hd 128's two slabs, 256's four)
 // interleave their wgmmas, and each slice's fragments load while the last
 // slice's products are issued. The tensor cores add with truncation: over
 // the 1024 keys of dQ and the 8 x 1024 query rows of dK/dV that bias would
@@ -82,12 +82,16 @@ namespace cg = cooperative_groups;
 // or pair) of the block from the w-th, through a ring of RS slots of its own
 // (one beside a second warpgroup, two alone): while one warpgroup's products
 // run, the other's loads, splits, exponentials and stores do. The block's
-// own split operands are shared.
+// own split operands are shared. At hd 256 one slot of raw 64 x 256 tiles
+// (132 KB) is all the shared memory holds beside the split ones, so the
+// block's own rows are 16 (wgmma's N; split Q, dO or K, V 64 KB) and its
+// one warpgroup loads each item before its products (RS 1), with hd in
+// four m64 slabs.
 template <int HD> struct DqF32 {
-  static constexpr int WGS = HD == 128 ? 1 : 2;
+  static constexpr int WGS = HD >= 128 ? 1 : 2;
   static constexpr int RS = HD == 128 ? 2 : 1;
-  static constexpr int BQ = HD == 128 ? 32 : 64;   // query rows a block
-  static constexpr int SLABS = HD == 128 ? 2 : 1;  // m64 slabs of hd in dQ^T
+  static constexpr int BQ = HD == 256 ? 16 : HD == 128 ? 32 : 64;  // query rows a block
+  static constexpr int SLABS = HD >= 128 ? HD / 64 : 1;             // m64 slabs of hd in dQ^T
   using QT = KTile<BQ, HD>;  // Q, dO hi / lo: the B of S^T = K Q^T, dP^T = V dO^T
   using ST = KTile<BQ, 64>;  // dS hi / lo: the B of dQ^T = K^T dS^T
   using RT = RawTile<HD>;
@@ -240,7 +244,12 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       }, ds_hi, ds_lo);
     };
     auto c0 = cols(0);
-    if constexpr (L::SLABS == 2) {
+    if constexpr (L::SLABS == 4) {
+      auto c1 = cols(1);
+      auto c2 = cols(2);
+      auto c3 = cols(3);
+      mma_3xtf32<TILE / 8>(c0, c1, c2, c3);
+    } else if constexpr (L::SLABS == 2) {
       auto c1 = cols(1);
       mma_3xtf32<TILE / 8>(c0, c1);
     } else {
@@ -289,10 +298,10 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD> struct DkvF32 {
-  static constexpr int WGS = HD == 128 ? 1 : 2;
+  static constexpr int WGS = HD >= 128 ? 1 : 2;
   static constexpr int RS = HD == 128 ? 2 : 1;
-  static constexpr int BK = HD == 128 ? 32 : 64;   // keys a block
-  static constexpr int SLABS = HD == 128 ? 2 : 1;  // m64 slabs of hd in dK^T, dV^T
+  static constexpr int BK = HD == 256 ? 16 : HD == 128 ? 32 : 64;  // keys a block
+  static constexpr int SLABS = HD >= 128 ? HD / 64 : 1;             // m64 slabs of hd in dK^T, dV^T
   using KT = KTile<BK, HD>;  // K, V hi / lo: the B of S = Q K^T, dP = dO V^T
   using PT = KTile<BK, 64>;  // P, then dS, hi / lo: the B of dV^T = dO^T P, dK^T = Q^T dS
   using RT = RawTile<HD>;
@@ -464,7 +473,12 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
         }, t_hi, t_lo);
       };
       auto c0 = chain_of(0);
-      if constexpr (L::SLABS == 2) {
+      if constexpr (L::SLABS == 4) {
+        auto c1 = chain_of(1);
+        auto c2 = chain_of(2);
+        auto c3 = chain_of(3);
+        mma_3xtf32<TILE / 8>(c0, c1, c2, c3);
+      } else if constexpr (L::SLABS == 2) {
         auto c1 = chain_of(1);
         mma_3xtf32<TILE / 8>(c0, c1);
       } else {
@@ -548,7 +562,7 @@ struct F32Route {
 
 // q, k, v, dO, lse, D (f32 (B, nh, Sq)), q_start, kv_len (int32), dq (f32,
 // q's shape), B, Sq, T, nh, nkv, hd, causal, scale, stream
-extern "C" int qt_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_dq_f32)(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    const void* q_start, const void* kv_len, void* dq, int B,
                                    int Sq, int Tk, int nh, int nkv, int hd, int causal,
@@ -558,7 +572,7 @@ extern "C" int qt_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
 }
 
 // ... dk, dv (f32, k's shape), B, Sq, T, nh, nkv, hd, causal, scale, stream
-extern "C" int qt_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
+extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_dkv_f32)(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     const void* q_start, const void* kv_len, void* dk, void* dv,
                                     int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
@@ -568,7 +582,7 @@ extern "C" int qt_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
 }
 
 // The launch of this route's kernel for a report (flash_bwd.cuh's design)
-extern "C" int qt_flash_bwd_f32_design(int dkv, int hd, int B, int Sq, int Tk, int nh, int nkv,
+extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_f32_design)(int dkv, int hd, int B, int Sq, int Tk, int nh, int nkv,
                                        int* out) {
   return design<F32Route>(dkv != 0, hd, B, Sq, Tk, nh, nkv, out);
 }

@@ -9,15 +9,22 @@
 // flash_tf32x3.cuh. Here: the tile size, the masks, the head dims and the
 // launch.
 //
-// Head dims. Each kernel is compiled for HD = 32, 64 and 128 columns; a
-// head dim hd (a multiple of 4 up to 128) runs in the smallest HD >= hd,
+// Head dims. Each kernel is compiled for HD = 32, 64, 128 and 256 columns; a
+// head dim hd (a multiple of 4 up to 256) runs in the smallest HD >= hd,
 // with hd passed at run time (PAD true): loads zero columns hd..HD-1 in
 // shared memory, so q . k and dO . v (and so lse and D) are those of the
 // hd real columns, and stores skip them; the caller's scale is 1/sqrt(hd).
 // hd == HD takes the instantiation with PAD false, where hd folds to the
 // constant HD and the loads and stores are the unpadded ones; the f32
 // backward has none, as its masks cost it nothing (PERF.md). A multiple of
-// 4 keeps every f32 row 16-byte aligned and every bf16 row 8-byte aligned.
+// 4 keeps every f32 row 16-byte aligned and every bf16 row 8-byte aligned;
+// the wrapper (ops/attention.py) pads any other head dim with zero columns
+// to a multiple of 8 before the launch.
+//
+// The 256-column instantiations are compiled apart, one nvcc each: a
+// source *_w256.cu defines QT_FLASH_WIDE and includes its kernel source,
+// whose with_hd then takes 256 alone and whose C entry points end in _w256
+// (QT_FLASH_ENTRY); without it, a source takes 32, 64 and 128.
 
 #pragma once
 
@@ -27,6 +34,12 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#ifdef QT_FLASH_WIDE
+#define QT_FLASH_ENTRY(name) name##_w256
+#else
+#define QT_FLASH_ENTRY(name) name
+#endif
 
 namespace {
 
@@ -52,25 +65,30 @@ __device__ __forceinline__ int live_kv_end(int q_start, int q0, int Sq, int kv_l
   return causal ? min(kv_len, q_start + min(q0 + TILE, Sq)) : kv_len;
 }
 
-// The compiled width a head dim runs in: the smallest of 32, 64 and 128
-// that holds it, for a multiple of 4 up to 128; else 0.
+// The compiled width a head dim runs in: the smallest of 32, 64, 128 and
+// 256 that holds it, for a multiple of 4 up to 256; else 0.
 inline int padded_hd(int hd) {
-  if (hd <= 0 || hd % 4 != 0 || hd > 128) return 0;
-  return hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+  if (hd <= 0 || hd % 4 != 0 || hd > 256) return 0;
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
 }
 
 // f(std::integral_constant<int, HD>, std::bool_constant<PAD>) for head dim
-// hd, or cudaErrorInvalidValue where no compiled width takes it.
+// hd, or cudaErrorInvalidValue where no width compiled in this source takes it.
 template <typename F> int with_hd(int hd, F f) {
   using P = std::true_type;
   using U = std::false_type;
   switch (padded_hd(hd)) {
+#ifdef QT_FLASH_WIDE
+    case 256: return hd == 256 ? f(std::integral_constant<int, 256>{}, U{})
+                               : f(std::integral_constant<int, 256>{}, P{});
+#else
     case 32: return hd == 32 ? f(std::integral_constant<int, 32>{}, U{})
                              : f(std::integral_constant<int, 32>{}, P{});
     case 64: return hd == 64 ? f(std::integral_constant<int, 64>{}, U{})
                              : f(std::integral_constant<int, 64>{}, P{});
     case 128: return hd == 128 ? f(std::integral_constant<int, 128>{}, U{})
                                : f(std::integral_constant<int, 128>{}, P{});
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
 }

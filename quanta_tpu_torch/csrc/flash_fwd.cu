@@ -8,7 +8,7 @@
 //                                         j <= q_start[b] + i)
 //   out_i = sum_j softmax(s)_j v_j,  lse_i = log sum_j exp(s_j)
 //
-// with the online softmax: per key tile (64 keys; 32 in f32 at hd 128),
+// with the online softmax: per key tile (64 keys; 32 in f32 from hd 128),
 // m' = max(m, max_j s_j),
 // alpha = exp(m - m'), p_j = exp(s_j - m'), l = l * alpha + sum_j p_j (one
 // rounded multiply, then one rounded add, as the TPU kernel's order),
@@ -26,10 +26,14 @@
 // cores; beside them the exponentials (one per live score, on the SFU at a
 // sixteenth of the FMA rate) and the staging of K/V tiles from L2.
 //
-// Head dims (flash_common.cuh): both routes are compiled at 32, 64 and 128
-// columns; a head dim in between runs padded to the next, the extra
-// columns zero in shared memory and never stored. The padded bf16 forward
-// is held to two blocks an SM.
+// Head dims (flash_common.cuh): both routes are compiled at 32, 64, 128 and
+// (flash_fwd_w256.cu) 256 columns; a head dim in between runs padded to the
+// next, the extra columns zero in shared memory and never stored. The
+// padded bf16 forward is held to two blocks an SM below 256. At 256 the
+// bf16 route is the same kernel (O is m64 x 256 f32, 128 registers a
+// thread, one block an SM); the f32 route's two warpgroups share 64 query
+// rows, each computing S and owning 128 columns of O (FwdF32::SPLIT_O), with
+// one buffer of split K / V tiles.
 //
 // bf16 (the pieces are sm90.cuh's, as the backward's dQ kernel): a block of FWD_WG consumer warpgroups owns FWD_WG
 // consecutive 64-row query tiles of one (batch row, query head); the
@@ -110,21 +114,29 @@ namespace {
 // ------------------------------------------------------- f32: 3xTF32 on Hopper
 
 template <int HD> struct FwdF32 {
-  static constexpr int WGS = 2;                   // warpgroups a block, 64 query rows each
-  static constexpr int BK = HD == 128 ? 32 : 64;  // keys a tile
-  static constexpr int ROWS = 64 * WGS;           // query rows a block
+  static constexpr int WGS = 2;  // warpgroups a block
+  // HD 256: O (m64 x 256) and each tile's partial do not fit one warpgroup's
+  // registers, so the two warpgroups share 64 query rows, each computing S
+  // and owning 128 columns of O; below, each owns 64 query rows and all of O
+  static constexpr bool SPLIT_O = HD == 256;
+  static constexpr int ROW_WGS = SPLIT_O ? 1 : WGS;  // warpgroups along the query rows
+  static constexpr int OW = SPLIT_O ? HD / 2 : HD;   // columns of O a warpgroup owns
+  static constexpr int BK = HD >= 128 ? 32 : 64;     // keys a tile
+  static constexpr int ROWS = 64 * ROW_WGS;          // query rows a block
   static constexpr int THREADS = 128 * WGS;
   using KT = KTile<BK, HD>;  // K hi / lo: the B of S = Q K^T (rows = keys)
   using VT = KTile<HD, BK>;  // V^T hi / lo: the B of P V (rows = hd, keys in P's fragment order)
-  using RT = RawTile<HD>;    // each warpgroup's Q, the A of S
+  using RT = RawTile<HD>;    // each row warpgroup's Q, the A of S
   // the items of K (key, 8 hd) and of V (4 keys, 4 hd) each thread stages a tile
   static constexpr int ITEMS = BK * HD / 8 / THREADS;
   static_assert(ITEMS * THREADS * 8 == BK * HD, "whole K items a thread");
   static constexpr int N_VITEMS = BK * HD / 16, VITEMS = (N_VITEMS + THREADS - 1) / THREADS;
-  static constexpr int BUFS = 2;  // split K / V tiles: the next tile's beside the current one
-  // buffer u: K hi, K lo, V^T hi, V^T lo at u BUF; warpgroup w's raw Q at Q0 + w RT::BYTES
+  // split K / V tiles: the next tile's beside the current one; at HD 256
+  // one buffer (128 KB), refilled once every warpgroup is done with it
+  static constexpr int BUFS = SPLIT_O ? 1 : 2;
+  // buffer u: K hi, K lo, V^T hi, V^T lo at u BUF; row warpgroup w's raw Q at Q0 + w RT::BYTES
   static constexpr uint32_t BUF = 2 * KT::BYTES + 2 * VT::BYTES, Q0 = BUFS * BUF;
-  static constexpr size_t bytes = Q0 + WGS * RT::BYTES + 1024;
+  static constexpr size_t bytes = Q0 + ROW_WGS * RT::BYTES + 1024;
 };
 
 // grid (query head, batch row, blocks of `rows` query rows)
@@ -148,9 +160,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
 
   const int tid = threadIdx.x, wg = tid / 128, wtid = tid % 128;
   const int warp = wtid / 32, lane = tid % 32;
+  const int rwg = L::SPLIT_O ? 0 : wg;      // this warpgroup's rows
+  const int oc = L::SPLIT_O ? wg * L::OW : 0;  // its first column of O
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * L::ROWS;  // the longest rows first
-  const int qw = q0 + wg * TILE;                          // this warpgroup's first row
+  const int qw = q0 + rwg * TILE;                         // this warpgroup's first row
   const int g = h / (nh / nkv);
   const int qs = q_start[b];
   const int kvl = max(0, min(kv_len[b], Tk));
@@ -161,9 +175,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
   const int kv_end_w = qw < Sq ? live_kv_end(qs, qw, Sq, kvl, causal) : 0;
   const int n_tiles_w = kv_end_w > 0 ? (kv_end_w + BK - 1) / BK : 0;
 
-  const uint32_t Qw = base + L::Q0 + wg * RT::BYTES;
+  const uint32_t Qw = base + L::Q0 + rwg * RT::BYTES;
   const float* Qr = reinterpret_cast<const float*>(gbase + (Qw - base));
-  RT::load(Qw, q + ((int64_t)b * Sq * nh + h) * hd, (int64_t)nh * hd, qw, Sq, wtid, hd);
+  if (!L::SPLIT_O || wg == 0)
+    RT::load(Qw, q + ((int64_t)b * Sq * nh + h) * hd, (int64_t)nh * hd, qw, Sq, wtid, hd);
   cp_async_commit();
 
   // Each thread stages its items of a key tile's K and V in registers, a
@@ -249,7 +264,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
     fetch(0);
     stash(0);
   }
-  if (n_tiles > 1) fetch(1);
+  if (L::BUFS > 1 && n_tiles > 1) fetch(1);
   cp_async_wait<0>();
   fence_proxy_async();
   __syncthreads();  // Q and the first split tile are whole
@@ -259,9 +274,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
   const int r0 = 16 * warp + lane / 4, q4 = lane % 4;
   const float scale2 = scale * kLog2e;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float o[HD / 2];
+  float o[L::OW / 2];
 #pragma unroll
-  for (int e = 0; e < HD / 2; ++e) o[e] = 0.0f;
+  for (int e = 0; e < L::OW / 2; ++e) o[e] = 0.0f;
 
   for (int t = 0; t < n_tiles; ++t) {
     const uint32_t k_hi = base + (t % L::BUFS) * L::BUF, k_lo = k_hi + KT::BYTES;
@@ -327,19 +342,21 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
 
       // the tile's P V into a fresh partial, P's accumulator registers
       // being its A fragments: slice kk's columns q, q + 4 are keys 8 kk +
-      // 2 q, 8 kk + 2 q + 1, which V^T's tiles hold at positions q, q + 4
-      float part[HD / 2];
+      // 2 q, 8 kk + 2 q + 1, which V^T's tiles hold at positions q, q + 4;
+      // the warpgroup's columns of O are V^T's rows from oc (128-byte rows)
+      float part[L::OW / 2];
       {
-        auto cp = chain<HD>(part, [&](int kk, float(&a)[4]) {
+        auto cp = chain<L::OW>(part, [&](int kk, float(&a)[4]) {
           a[0] = s[4 * kk];
           a[1] = s[4 * kk + 2];
           a[2] = s[4 * kk + 1];
           a[3] = s[4 * kk + 3];
-        }, [&](int kk) { return VT::desc(v_hi, kk); }, [&](int kk) { return VT::desc(v_lo, kk); });
+        }, [&](int kk) { return VT::desc(v_hi + oc * 128, kk); },
+           [&](int kk) { return VT::desc(v_lo + oc * 128, kk); });
         mma_3xtf32<BK / 8>(cp);
       }
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < L::OW / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -349,8 +366,16 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
           }
     }
     // the next tile, split into the other buffer (its last reader, tile t -
-    // 1, is done on every warpgroup), and the one after into the registers
-    if (t + 1 < n_tiles) {
+    // 1, is done on every warpgroup), and the one after into the registers;
+    // with one buffer, the next tile's loads and then, once every
+    // warpgroup is done with this one, its split
+    if constexpr (L::BUFS == 1) {
+      if (t + 1 < n_tiles) {
+        fetch(t + 1);
+        __syncthreads();
+        stash(0);
+      }
+    } else if (t + 1 < n_tiles) {
       stash((t + 1) % L::BUFS);
       if (t + 2 < n_tiles) fetch(t + 2);
     }
@@ -362,15 +387,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
   for (int i = 0; i < 2; ++i) {
     const int row = qw + r0 + 8 * i;
     if (row >= Sq) continue;
-    float* orow = out + (((int64_t)b * Sq + row) * nh + h) * hd + 2 * q4;
+    float* orow = out + (((int64_t)b * Sq + row) * nh + h) * hd + oc + 2 * q4;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      if (PAD && 8 * j + 2 * q4 >= hd) continue;  // a padded column
+    for (int j = 0; j < L::OW / 8; ++j) {
+      if (PAD && oc + 8 * j + 2 * q4 >= hd) continue;  // a padded column
       const float x0 = l[i] > 0.0f ? o[4 * j + 2 * i] / l[i] : 0.0f;
       const float x1 = l[i] > 0.0f ? o[4 * j + 2 * i + 1] / l[i] : 0.0f;
       *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(x0, x1);
     }
-    if (lse != nullptr && q4 == 0)
+    if (lse != nullptr && q4 == 0 && oc == 0)
       lse[((int64_t)b * nh + h) * Sq + row] = l[i] > 0.0f ? m[i] * scale + logf(l[i]) : kDeadLse;
   }
 }
@@ -392,8 +417,10 @@ template <int HD> struct FwdSmem90 {  // FWD_WG Q tiles, then FWD_STAGES x (K, V
 // one block an SM, 26% longer at hd 128's work. The unpadded widths stay
 // unbounded (0): 96-126 registers, two blocks an SM, where a bound of one
 // block gave them 104-146 and hd 128 one block an SM, 3% slower (PERF.md).
+// HD 256 (O is 128 registers a thread; the tiles 193 KB) runs one block an
+// SM, padded or not.
 template <int HD, bool PAD>
-__global__ void __launch_bounds__(FWD_THREADS, PAD ? 2 : 0)
+__global__ void __launch_bounds__(FWD_THREADS, PAD && HD < 256 ? 2 : 0)
 flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                const int* __restrict__ q_start, const int* __restrict__ kv_len,
                bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Tk, int nh, int nkv,
@@ -614,7 +641,7 @@ int design(bool f32, int hd, int B, int Sq, int nh, int* out) {
 
 // q, k, v, q_start, kv_len (int32), out, lse (f32 (B, nh, Sq), or null),
 // B, Sq, T, nh, nkv, hd, causal, scale, stream
-extern "C" int qt_flash_fwd_bf16(const void* q, const void* k, const void* v,
+extern "C" int QT_FLASH_ENTRY(qt_flash_fwd_bf16)(const void* q, const void* k, const void* v,
                                  const void* q_start, const void* kv_len, void* out, void* lse,
                                  int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                  float scale, void* stream) {
@@ -625,7 +652,7 @@ extern "C" int qt_flash_fwd_bf16(const void* q, const void* k, const void* v,
   });
 }
 
-extern "C" int qt_flash_fwd_f32(const void* q, const void* k, const void* v,
+extern "C" int QT_FLASH_ENTRY(qt_flash_fwd_f32)(const void* q, const void* k, const void* v,
                                 const void* q_start, const void* kv_len, void* out, void* lse,
                                 int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                 float scale, void* stream) {
@@ -641,10 +668,10 @@ extern "C" int qt_flash_fwd_f32(const void* q, const void* k, const void* v,
 // dynamic shared bytes, local (spill) bytes a thread, SMs, stages (bf16:
 // the cp.async ring of K / V tiles; f32: the split K / V buffers), of the
 // kernel that head dim hd runs (its compiled width, padded or not)
-extern "C" int qt_flash_fwd_design(int hd, int B, int Sq, int nh, int* out) {
+extern "C" int QT_FLASH_ENTRY(qt_flash_fwd_design)(int hd, int B, int Sq, int nh, int* out) {
   return design(false, hd, B, Sq, nh, out);
 }
 
-extern "C" int qt_flash_fwd_f32_design(int hd, int B, int Sq, int nh, int* out) {
+extern "C" int QT_FLASH_ENTRY(qt_flash_fwd_f32_design)(int hd, int B, int Sq, int nh, int* out) {
   return design(true, hd, B, Sq, nh, out);
 }

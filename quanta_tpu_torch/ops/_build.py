@@ -97,6 +97,10 @@ _SIGNATURES = {
     "qt_matmul_int8_design": [_I] * 4 + [_P],
 }
 
+# the 256-column flash kernels (csrc/*_w256.cu) take the same arguments
+_SIGNATURES.update({f"{name}_w256": args for name, args in list(_SIGNATURES.items())
+                    if name.startswith("qt_flash_")})
+
 launches: dict[str, int] = {"matmul_4bit": 0, "matmul_4bit_t": 0, "matmul_8bit": 0,
                             "matmul_8bit_t": 0, "matmul_int4c": 0,
                             "matmul_int8_fused": 0, "matmul_int8": 0, "quantize_blockwise": 0,

@@ -31,10 +31,16 @@ Dispatch: ``use_kernel=None`` means the kernels for CUDA tensors and the
 plain versions for CPU ones; ``True`` on a CPU tensor raises; ``False``
 runs the plain versions anywhere. A CUDA tensor never falls back to the
 plain versions on its own. The kernels take bf16 or f32 and any head_dim
-that is a multiple of 4 up to 128 (:func:`kernel_takes`); each is compiled
-for 32, 64 and 128 columns, and a head_dim runs in the smallest that holds
-it (:func:`padded_head_dim`), its extra columns zero, at the scale of its
-own head_dim. Anything else raises a ``ValueError`` on the kernel route.
+from 1 to 256, as the TPU kernels do (:func:`kernel_takes`); each is
+compiled for 32, 64, 128 and 256 columns (the 256 ones in sources of their
+own, ``csrc/*_w256.cu``, entry points ending in ``_w256``), and a head_dim
+runs in the smallest that holds it (:func:`padded_head_dim`), its extra
+columns zero, at the scale of its own head_dim. A head_dim that is not a
+multiple of 4 would leave rows off the kernels' 8- and 16-byte copies, so
+the wrapper pads it with zero columns to the next multiple of 8 before the
+launch and slices the outputs back (:func:`kernel_head_dim`), as the TPU
+kernel pads the sequence on its host. Anything else (a head_dim above 256,
+another dtype) raises a ``ValueError`` on the kernel route.
 ``flash_attention`` is differentiable in q, k and v through
 ``_FlashAttention``, whose backward computes ``D = rowsum(dO * O)`` in
 plain torch and then runs the dQ and the dK/dV kernels.
@@ -50,24 +56,30 @@ import torch
 from quanta_tpu_torch.ops import _build
 from quanta_tpu_torch.ops.matmul import _aligned
 
-PADDED_HEAD_DIMS = (32, 64, 128)  # the widths the kernels are compiled for
+PADDED_HEAD_DIMS = (32, 64, 128, 256)  # the widths the kernels are compiled for
 DEAD_LSE = 1e30  # logsumexp of a row with no live key
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
-_TAKES = "head_dim a multiple of 4 up to 128"
+_TAKES = "head_dim from 1 to 256"
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The head_dim the kernels see: hd where it is a multiple of 4, else
+    the next multiple of 8 (the wrapper's zero columns)."""
+    return hd if hd % 4 == 0 else -(-hd // 8) * 8
 
 
 def padded_head_dim(hd: int) -> int:
     """The compiled width a head_dim runs in: the smallest of
-    ``PADDED_HEAD_DIMS`` that holds it (0 where none does, or hd % 4 != 0)."""
-    if hd <= 0 or hd % 4:
+    ``PADDED_HEAD_DIMS`` that holds it (0 where none does)."""
+    if hd <= 0:
         return 0
-    return next((p for p in PADDED_HEAD_DIMS if hd <= p), 0)
+    return next((p for p in PADDED_HEAD_DIMS if kernel_head_dim(hd) <= p), 0)
 
 
 def kernel_takes(hd: int, dtype: torch.dtype) -> bool:
     """Whether the CUDA kernels take this head_dim and dtype: bf16 or f32,
-    head_dim a multiple of 4 up to 128. ``llama.forward(use_flash=None)``
-    picks flash on CUDA only where they do."""
+    head_dim from 1 to 256. ``llama.forward(use_flash=None)`` picks flash on
+    CUDA only where they do."""
     return dtype in _SUFFIX and padded_head_dim(hd) > 0
 
 
@@ -82,17 +94,32 @@ def _check(q, k, v, q_start, kv_len):
         raise ValueError(f"flash_attention: q_start and kv_len must be ({b},)")
 
 
+def _entry(name, padded):
+    """The C entry point of a kernel (e.g. ``flash_fwd_bf16``) at a compiled width."""
+    return f"qt_{name}" + ("_w256" if padded == 256 else "")
+
+
 def _kernel_args(name, q, *tensors):
-    """The C entry point for q's dtype, after the checks the kernels need."""
+    """The C entry point for q's dtype and head_dim, after the checks the
+    kernels need."""
     suffix = _SUFFIX.get(q.dtype)
     if suffix is None:
         raise ValueError(f"{name}: the CUDA kernels take bf16 or f32, got {q.dtype}")
-    if not padded_head_dim(q.shape[-1]):
+    padded = padded_head_dim(q.shape[-1])
+    if not padded:
         raise ValueError(f"{name}: the CUDA kernels take {_TAKES}, got head_dim {q.shape[-1]}")
     for t in tensors:
         if t.device != q.device:
             raise ValueError(f"{name}: every operand must be on {q.device}")
-    return f"qt_{name}_{suffix}"
+    return _entry(f"{name}_{suffix}", padded)
+
+
+def _to_kernel(x, dtype):
+    """x in the kernels' dtype and layout, its head_dim zero-padded to
+    :func:`kernel_head_dim`."""
+    x = x.to(dtype)
+    pad = kernel_head_dim(x.shape[-1]) - x.shape[-1]
+    return _aligned(torch.nn.functional.pad(x, (0, pad)) if pad else x)
 
 
 def _positions(q, k, q_start, kv_len):
@@ -169,8 +196,11 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, q_start, kv_len, *, causal=
 
 
 def _sizes(q, k, causal):
+    """The kernels' size arguments: their head_dim (padded to a multiple
+    of 8 where q's is not one of 4) and the scale of q's own."""
     b, sq, nh, hd = q.shape
-    return b, sq, k.shape[1], nh, k.shape[2], hd, int(causal), 1.0 / math.sqrt(hd)
+    return (b, sq, k.shape[1], nh, k.shape[2], kernel_head_dim(hd), int(causal),
+            1.0 / math.sqrt(hd))
 
 
 def flash_forward(q, k, v, q_start, kv_len, *, causal=True, save_lse=False, use_kernel=None):
@@ -184,18 +214,20 @@ def flash_forward(q, k, v, q_start, kv_len, *, causal=True, save_lse=False, use_
     for x in (q, k, v):
         _build.refuse_grad(x, "flash_fwd", "differentiate through flash_attention")
     entry = _kernel_args("flash_fwd", q, k, v, q_start, kv_len)
+    sizes = _sizes(q, k, causal)
     q_start, kv_len = _positions(q, k, q_start, kv_len)
-    q, k, v = _aligned(q), _aligned(k.to(q.dtype)), _aligned(v.to(q.dtype))
+    hd = q.shape[-1]
+    q, k, v = (_to_kernel(x, q.dtype) for x in (q, k, v))
     b, sq, nh, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, sq), dtype=torch.float32, device=q.device) if save_lse else None
     rc = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), *_sizes(q, k, causal),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), *sizes,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd")
     _build.launches["flash_fwd"] += 1
-    return out, lse
+    return _own_hd(out, hd), lse
 
 
 def _bwd_launch(name, q, k, v, do, lse, delta, q_start, kv_len, causal, outs):
@@ -206,8 +238,8 @@ def _bwd_launch(name, q, k, v, do, lse, delta, q_start, kv_len, causal, outs):
                          f"{tuple(do.shape)}, {tuple(lse.shape)}, {tuple(delta.shape)}")
     entry = _kernel_args(name, q, k, v, do, lse, delta, q_start, kv_len)
     q_start, kv_len = _positions(q, k, q_start, kv_len)
-    args = [_aligned(t) for t in (q, k.to(q.dtype), v.to(q.dtype), do.to(q.dtype),
-                                  lse.float(), delta.float())]
+    args = [*(_to_kernel(t, q.dtype) for t in (q, k, v, do)), _aligned(lse.float()),
+            _aligned(delta.float())]
     rc = getattr(_build.library(), entry)(
         *(t.data_ptr() for t in args), q_start.data_ptr(), kv_len.data_ptr(),
         *(o.data_ptr() for o in outs), *_sizes(q, k, causal),
@@ -216,24 +248,34 @@ def _bwd_launch(name, q, k, v, do, lse, delta, q_start, kv_len, causal, outs):
     _build.launches[name] += 1
 
 
+def _grad_out(shape, device):
+    """An f32 gradient of the kernels' head_dim, for ``shape`` (..., hd)."""
+    return torch.empty((*shape[:-1], kernel_head_dim(shape[-1])), dtype=torch.float32,
+                       device=device)
+
+
+def _own_hd(x, hd):
+    """x's first hd columns (a view), where the kernels padded them."""
+    return x[..., :hd] if x.shape[-1] != hd else x
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, q_start, kv_len, *, causal=True, use_kernel=None):
     """dq (B, Sq, nh, hd) f32 from the forward's lse and D = rowsum(dO * O)
     (both (B, nh, Sq) f32)."""
     if not _build.use_kernel_for(use_kernel, q):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, q_start, kv_len, causal=causal)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dq = _grad_out(q.shape, q.device)
     _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, q_start, kv_len, causal, [dq])
-    return dq
+    return _own_hd(dq, q.shape[-1])
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, q_start, kv_len, *, causal=True, use_kernel=None):
     """(dk, dv), each (B, T, nkv, hd) f32, from the same inputs as dq."""
     if not _build.use_kernel_for(use_kernel, q):
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, q_start, kv_len, causal=causal)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dk, dv = _grad_out(k.shape, q.device), _grad_out(k.shape, q.device)
     _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, q_start, kv_len, causal, [dk, dv])
-    return dk, dv
+    return _own_hd(dk, q.shape[-1]), _own_hd(dv, q.shape[-1])
 
 
 _DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "cluster", "blocks_per_sm", "registers",
@@ -261,9 +303,10 @@ def flash_fwd_design(b, sq, nh, hd, dtype=torch.bfloat16):
     width's, padded where the two differ)."""
     padded = _design_check("flash_fwd", hd, dtype)
     f32 = dtype == torch.float32
-    entry = "qt_flash_fwd_f32_design" if f32 else "qt_flash_fwd_design"
+    entry = _entry("flash_fwd_f32_design" if f32 else "flash_fwd_design", padded)
     out = (ctypes.c_int * len(_FWD_DESIGN_KEYS))()
-    _build.check(getattr(_build.library(), entry)(hd, b, sq, nh, out), "flash_fwd")
+    _build.check(getattr(_build.library(), entry)(kernel_head_dim(hd), b, sq, nh, out),
+                 "flash_fwd")
     return {"design": "wgmma_3xtf32" if f32 else "wgmma", "padded_head_dim": padded,
             **dict(zip(_FWD_DESIGN_KEYS, out))}
 
@@ -279,10 +322,10 @@ def flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=torch.bfloat16):
     as for :func:`flash_fwd_design`."""
     padded = _design_check(name, hd, dtype)
     f32 = dtype == torch.float32
-    entry = "qt_flash_bwd_f32_design" if f32 else "qt_flash_bwd_design"
+    entry = _entry("flash_bwd_f32_design" if f32 else "flash_bwd_design", padded)
     out = (ctypes.c_int * len(_DESIGN_KEYS))()
-    rc = getattr(_build.library(), entry)(int(name == "flash_bwd_dkv"), hd, b, sq, t, nh, nkv,
-                                          out)
+    rc = getattr(_build.library(), entry)(int(name == "flash_bwd_dkv"), kernel_head_dim(hd), b,
+                                          sq, t, nh, nkv, out)
     _build.check(rc, name)
     return {"design": "wgmma_3xtf32" if f32 else "wgmma", "padded_head_dim": padded,
             **dict(zip(_DESIGN_KEYS, out))}

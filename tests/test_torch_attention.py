@@ -112,9 +112,10 @@ def test_grad_matches_jax(b, s, t, nh, nkv, hd, tq, tk, q_start):
 
 
 # head dims the kernels run padded to a compiled width (100 in 128, as
-# OpenLLaMA-3B's; 80 in 128): b, s, t, nh, nkv, tq, tk, q_start (GQA, ragged
-# tiles, a cached offset)
-PADDED_HDS = [100, 80]
+# OpenLLaMA-3B's; 80 in 128; 160 in 256; 37 and 98, off a multiple of 4,
+# padded by the wrapper to 40 and 104 first) and Gemma-2B's 256: b, s, t,
+# nh, nkv, tq, tk, q_start (GQA, ragged tiles, a cached offset)
+PADDED_HDS = [100, 80, 37, 98, 160, 256]
 
 
 @pytest.mark.parametrize("hd", PADDED_HDS)
@@ -142,24 +143,60 @@ def test_forward_and_grad_at_padded_head_dims_match_jax(hd):
         np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **GRAD)
 
 
+@pytest.mark.parametrize("hd", PADDED_HDS)
+def test_forward_and_grad_bf16_at_padded_head_dims_match_jax(hd):
+    """The same in bf16: the plain forward and its q, k and v gradients
+    against the Pallas kernels (interpret mode) on bf16 operands, within
+    2e-2 (the file's bf16 tolerance). Both round p (and ds) to bf16, at
+    other points of the sum (the kernels per tile, against the running
+    max), so they differ by bf16 roundings."""
+    b, s, t, nh, nkv = 2, 48, 80, 4, 2
+    q, k, v, qs, kl = _inputs(b, s, t, nh, nkv, hd, [0, 24], seed=15)
+    kl = np.asarray([48, 72], np.int32)
+    q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32) for x in (q, k, v))
+    bf = dict(rtol=2e-2, atol=2e-2)
+    want = _jax_flash(q, k, v, qs, kl, 16, 32, dtype=jnp.bfloat16)
+    tq, tk, tv = (x.to(torch.bfloat16) for x in _t(q, k, v))
+    got = tattn.flash_attention(tq, tk, tv, *_t(qs, kl))
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, nh, hd)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **bf)
+    w = np.random.default_rng(16).standard_normal((b, s, nh, hd)).astype(np.float32)
+
+    def loss(q_, k_, v_):
+        out = _jax_flash(q_, k_, v_, qs, kl, 16, 32, dtype=jnp.bfloat16)
+        return jnp.sum(out.astype(jnp.float32) * w)
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    tq_, tk_, tv_ = (x.requires_grad_() for x in (tq, tk, tv))
+    (tattn.flash_attention(tq_, tk_, tv_, *_t(qs, kl)).float() * torch.from_numpy(w)) \
+        .sum().backward()
+    for got_g, want_g in zip((tq_.grad, tk_.grad, tv_.grad), grads):
+        np.testing.assert_allclose(got_g.float().numpy(), np.asarray(want_g, np.float32), **bf)
+
+
 def test_kernel_takes_and_padded_head_dims():
     """The one rule for which head dims the CUDA kernels take: bf16 or f32,
-    a multiple of 4 up to 128, each run in the smallest compiled width that
-    holds it."""
+    any head dim from 1 to 256 (as the TPU kernels), each run in the
+    smallest compiled width that holds it; off a multiple of 4, after the
+    wrapper's zero columns up to a multiple of 8."""
     for hd, width in ((4, 32), (32, 32), (48, 64), (64, 64), (80, 128), (96, 128),
-                      (100, 128), (128, 128)):
-        assert tattn.padded_head_dim(hd) == width
+                      (100, 128), (128, 128), (1, 32), (2, 32), (37, 64), (102, 128),
+                      (132, 256), (160, 256), (192, 256), (255, 256), (256, 256)):
+        assert tattn.padded_head_dim(hd) == width, hd
         assert tattn.kernel_takes(hd, torch.bfloat16) and tattn.kernel_takes(hd, torch.float32)
         assert not tattn.kernel_takes(hd, torch.float16)
-    for hd in (0, 2, 102, 132, 160, 256):
+    for hd, kernel_hd in ((37, 40), (98, 104), (102, 104), (2, 8), (255, 256), (100, 100)):
+        assert tattn.kernel_head_dim(hd) == kernel_hd
+    for hd in (0, 288):
         assert tattn.padded_head_dim(hd) == 0 and not tattn.kernel_takes(hd, torch.bfloat16)
 
 
-@pytest.mark.parametrize("hd,flash", [(64, True), (100, True), (160, False)])
+@pytest.mark.parametrize("hd,flash", [(64, True), (100, True), (160, True), (256, True),
+                                      (288, False)])
 def test_use_flash_default_follows_the_kernels(hd, flash):
     """use_flash=None on CUDA tokens at S >= FLASH_MIN_SEQ takes flash only
-    where the kernels take the head dim (64 and 100; not 160, which takes
-    the einsum attention); on the CPU it never does. Rehearsed on the CPU
+    where the kernels take the head dim (64, 100, 160 and 256; not 288,
+    which takes the einsum attention); on the CPU it never does. Rehearsed on the CPU
     with the tokens' ``is_cuda`` patched (the plain versions computing) and
     the flash route counted."""
     cfg = tllama.LlamaConfig.tiny(dtype=torch.float32, n_layers=1, dim=2 * hd, n_heads=2,

@@ -17,10 +17,11 @@ running maximum rather than the final one: bf16 outputs within 2 bf16 ulps
 of max|plain| and rel-L2 1e-2, lse within 1e-4 (1e30 exactly on rows with
 no live key), gradients within rel-L2 2e-2; in f32, 1e-5 of max|plain| for
 the output and 1e-4 for gradients; the backward kernels are deterministic,
-two calls give the same bits. The flash kernels take any head dim that is a
-multiple of 4 up to 128, run in the smallest compiled width of 32, 64 and
-128 that holds it (FLASH_HDS: each compiled width unpadded and, padded,
-48, 80, 96 and OpenLLaMA-3B's 100). ``matmul_8bit`` and ``matmul_8bit_t``
+two calls give the same bits. The flash kernels take any head dim from 1
+to 256, run in the smallest compiled width of 32, 64, 128 and 256 that
+holds it (FLASH_HDS: each compiled width unpadded and, padded, 48, 80, 96,
+OpenLLaMA-3B's 100, 160 and 192; 37 and 98, off a multiple of 4, padded
+by the wrapper to 40 and 104 first). ``matmul_8bit`` and ``matmul_8bit_t``
 read the same 256-entry level table as their plain versions and differ
 only in f32 summation order: bf16 within 2 bf16 ulps of max|plain|, f32
 within 1e-5 of it; the bf16 ``matmul_4bit`` and ``matmul_8bit`` sum their
@@ -453,7 +454,7 @@ def _kv_write_case(cuda, shape, seed):
     g = torch.Generator(device=cuda).manual_seed(seed)
     k, v = ((torch.randn(shape, generator=g, device=cuda) * 2).to(torch.bfloat16)
             for _ in range(2))
-    k.view(n_layers, n_rows, nkv, hd)[:, 3, 1] = 0.0
+    k.view(n_layers, n_rows, nkv, hd)[:, 3, min(1, nkv - 1)] = 0.0
     v.view(n_layers, n_rows, nkv, hd)[:, 5] = 0.0
     perm = torch.randperm(39 * 16, generator=g, device=cuda)[:n_rows] + 16
     rows = torch.where(torch.arange(n_rows, device=cuda) % 7 == 6, perm % 16, perm)
@@ -463,13 +464,15 @@ def _kv_write_case(cuda, shape, seed):
 @pytest.mark.parametrize("shape", [(22, 256, 4, 64), (22, 8, 8, 4, 64), (3, 40, 2, 128),
                                    (12, 256, 12, 64), (12, 8, 8, 12, 64), (3, 40, 2, 24),
                                    (4, 40, 3, 80), (4, 8, 8, 2, 96), (26, 256, 32, 100),
-                                   (26, 8, 8, 32, 100)])
+                                   (26, 8, 8, 32, 100), (18, 256, 1, 256), (18, 8, 8, 1, 256)])
 def test_kv_write_int8_matches_quantize_and_index_put(cuda, shape):
     """The fused K+V write into the int8 pool (one launch) against
     ``quantize_kv`` plus ``index_put`` by row, at a prefill's and a
     window's shape (every layer at once), at head_dim 128 and at head dims
     off the kernel's 8-lane groups (24, 80, 96, and OpenLLaMA-3B's 100 at
-    its prefill and window shapes): codes and scales equal outside page 0.
+    its prefill and window shapes), and at Gemma-2B's geometry (hd 256, one
+    KV head: the grouped layout at hd = 8 << 5): codes and scales equal
+    outside page 0.
     Page 0 takes several writers (its rows repeat), and attention never
     reads it."""
     from quanta_tpu_torch.serve import kvcache as tkv
@@ -565,10 +568,12 @@ FLASH_CASES = [
 ]
 
 
-# head dims: the compiled widths 32, 64 and 128, and head dims run padded
-# to them (48 in 64; 80, 96 and OpenLLaMA-3B's 100 in 128; 100 is off the
-# 16-byte rows of bf16)
-FLASH_HDS = [32, 48, 64, 80, 96, 100, 128]
+# head dims: the compiled widths 32, 64, 128 and 256, and head dims run
+# padded to them (48 in 64; 80, 96 and OpenLLaMA-3B's 100 in 128; 160 and
+# 192 in 256; 100 is off the 16-byte rows of bf16), and two off a multiple
+# of 4 that the wrapper pads with zero columns first (37 to 40, in 64; 98 to
+# 104, in 128)
+FLASH_HDS = [32, 37, 48, 64, 80, 96, 98, 100, 128, 160, 192, 256]
 
 
 def _rel(a, b):
@@ -629,7 +634,7 @@ def _bwd_args(cuda, b, sq, t, nh, nkv, hd, q_start, kv_len, dtype=torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [32, 64, 100, 128])
+@pytest.mark.parametrize("hd", [32, 64, 100, 128, 160, 256])
 def test_flash_bwd_deterministic(cuda, dtype, hd):
     """Two calls on the same inputs give the same bits: dK/dV's blocks sum
     their partials in a fixed order, and nothing uses atomics."""
@@ -674,7 +679,7 @@ F32_BWD_CASES = {"gqa": (3, 200, 230, 8, 1, [0, 30, 0], [200, 230, 0]),
 
 
 @pytest.mark.parametrize("shape", list(F32_BWD_CASES))
-@pytest.mark.parametrize("hd", [32, 64, 100, 128])
+@pytest.mark.parametrize("hd", [32, 64, 100, 128, 256])
 def test_flash_bwd_f32_kernels_match_plain(cuda, hd, shape):
     """The f32 dQ and dK/dV kernels (each f32 product as three TF32
     tensor-core products) against their plain versions: within 1e-4 of
@@ -743,31 +748,34 @@ def test_flash_in_tiny_model_matches_plain(cuda):
 
 
 def test_flash_refuses_what_the_kernels_do_not_take(cuda):
-    q, k, v, _ = _flash_inputs(cuda, 1, 16, 16, 2, 2, 160, torch.bfloat16)
+    """Head dims above 256 (288, and 258 off a multiple of 4), fp16, and
+    statistics of the wrong shape raise on the kernel route."""
+    q, k, v, _ = _flash_inputs(cuda, 1, 16, 16, 2, 2, 288, torch.bfloat16)
     pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tattn.flash_attention(q, k, v, pos, pos + 16)
     with pytest.raises(ValueError, match="head_dim"):
-        tattn.flash_attention(*(x[..., :102].contiguous() for x in (q, k, v)), pos, pos + 16)
+        tattn.flash_attention(*(x[..., :258].contiguous() for x in (q, k, v)), pos, pos + 16)
     with pytest.raises(ValueError, match="bf16 or f32"):
         tattn.flash_attention(*(x[..., :64].half() for x in (q, k, v)), pos, pos + 16)
-    q, k, v, do = (x[..., :64].contiguous() for x in _flash_inputs(cuda, 1, 16, 16, 2, 2, 160,
+    q, k, v, do = (x[..., :64].contiguous() for x in _flash_inputs(cuda, 1, 16, 16, 2, 2, 288,
                                                                   torch.bfloat16))
     stats = torch.zeros((1, 2, 15), device=cuda)  # one query row short
     with pytest.raises(ValueError, match="lse"):
         tattn.flash_bwd_dq(q, k, v, do, stats, stats, pos, pos + 16)
 
 
+@pytest.mark.parametrize("hd", [80, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_default_at_head_dim_80_matches_plain(cuda, dtype):
-    """A tiny Llama with head dim 80 at S = 1024 with use_flash=None (which
-    once took flash and raised there): n_layers flash launches, logits
-    within rel-L2 1e-2 (bf16) / 1e-4 (f32) of the plain route. At head dim
-    160, which the kernels do not take, use_flash=None takes the einsum
-    attention (no launch) and use_flash=True raises."""
-    cfg = tllama.LlamaConfig.tiny(dim=160, n_heads=2, n_kv_heads=1, max_seq_len=1024,
+def test_flash_default_at_head_dim_80_matches_plain(cuda, dtype, hd):
+    """A tiny Llama with head dim 80 (and 256) at S = 1024 with
+    use_flash=None (which once took flash and raised there): n_layers flash
+    launches, logits within rel-L2 1e-2 (bf16) / 1e-4 (f32) of the plain
+    route. At head dim 288, which the kernels do not take, use_flash=None
+    takes the einsum attention (no launch) and use_flash=True raises."""
+    cfg = tllama.LlamaConfig.tiny(dim=2 * hd, n_heads=2, n_kv_heads=1, max_seq_len=1024,
                                   dtype=dtype)
-    assert cfg.head_dim == 80
+    assert cfg.head_dim == hd
     params = tllama.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
     toks = torch.randint(0, cfg.vocab_size, (2, 1024), device=cuda,
                          generator=torch.Generator(device=cuda).manual_seed(1))
@@ -780,9 +788,9 @@ def test_flash_default_at_head_dim_80_matches_plain(cuda, dtype):
                                                          else 0)
     assert torch.isfinite(logits[None]).all()
     assert _rel(logits[None], logits[False]) <= (1e-2 if dtype == torch.bfloat16 else 1e-4)
-    wide = tllama.LlamaConfig.tiny(dim=320, n_heads=2, n_kv_heads=1, max_seq_len=1024,
+    wide = tllama.LlamaConfig.tiny(dim=576, n_heads=2, n_kv_heads=1, max_seq_len=1024,
                                    dtype=dtype)
-    assert wide.head_dim == 160
+    assert wide.head_dim == 288
     wparams = tllama.init_params(torch.Generator(device=cuda).manual_seed(0), wide, device=cuda)
     before = _build.launches["flash_fwd"]
     out, _ = tllama.forward(wparams, toks, wide)
@@ -992,7 +1000,7 @@ def test_matmul_8bit_split_covers_every_k_block(cuda, m, k, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [32, 64, 100, 128])
+@pytest.mark.parametrize("hd", [32, 64, 100, 128, 160, 256])
 def test_flash_fwd_without_lse_and_deterministic(cuda, hd, dtype):
     """save_lse=False (the prefill's call) writes the same output bits as
     with the lse, and two calls agree bit for bit (bf16 within 2 bf16 ulps
@@ -1014,7 +1022,7 @@ LONG_KEY_CASES = [(False, [0, 0]), (True, [0, 3000])]
 
 
 @pytest.mark.parametrize("causal,q_start", LONG_KEY_CASES)
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_fwd_f32_long_keys(cuda, hd, causal, q_start):
     """The f32 forward over T = 4096 keys (64 or 128 key tiles) stays within
     1e-5 of max|plain| and its lse within 1e-4: each tile's P V goes into a
@@ -1162,8 +1170,14 @@ def test_openllama_3b_shapes_match_plain(cuda, m, dtype):
     dx at OpenLLaMA-3B's (K, N) for a decode step (M 8), a prefill bucket
     (256) and its QLoRA row (b2 x s1024): each within 2 bf16 ulps (f32:
     1e-5) of max|plain|, one launch of each kernel a call."""
-    g = torch.Generator(device=cuda).manual_seed(m + 3)
-    for k, n in OPENLLAMA_3B_SHAPES:
+    _linears_match_plain(cuda, OPENLLAMA_3B_SHAPES, m, dtype, seed=m + 3)
+
+
+def _linears_match_plain(cuda, shapes, m, dtype, seed):
+    """#1 (nf4a) and #3 (int8) forward and #4 and #5's dx through autograd
+    at each (K, N) of ``shapes``, M rows, against the plain route."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    for k, n in shapes:
         w = torch.randn((k, n), generator=g, device=cuda) / math.sqrt(k)
         x0 = torch.randn((m, k), generator=g, device=cuda).to(dtype)
         gr = torch.randn((m, n), generator=g, device=cuda).to(dtype)
@@ -1185,6 +1199,41 @@ def test_openllama_3b_shapes_match_plain(cuda, m, dtype):
                 assert got.shape == ref.shape and got.dtype == dtype
                 err = (got.float() - ref.float()).abs().max().item()
                 assert err <= _tol(ref, dtype), (k, n, fmt, m, err)
+
+
+# Gemma-2B's geometry (google/gemma-2b's config.json, run in the repo's
+# Llama block: no Gemma support): (K, N) of wq / wo, wk / wv (one KV head of
+# 256), gate / up and down (its head is tied to the bf16 embedding)
+GEMMA_2B_SHAPES = [(2048, 2048), (2048, 256), (2048, 16384), (16384, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m", [8, 2048])
+def test_gemma_2b_geometry_shapes_match_plain(cuda, m, dtype):
+    """#1 (nf4a) and #3 (int8) forward and, through autograd, #4 and #5's
+    dx at Gemma-2B's (K, N) for a decode step (M 8) and its QLoRA row (b2
+    x s1024): each within 2 bf16 ulps (f32: 1e-5) of max|plain|, one launch
+    of each kernel a call; and the three flash kernels at its attention (hd
+    256, 8 query heads to one KV head) at S 1024 against their plain
+    versions."""
+    _linears_match_plain(cuda, GEMMA_2B_SHAPES, m, dtype, seed=m + 5)
+    if m != 2048:
+        return
+    args = _bwd_args(cuda, 2, 1024, 1024, 8, 1, 256, [0, 0], [1024, 1024], dtype, seed=6)
+    q, k, v, _, _, _, qs, kl = args
+    out, lse = tattn.flash_forward(q, k, v, qs, kl, save_lse=True)
+    ref, ref_lse = tattn.flash_forward_reference(q, k, v, qs, kl)
+    got = (tattn.flash_bwd_dq(*args), *tattn.flash_bwd_dkv(*args))
+    want = (tattn.flash_bwd_dq_reference(*args), *tattn.flash_bwd_dkv_reference(*args))
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    big = ref.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        assert (out.float() - ref.float()).abs().max().item() <= 2 * 2.0 ** -7 * big
+        assert _rel(out, ref) <= 1e-2 and all(_rel(a, b) <= 2e-2 for a, b in zip(got, want))
+    else:
+        assert (out - ref).abs().max().item() <= 1e-5 * big
+        for a, b in zip(got, want):
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
 # (m, k, n): decode with K2 = 800 packed rows, 50 slices of 16 over a split

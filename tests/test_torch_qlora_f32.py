@@ -245,3 +245,21 @@ def test_f32_qlora_flash_step_at_head_dim_100_matches_jax():
     assert tllama.LlamaConfig.tiny(**FLASH_HD100_KW).head_dim == 100
     entries = _steps_against_jax("nf4", FLASH_HD100_KW, use_flash=True)
     assert FLASH_ENTRIES <= entries
+
+
+# tiny Llamas at Gemma-2B's head dim, 256 (one KV head: its MQA), which the
+# kernels run in their 256-column width, and at 38, off a multiple of 4,
+# which the wrapper pads to 40 with zero columns (RoPE rotates column
+# pairs, so a Llama's head dim is even: the flash tests hold 37)
+FLASH_HD_KW = {256: dict(dim=512, n_layers=2, n_heads=2, n_kv_heads=1, hidden_dim=512),
+               38: dict(dim=76, n_layers=2, n_heads=2, n_kv_heads=1, hidden_dim=256)}
+
+
+@pytest.mark.parametrize("hd", list(FLASH_HD_KW))
+def test_f32_qlora_flash_step_at_head_dims_256_and_38_match_jax(hd):
+    """The flash steps above at hd 256 and 38 (nf4): JAX's Pallas flash
+    kernels against the port's plain flash and its fake f32 flash entry
+    points (those of the 256-column width at 256), under the same rules."""
+    assert tllama.LlamaConfig.tiny(**FLASH_HD_KW[hd]).head_dim == hd
+    entries = _steps_against_jax("nf4", FLASH_HD_KW[hd], use_flash=True)
+    assert {e + ("_w256" if hd == 256 else "") for e in FLASH_ENTRIES} <= entries

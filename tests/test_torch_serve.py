@@ -269,7 +269,17 @@ def test_kv_write_int8_at_any_head_dim_matches_jax(hd):
     and 80 against JAX's kernel rule (``quantize_blockwise``, interpreted);
     the plain version and the kernel route (``FakeQuantKernels``, the
     wrapper refusing no head dim) write the same pool."""
-    page, n_pages, L, nkv = 8, 6, 2, 2
+    _kv_write_matches_jax(hd, nkv=2)
+
+
+def test_kv_write_int8_at_head_dim_256_one_kv_head_matches_jax():
+    """The same at Gemma-2B's geometry: hd 256 with one KV head (the
+    kernel's grouped layout at hd = 8 << 5), against JAX's kernel rule."""
+    _kv_write_matches_jax(256, nkv=1)
+
+
+def _kv_write_matches_jax(hd, nkv):
+    page, n_pages, L = 8, 6, 2
     cfg = tllama.LlamaConfig.tiny(dtype=torch.float32, n_layers=L, dim=nkv * hd,
                                   n_heads=nkv, n_kv_heads=nkv)
     rows = np.asarray([4 * page + 3, 9, 5 * page + 7, 1 * page, 2 * page + 1], np.int64)

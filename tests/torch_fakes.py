@@ -68,18 +68,30 @@ class FakeKernels:
         return 0
 
     @staticmethod
-    def _attn(dtype, q, k, v, q_start, kv_len, b, sq, t, nh, nkv, hd, causal, scale):
-        assert scale == pytest.approx(1.0 / math.sqrt(hd))
-        return (_view(q, (b, sq, nh, hd), dtype), _view(k, (b, t, nkv, hd), dtype),
-                _view(v, (b, t, nkv, hd), dtype), _view(q_start, (b,), torch.int32),
+    def _own(hd, scale):
+        """The caller's head_dim, from the scale: hd itself, or (where the
+        wrapper padded it with zero columns to a multiple of 8) below it."""
+        own = round(1.0 / scale ** 2)
+        assert scale == pytest.approx(1.0 / math.sqrt(own))
+        assert own == hd or (hd % 8 == 0 and own % 4 and hd - 8 < own < hd), (own, hd)
+        return own
+
+    @classmethod
+    def _attn(cls, dtype, q, k, v, q_start, kv_len, b, sq, t, nh, nkv, hd, causal, scale):
+        """The operands, cut to the caller's head_dim (the padded columns
+        are zeros)."""
+        own = cls._own(hd, scale)
+        return (_view(q, (b, sq, nh, hd), dtype)[..., :own],
+                _view(k, (b, t, nkv, hd), dtype)[..., :own],
+                _view(v, (b, t, nkv, hd), dtype)[..., :own], _view(q_start, (b,), torch.int32),
                 _view(kv_len, (b,), torch.int32), bool(causal))
 
     def _flash_fwd(self, dtype, q, k, v, q_start, kv_len, out, lse, *sizes_stream):
         *sizes, _stream = sizes_stream
-        b, sq, _, nh, _, hd, _, _ = sizes
+        b, sq, _, nh, _, hd, _, scale = sizes
         qv, kv, vv, qs, kl, causal = self._attn(dtype, q, k, v, q_start, kv_len, *sizes)
         o, l = tattn.flash_forward_reference(qv, kv, vv, qs, kl, causal=causal)
-        _view(out, (b, sq, nh, hd), dtype).copy_(o)
+        _view(out, (b, sq, nh, hd), dtype).zero_()[..., :self._own(hd, scale)].copy_(o)
         if lse is not None:
             _view(lse, (b, nh, sq), torch.float32).copy_(l)
         return 0
@@ -88,8 +100,9 @@ class FakeKernels:
         *outs, b, sq, t, nh, nkv, hd, causal, scale, _stream = outs_sizes_stream
         sizes = (b, sq, t, nh, nkv, hd, causal, scale)
         qv, kv, vv, qs, kl, causal = self._attn(dtype, q, k, v, q_start, kv_len, *sizes)
+        own = self._own(hd, scale)
         stats = (_view(lse, (b, nh, sq), torch.float32), _view(delta, (b, nh, sq), torch.float32))
-        args = (qv, kv, vv, _view(do, (b, sq, nh, hd), dtype), *stats, qs, kl)
+        args = (qv, kv, vv, _view(do, (b, sq, nh, hd), dtype)[..., :own], *stats, qs, kl)
         if len(outs) == 1:
             res = [tattn.flash_bwd_dq_reference(*args, causal=causal)]
             shapes = [(b, sq, nh, hd)]
@@ -97,7 +110,7 @@ class FakeKernels:
             res = tattn.flash_bwd_dkv_reference(*args, causal=causal)
             shapes = [(b, t, nkv, hd)] * 2
         for ptr, shape, r in zip(outs, shapes, res):
-            _view(ptr, shape, torch.float32).copy_(r)
+            _view(ptr, shape, torch.float32).zero_()[..., :own].copy_(r)
         return 0
 
     def __getattr__(self, name):
@@ -107,7 +120,8 @@ class FakeKernels:
                  "qt_flash_bwd_dkv_": self._flash_bwd}
         for prefix, fn in sorted(kinds.items(), key=lambda kv: -len(kv[0])):
             if name.startswith(prefix):
-                dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+                dtype = torch.bfloat16 if name.removesuffix("_w256").endswith("bf16") \
+                    else torch.float32
                 return lambda *a: fn(dtype, *a)
         raise AttributeError(name)
 
