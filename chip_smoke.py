@@ -97,23 +97,26 @@ and the script exits non-zero (nothing is caught):
      phase 12's prefill (1024 queries into 1040 slots), phase 13's
      S = T = 2048, OpenLLaMA-3B's training shape (B=2, S=T=1024, 32
      heads, hd 100, which the kernels run padded to 128 columns), Gemma-2B's
-     geometry's (B=2, S=T=1024, 8 heads to 1 KV head, hd 256) and two
-     small ones at hd 160 (run in 256 columns) and 37 (padded by the
-     wrapper to 40, run in 64), in bf16, and all but phases 12's and 13's
-     also in f32: bf16 output within 2 bf16 ulps of
-     max|plain| and rel-L2 1e-2, lse within 1e-4, gradients within rel-L2
-     2e-2 (f32: 1e-5 and 1e-4 of max|plain|), dead rows zero with lse
-     1e30, and dq, dk, dv bit-identical over two calls; at the S = T
+     geometry's (B=2, S=T=1024, 8 heads to 1 KV head, hd 256: the
+     warp-specialised 256-column forward and dK/dV) and three small ones
+     at hd 160 and 132 (run in 256 columns; 132 padded by the wrapper to
+     136 in bf16 first) and 37 (padded by the wrapper to 40, run in 64),
+     in bf16, and all but phases 12's and 13's also in f32: bf16 output
+     within 2 bf16 ulps of max|plain| and rel-L2 1e-2, lse within 1e-4,
+     gradients within rel-L2 2e-2 (f32: 1e-5 and 1e-4 of max|plain|), dead
+     rows zero with lse 1e30, and out, dq, dk, dv bit-identical over two
+     calls; at the S = T
      shapes the times of the kernels, their plain versions and SDPA
      (forward; backward; both; the backend it takes, and in f32, where
      that is math, the efficient backend on K and V expanded to the query
      heads), every row with its bound (at hd 100 also the bound of the 128
      columns the kernels multiply), the f32 rows also with the bound of
      their three TF32 products; then per head_dim (32, 64, 128, 100,
-     256, 160, 192: ``FLASH_DESIGN_HDS``) one
+     256, 160, 192, 132: ``FLASH_DESIGN_HDS``) one
      ``flash_bwd_design`` line for each dtype (grid, cluster size,
-     warpgroups, blocks resident per SM, registers and shared bytes, from
-     ``cudaFuncGetAttributes``) and one ``flash_fwd_design`` line (the f32
+     warpgroups, threads, blocks resident per SM, registers and shared
+     bytes, from ``cudaFuncGetAttributes``; the design: "wgmma_ws" for
+     the warp-specialised ones) and one ``flash_fwd_design`` line (the f32
      grids of all three at TinyLlama's shape at least two blocks an SM);
  11. QLoRA at batch 2 x seq 1024 (nf4 base, as phase 9): 3 steps through
      the flash kernels and 3 through the einsum attention from the same
@@ -464,11 +467,13 @@ GRAD_FLOOR_X, GRAD_FLOOR_ABS = logits_gate.FLOOR_X, logits_gate.FLOOR_ABS
 # slots at q_start 0 and 64 beside a row whose kv_len is 0, the long-prompt
 # decode's prefill (1024 tokens into its 1040-slot cache: a ragged last key
 # tile) and long_prefill's reference row (S = T = 2048), OpenLLaMA-3B's and
-# Gemma-2B's QLoRA shapes, and two small ones at head dims off the compiled
-# widths (160, run in 256 columns; 37, off a multiple of 4, which the
-# wrapper pads to 40 and runs in 64): (B, Sq, T, nh, nkv, hd, q_start,
-# kv_len); each in bf16; in f32 too the prefill, the training shapes (the
-# f32 QLoRA of phase 33 runs the first) and the small ones
+# Gemma-2B's QLoRA shapes, and three small ones at head dims off the
+# compiled widths (160 and 132, run in 256 columns: 132, 4 mod 8, after the
+# wrapper's zero columns to 136 in bf16, whose 256-column kernels load by
+# TMA; 37, off a multiple of 4, which the wrapper pads to 40 and runs in
+# 64): (B, Sq, T, nh, nkv, hd, q_start, kv_len); each in bf16; in f32 too
+# the prefill, the training shapes (the f32 QLoRA of phase 33 runs the
+# first) and the small ones
 FLASH_SHAPES = {
     "tinyllama_s1024": (2, 1024, 1024, 32, 4, 64, [0, 0], [1024, 1024]),
     "llama2_7b_s1024": (1, 1024, 1024, 32, 32, 128, [0], [1024]),
@@ -480,17 +485,18 @@ FLASH_SHAPES = {
     # Gemma-2B's geometry's QLoRA shape (phase 35): hd 256, 8 query heads to one KV head
     "gemma_2b_s1024": (2, 1024, 1024, 8, 1, 256, [0, 0], [1024, 1024]),
     "hd160_small": (2, 300, 330, 8, 2, 160, [0, 30], [300, 330]),
+    "hd132_small": (2, 300, 330, 8, 2, 132, [0, 30], [300, 330]),
     "hd37_small": (3, 200, 230, 8, 1, 37, [0, 30, 0], [200, 230, 0]),
 }
 FLASH_CASES = [(name, torch.bfloat16) for name in FLASH_SHAPES] + [
     (name, torch.float32) for name in ("tinyllama_s1024", "llama2_7b_s1024", "cached_prefill",
                                        "openllama_3b_s1024", "gemma_2b_s1024", "hd160_small",
-                                       "hd37_small")]
+                                       "hd132_small", "hd37_small")]
 # the head dims, and their shapes, whose kernels' launch designs are printed
 # (flash_fwd_design / flash_bwd_design lines)
 FLASH_DESIGN_HDS = ((32, "tinyllama_s1024"), (64, "tinyllama_s1024"), (128, "llama2_7b_s1024"),
                     (100, "openllama_3b_s1024"), (256, "gemma_2b_s1024"),
-                    (160, "gemma_2b_s1024"), (192, "gemma_2b_s1024"))
+                    (160, "gemma_2b_s1024"), (192, "gemma_2b_s1024"), (132, "gemma_2b_s1024"))
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the times of the redesigned kernels before their Hopper redesigns, as
 # PERF.md's kernel table records them: the first port's flash kernels at
@@ -502,10 +508,13 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # split-K, no pipeline) a decode step's 155 calls at M=8; its
 # adam8bit_update (one 256-thread block per quantization block, one launch
 # per leaf) a QLoRA step's 88 adapter leaves; and per call (µs) at the
-# shapes named (quantize_blockwise: one warp per vector, the window's K).
-# Printed on a line of their own, apart from the kernels line's measured
-# times.
+# shapes named (quantize_blockwise: one warp per vector, the window's K);
+# the bf16 flash forward and dK/dV at 256 columns before their
+# warp-specialised redesign (the cp.async kernels; dK/dV two blocks of 128
+# columns each) at Gemma-2B's geometry's QLoRA shape (*_hd256). Printed on
+# a line of their own, apart from the kernels line's measured times.
 EARLIER_MS = {"flash_bwd_dq": 0.2697, "flash_bwd_dkv": 0.7539, "flash_fwd": 0.1999,
+              "flash_fwd_hd256": 0.0609, "flash_bwd_dkv_hd256": 0.2026,
               "matmul_8bit": 23.588, "matmul_4bit": 20.954, "matmul_8bit_t": 79.827,
               "matmul_4bit_t": 67.866, "matmul_int4c": 10.977, "matmul_int8_fused": 8.832,
               "matmul_int8": 5.251, "adam8bit_update": 0.484}
@@ -1477,6 +1486,8 @@ def flash_checks(dev, work):
         qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
         kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         out, lse = attention.flash_forward(q, k, v, qs, kl, save_lse=True, use_kernel=True)
+        check(torch.equal(out, attention.flash_forward(q, k, v, qs, kl, use_kernel=True)[0]),
+              f"flash forward {name} {dtype}: two calls differ")
         ref, ref_lse = attention.flash_forward_reference(q, k, v, qs, kl)
         delta = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
         bwd = (q, k, v, do, ref_lse, delta, qs, kl)
@@ -1521,7 +1532,7 @@ def flash_checks(dev, work):
                    out_tol=out_tol, out_rel_l2=rel_l2(out, ref), lse_max_abs_err=lse_err,
                    lse_tol=1e-4, grad_max_abs_err=grad_err, grad_rel_l2=grad_rel,
                    grad_tol=grad_tol if dtype == torch.float32 else "rel-L2 2e-2",
-                   dead_rows=int((~live).sum()), bwd_bit_identical_over_two_calls=True)
+                   dead_rows=int((~live).sum()), bit_identical_over_two_calls=True)
         if sq == t:
             row.update(flash_times(q, k, v, do, qs, kl, ref_lse, delta))
             pairs = nh * live_pairs(q_start, kv_len, sq, t)
@@ -3236,8 +3247,9 @@ def main():
                 "128 columns (bound_ms_padded) and the kernel's registers and spill bytes a thread; its "
                 "f32 row under f32")
     hd256_at = ("hd256: the same at Gemma-2B's geometry's QLoRA shape (B=2, S=T=1024, 8 "
-                "heads, 1 KV head, hd 256, the 256-column kernels), bf16, ms, with the kernel's "
-                "registers and spill bytes a thread; its f32 row under f32")
+                "heads, 1 KV head, hd 256, the 256-column kernels; flash_fwd and flash_bwd_dkv "
+                "warp-specialised, design wgmma_ws), bf16, ms, with the kernel's design, "
+                "registers, spill bytes a thread and threads a block; its f32 row under f32")
 
     def flash_row_at(shape, name, library_key):
         row = flash_rows[shape]
@@ -3250,7 +3262,7 @@ def main():
                    if f"{name}_bound_ms_padded" in row else {}),
                 "library_ms": row[library_key] if library_key else None,
                 "sdpa_backend": row["sdpa_backend"],
-                **{k: design[k] for k in ("registers", "spill_bytes")}}
+                **{k: design[k] for k in ("design", "registers", "spill_bytes", "threads")}}
     measured = {name: flash_ms[f"{name}_ms"] for name in FLASH_KERNELS}
     measured["matmul_8bit"] = eight_step[("matmul_8bit", 8)][0]
     measured["matmul_4bit"] = per_step["matmul_4bit"][0]
@@ -3260,6 +3272,8 @@ def main():
     for name in ("matmul_int8_fused", "matmul_int8"):
         measured[name] = per_step[name][0]
     measured["adam8bit_update"] = adam_step[0]
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        measured[f"{name}_hd256"] = flash_rows["gemma_2b_s1024"][f"{name}_ms"]
     emit(earlier_times=dict(
         note="PERF.md's times of the designs before the Hopper redesigns, at the same work, "
              "not measured in this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},

@@ -20,8 +20,9 @@ the library, and run this again. One JSON object per line:
   three compiled widths) and OpenLLaMA-3B's (B=2, S=T=1024, 32 heads, hd
   100, run padded to 128; and the same shape at hd 128, what the padding
   is read against), Gemma-2B's geometry's (B=2, S=T=1024, 8 heads to 1 KV
-  head, hd 256) and the same shape at hd 160 and 192 (each run padded to
-  256: what a width of 192 would save), and head dims off a multiple of 4
+  head, hd 256) and the same shape at hd 160, 192 and 132 (each run padded
+  to 256: what a width of 192 would save; 132 in bf16 after the wrapper's
+  zero columns to 136, the TMA rows), and head dims off a multiple of 4
   beside the multiple of 8 the wrapper pads them to (37 and 40 at
   TinyLlama's shape, 98 and 104 at OpenLLaMA-3B's); a shape whose head dim
   a checkout's kernels refuse is skipped; with their largest error
@@ -94,6 +95,7 @@ FLASH_SHAPES = {"tinyllama_s1024": (2, 1024, 32, 4, 64), "llama2_7b_s1024": (1, 
                 "gemma_2b_s1024": (2, 1024, 8, 1, 256),
                 "gemma_2b_hd160_s1024": (2, 1024, 8, 1, 160),
                 "gemma_2b_hd192_s1024": (2, 1024, 8, 1, 192),
+                "gemma_2b_hd132_s1024": (2, 1024, 8, 1, 132),
                 "tinyllama_hd37_s1024": (2, 1024, 32, 4, 37),
                 "tinyllama_hd40_s1024": (2, 1024, 32, 4, 40),
                 "openllama_3b_hd98_s1024": (2, 1024, 32, 32, 98),

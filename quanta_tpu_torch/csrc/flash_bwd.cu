@@ -54,17 +54,19 @@
 // Head dims: compiled at 32, 64, 128 and (flash_bwd_w256.cu) 256 columns, a
 // head dim in between run padded (flash_common.cuh). At 256 the dQ kernel is
 // the same (its m64 x 256 accumulator 128 registers a thread, as the
-// forward's O); the dK/dV kernel's two accumulators are not, so grid y
-// splits each (batch row, KV head) into two blocks that each own 128
-// columns of dK and dV, each computing S^T and dP^T over all 256 (DkvSmem::
-// SPLITS). The f32 route: flash_bwd_f32.cu; the launch both share:
-// flash_bwd.cuh.
+// forward's O); dK and dV's two accumulators do not fit one warpgroup, so
+// the dK/dV kernel is flash_bwd_dkv_ws below (two consumer warpgroups, one
+// accumulator each, fed by a TMA producer). The f32 route:
+// flash_bwd_f32.cu; the launch both share: flash_bwd.cuh.
 
 #include <cooperative_groups.h>
 
 #include "flash_bwd.cuh"
 #include "flash_common.cuh"
 #include "sm90.cuh"
+#ifdef QT_FLASH_WIDE
+#include "ws_sm90.cuh"
+#endif
 
 namespace {
 
@@ -80,12 +82,8 @@ template <int HD> struct DqSmem {  // Q, dO, then STAGES x (K, V)
 };
 
 template <int HD> struct DkvSmem {  // K, V, then STAGES x (Q, dO), STAGES x (lse, D)
-  // columns of dK and dV a block owns: at HD 256 the two m64 x 256
-  // accumulators do not fit one warpgroup's registers, so SPLITS blocks
-  // each own 128 columns (S^T and dP^T, over all 256, computed by each)
-  static constexpr int OW = HD == 256 ? 128 : HD, SPLITS = HD / OW;
   static constexpr uint32_t STATS = (2 + 2 * STAGES) * Tile<HD>::BYTES;
-  static constexpr int RED_LD = OW + 8;  // f32 partial rows: 32-byte shift, few bank conflicts
+  static constexpr int RED_LD = HD + 8;  // f32 partial rows: 32-byte shift, few bank conflicts
   static constexpr size_t tiles = STATS + STAGES * 2 * TILE * 4;
   static constexpr size_t red = 2 * TILE * RED_LD * 4;  // dK, dV partials, after the loop
   static constexpr size_t bytes = (tiles > red ? tiles : red) + 1024;
@@ -234,11 +232,9 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
-  constexpr int OW = SM::OW;
   // unsigned, as blockIdx.y: g and b are an unsigned remainder and quotient
   // (signed ones changed the 128-column kernel's register allocation)
-  const unsigned by = blockIdx.y / SM::SPLITS;
-  const int oc = (blockIdx.y % SM::SPLITS) * OW;  // the block's first column of dK, dV
+  const unsigned by = blockIdx.y;
   const int g = by % nkv, b = by / nkv, k0 = blockIdx.z * TILE;
   const int rep = nh / nkv;
   const int qs = q_start[b];
@@ -273,9 +269,9 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's key rows r_lo and r_lo + 8; query columns 8j + c_lo + c
   const int r_lo = warp * 16 + lane / 4, c_lo = 2 * (lane % 4);
   const float scale2 = scale * kLog2e;
-  float acc_k[OW / 2], acc_v[OW / 2];
+  float acc_k[HD / 2], acc_v[HD / 2];
 #pragma unroll
-  for (int i = 0; i < OW / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
   for (int p = p_lo; p < p_hi; ++p) {
     const int it = p - p_lo, st = it % STAGES;
     cp_async_wait<STAGES - 2>();  // pair p has landed
@@ -339,13 +335,10 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
     fence_regs(acc_v);
     fence_regs(acc_k);
-    // (the block's columns of dO and Q: from the 64-column block oc / 64)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_tb<OW>(acc_v, pa[kk], TL::mn_major(dOt + (oc / 64) * TL::HALF, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<HD>(acc_v, pa[kk], TL::mn_major(dOt, kk));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_tb<OW>(acc_k, da[kk], TL::mn_major(Qt + (oc / 64) * TL::HALF, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<HD>(acc_k, da[kk], TL::mn_major(Qt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_v);
@@ -360,7 +353,7 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float* rk = red + (r_lo + 8 * i) * SM::RED_LD + c_lo;
     float* rv = rk + TILE * SM::RED_LD;
 #pragma unroll
-    for (int j = 0; j < OW / 8; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       const int e = 4 * j + 2 * i;
       *reinterpret_cast<float2*>(rk + 8 * j) = make_float2(acc_k[e], acc_k[e + 1]);
       *reinterpret_cast<float2*>(rv + 8 * j) = make_float2(acc_v[e], acc_v[e + 1]);
@@ -371,7 +364,7 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this block sums rows [rank * 64 / C, (rank + 1) * 64 / C) of dK and dV
   // over the cluster, in rank order, and writes them
   const int rows = TILE / C, row0 = rank * rows;
-  constexpr int V4 = OW / 4;
+  constexpr int V4 = HD / 4;
   for (int idx = tid; idx < 2 * rows * V4; idx += 128) {
     const int which = idx / (rows * V4), rem = idx % (rows * V4);
     const int row = row0 + rem / V4, col = (rem % V4) * 4;
@@ -384,25 +377,303 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
       sum.z += x.z;
       sum.w += x.w;
     }
-    if (k0 + row < Tk && (!PAD || oc + col < hd))
+    if (k0 + row < Tk && (!PAD || col < hd))
       *reinterpret_cast<float4*>((which ? dv : dk) + (((int64_t)b * Tk + k0 + row) * nkv + g) * hd +
-                                 oc + col) = sum;
+                                 col) = sum;
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// The bf16 route's kernels at compiled width HD, padded or not (dK/dV: grid
-// y counts each (batch row, KV head) SPLITS times, one block a column slab)
+#ifdef QT_FLASH_WIDE
+// ---------------------------------- bf16 dK/dV at 256 columns: warp-specialised
+
+// Shared memory: K, V, then WS_STAGES x (Q, dO), WS_STAGES x (lse, D), p^T
+// (f32, 64 x 64), the mbarriers: K and V's full, each slot's full and empty.
+// After the loop the f32 partials (dK rows, then dV rows) take the tiles'
+// bytes over, up to the mbarriers.
+struct DkvWs {
+  using TL = Tile<256>;
+  static constexpr uint32_t K = 0, V = TL::BYTES, QDO = 2 * TL::BYTES;  // slot s: Q, dO at 2 s
+  static constexpr uint32_t STATS = QDO + WS_STAGES * 2 * TL::BYTES;   // slot s: lse, D at s
+  static constexpr uint32_t P = STATS + WS_STAGES * 2 * TILE * 4;
+  static constexpr uint32_t KV_FULL = P + TILE * TILE * 4, FULL = KV_FULL + 8,
+                            EMPTY = FULL + 8 * WS_STAGES;
+  static constexpr int RED_LD = 256 + 8;  // f32 partial rows, as DkvSmem's
+  static_assert(2 * TILE * RED_LD * 4 <= KV_FULL, "the partials leave the mbarriers alone");
+  static constexpr size_t bytes = EMPTY + 8 * WS_STAGES + 1024;
+};
+// setmaxnreg: the producer's registers and the consumers' (40 x 128 + 232 x 256 = 168 x 384)
+constexpr int DKV_WS_PRODUCER_REGS = 40, DKV_WS_CONSUMER_REGS = 232;
+// named barriers of the two consumers: p^T written, p^T read, both past the loop
+constexpr int P_READY = 1, P_FREE = 2, DKV_DONE = 3;
+
+// Head dims 129-256 (bf16): flash_bwd_dkv_sm90's function with grid y back
+// to nkv * B (no column split), by two consumer warpgroups that share one
+// key tile and a producer warpgroup (ws_sm90.cuh). The producer's one
+// thread loads K and V once by TMA, then streams each (rep head, query
+// tile) pair's Q and dO by TMA, and its warp the pair's lse and D by
+// cp.async, through a ring of WS_STAGES slots. Consumer 0 computes S^T = K
+// Q^T, forms p^T, writes it (f32) to shared memory for consumer 1 and adds
+// dV += p^T dO (p^T rounded to bf16 in registers, dO read MN-major).
+// Consumer 1 computes dP^T = V dO^T, reads p^T once consumer 0 has written
+// it (named barriers), forms ds^T = p^T (dP^T - D) scale and adds dK +=
+// ds^T Q. Each of the four products is computed once, each consumer keeps
+// one m64 x 256 accumulator (128 registers), and consumer 0 runs ahead by
+// its exponentials: its products overlap consumer 1's, its elementwise work
+// consumer 1's products. The cluster sums the partials as
+// flash_bwd_dkv_sm90 does.
+template <bool PAD>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bwd_dkv_ws(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ q_start, const int* __restrict__ kv_len,
+                 float* __restrict__ dk, float* __restrict__ dv, int Sq, int Tk, int nh, int nkv,
+                 int hd_arg, int causal, float scale) {
+  using TL = Tile<256>;
+  using L = DkvWs;
+  constexpr int HD = 256;
+  const int hd = PAD ? hd_arg : HD;  // the real head dim, of HD columns
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  unsigned char* gbase = smem + (base - smem_addr(smem));  // generic pointer to the base
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int wg = warpgroup(), wtid = threadIdx.x % 128;
+  const int warp = wtid / 32, lane = threadIdx.x % 32;
+  const unsigned by = blockIdx.y;
+  const int g = by % nkv, b = by / nkv, k0 = blockIdx.z * TILE;
+  const int rep = nh / nkv;
+  const int qs = q_start[b];
+  const int kvl = max(0, min(kv_len[b], Tk));
+  // query tiles whose last row reaches key k0: from the one holding row k0 - q_start
+  const int qt_begin = causal ? max(0, k0 - qs) / TILE : 0;
+  const int qt_end = k0 < kvl ? (Sq + TILE - 1) / TILE : 0;
+  const int nq = max(0, qt_end - qt_begin);
+  // this block's share of the (rep head, query tile) pairs, in rank order
+  const int n_pairs = rep * nq;
+  const int p_lo = rank * n_pairs / C, n = (rank + 1) * n_pairs / C - p_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + L::KV_FULL, 1);
+    for (int s = 0; s < WS_STAGES; ++s) {
+      mbar_init(base + L::FULL + 8 * s, 1 + 32);  // the TMA bytes' arrival, the warp's lse / D
+      mbar_init(base + L::EMPTY + 8 * s, 8);      // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == WS_CONSUMERS) {  // the producer: its first warp loads
+    regs_dec<DKV_WS_PRODUCER_REGS>();
+    if (warp == 0 && n > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(base + L::KV_FULL, 2 * TL::BYTES);
+        tma_tile<HD>(base + L::K, &tk, base + L::KV_FULL, g, k0, b);
+        tma_tile<HD>(base + L::V, &tv, base + L::KV_FULL, g, k0, b);
+      }
+      for (int j = 0; j < n; ++j) {
+        const int s = j % WS_STAGES, p = p_lo + j;
+        const int h = g * rep + p / nq, q0 = (qt_begin + p % nq) * TILE;
+        const uint32_t full = base + L::FULL + 8 * s, Qt = base + L::QDO + 2 * s * TL::BYTES;
+        mbar_wait_guarded(base + L::EMPTY + 8 * s, ((j / WS_STAGES) & 1) ^ 1);  // its last phase
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * TL::BYTES);
+          tma_tile<HD>(Qt, &tq, full, h, q0, b);
+          tma_tile<HD>(Qt + TL::BYTES, &tdo, full, h, q0, b);
+        }
+        // lse, then D, of the tile's 64 rows (zeros past Sq): 4 a lane
+        const int64_t stat = ((int64_t)b * nh + h) * Sq;
+#pragma unroll
+        for (int i = lane; i < 2 * TILE; i += 32) {
+          const int row = q0 + (i & (TILE - 1));
+          const float* src = (i < TILE ? lse : delta) + stat;
+          cp_async4(base + L::STATS + s * 2 * TILE * 4 + i * 4, row < Sq ? src + row : src,
+                    row < Sq ? 4 : 0);
+        }
+        mbar_arrive_cp_async(full);
+      }
+    }
+    cluster.sync();  // the consumers' two cluster barriers
+    cluster.sync();
+    return;
+  }
+  regs_inc<DKV_WS_CONSUMER_REGS>();
+
+  const int c = wg;  // 0: S^T, p^T, dV; 1: dP^T, ds^T, dK
+  // this thread's key rows r_lo and r_lo + 8; query columns 8j + c_lo + cc
+  const int r_lo = warp * 16 + lane / 4, c_lo = 2 * (lane % 4);
+  const float scale2 = scale * kLog2e;
+  // p^T in the two consumers' common fragment order: element e of thread t at 128 e + t
+  float* pt = reinterpret_cast<float*>(gbase + L::P) + wtid;
+  float acc[HD / 2];  // consumer 0: dV, 1: dK
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  if (n > 0) mbar_wait(base + L::KV_FULL, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % WS_STAGES, p = p_lo + j;
+    const int q0 = (qt_begin + p % nq) * TILE;
+    const uint32_t Qt = base + L::QDO + 2 * s * TL::BYTES, dOt = Qt + TL::BYTES;
+    const float* Ls = reinterpret_cast<const float*>(gbase + L::STATS + s * 2 * TILE * 4);
+    const float* Ds = Ls + TILE;
+    mbar_wait(base + L::FULL + 8 * s, (j / WS_STAGES) & 1);
+    float x[32];
+    uint32_t a[4][4];
+    if (c == 0) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<64>(x, TL::k_major(base + L::K, kk), TL::k_major(Qt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      // p^T in place of S^T (flash_bwd_dkv_sm90's arithmetic, with the
+      // forward's fast_exp2: its accurate exp2f took 15% of this kernel at
+      // Gemma-2B's shape, on the chain that hands p^T to consumer 1)
+      const bool edge =
+          k0 + TILE > kvl || q0 + TILE > Sq || (causal && k0 + TILE - 1 > qs + q0);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 8 * jj + c_lo;
+        const float2 l2 = *reinterpret_cast<const float2*>(Ls + col);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int e = 4 * jj + 2 * i + cc;
+            const int kpos = k0 + r_lo + 8 * i, qc = col + cc;
+            const bool live =
+                !edge || (q0 + qc < Sq && live_pair(kpos, qs + q0 + qc, kvl, causal));
+            x[e] = live ? fast_exp2(x[e] * scale2 - (cc ? l2.y : l2.x) * kLog2e) : 0.0f;
+          }
+      }
+      if (j > 0) named_sync(P_FREE, 256);  // consumer 1 has read pair j - 1's
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pt[128 * e] = x[e];
+      named_arrive_if(P_READY, 256, true);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(x, kk, a[kk]);
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<HD>(acc, a[kk], TL::mn_major(dOt, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<64>(x, TL::k_major(base + L::V, kk), TL::k_major(dOt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      named_sync(P_READY, 256);
+      // ds^T in place of dP^T, from the f32 p^T (flash_bwd_dkv_sm90's arithmetic)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 d2 = *reinterpret_cast<const float2*>(Ds + 8 * jj + c_lo);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int e = 4 * jj + 2 * i + cc;
+            x[e] = pt[128 * e] * (x[e] - (cc ? d2.y : d2.x)) * scale;
+          }
+      }
+      named_arrive_if(P_FREE, 256, j + 1 < n);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(x, kk, a[kk]);
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<HD>(acc, a[kk], TL::mn_major(Qt, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    mbar_arrive_if(base + L::EMPTY + 8 * s, lane == 0);
+  }
+  named_sync(DKV_DONE, 256);  // every tile read: the partials take the shared memory over
+  fence_proxy_async();
+
+  float* red = reinterpret_cast<float*>(gbase);  // dK rows, then dV rows
+  float* own = red + (c == 0 ? TILE : 0) * L::RED_LD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float* r = own + (r_lo + 8 * i) * L::RED_LD + c_lo;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+      *reinterpret_cast<float2*>(r + 8 * jj) =
+          make_float2(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+  }
+  cluster.sync();  // every block's partials are in its shared memory
+
+  // this block sums rows [rank * 64 / C, (rank + 1) * 64 / C) of dK and dV
+  // over the cluster, in rank order, and writes them
+  const int rows = TILE / C, row0 = rank * rows;
+  constexpr int V4 = HD / 4;
+  for (int idx = threadIdx.x; idx < 2 * rows * V4; idx += 128 * WS_CONSUMERS) {
+    const int which = idx / (rows * V4), rem = idx % (rows * V4);
+    const int row = row0 + rem / V4, col = (rem % V4) * 4;
+    float* src = red + (which * TILE + row) * L::RED_LD + col;
+    float4 sum = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, 0));
+    for (int r = 1; r < C; ++r) {
+      const float4 x = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, r));
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    if (k0 + row < Tk && (!PAD || col < hd))
+      *reinterpret_cast<float4*>((which ? dv : dk) + (((int64_t)b * Tk + k0 + row) * nkv + g) * hd +
+                                 col) = sum;
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+#endif  // QT_FLASH_WIDE
+
+// The bf16 route's kernels at compiled width HD, padded or not (dK/dV at
+// 256 columns: flash_bwd_dkv_ws, two consumer warpgroups and a producer)
 struct Bf16Route {
   template <int HD, bool PAD> static auto dq(int B, int Sq, int nh) {
     return plan(dim3(nh, B, (Sq + TILE - 1) / TILE), 1, flash_bwd_dq_sm90<HD, PAD>, 1,
                 DqSmem<HD>::bytes, STAGES);
   }
   template <int HD, bool PAD> static auto dkv(int B, int Sq, int Tk, int nh, int nkv) {
-    const DkvGrid lg = dkv_grid(B * DkvSmem<HD>::SPLITS, Sq, Tk, nh, nkv, TILE);
+#ifdef QT_FLASH_WIDE
+    // (dkv_grid's rule: C = 8 at Gemma-2B's s1024 shape, which measured
+    // faster than C = 4 with one block an SM; PERF.md)
+    const DkvGrid lg = dkv_grid(B, Sq, Tk, nh, nkv, TILE);
+    return plan(lg.grid, lg.cluster, flash_bwd_dkv_ws<PAD>, WS_CONSUMERS, DkvWs::bytes,
+                WS_STAGES, WS_THREADS);
+#else
+    const DkvGrid lg = dkv_grid(B, Sq, Tk, nh, nkv, TILE);
     return plan(lg.grid, lg.cluster, flash_bwd_dkv_sm90<HD, PAD>, 1, DkvSmem<HD>::bytes, STAGES);
+#endif
   }
 };
+
+#ifdef QT_FLASH_WIDE
+// q, k, v, dO by TMA: hd a multiple of 8 (the wrapper pads the others)
+template <bool PAD>
+int launch_dkv_ws(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                  const void* delta, const void* q_start, const void* kv_len, void* dk, void* dv,
+                  int B, int Sq, int Tk, int nh, int nkv, int hd, int causal, float scale,
+                  void* stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!tile_map(&mq, q, B, Sq, nh, hd) || !tile_map(&mk, k, B, Tk, nkv, hd) ||
+      !tile_map(&mv, v, B, Tk, nkv, hd) || !tile_map(&mdo, dout, B, Sq, nh, hd))
+    return (int)cudaErrorInvalidValue;
+  const auto p = Bf16Route::dkv<256, PAD>(B, Sq, Tk, nh, nkv);
+  return launch_cluster(p.kernel, p.grid, p.cluster, p.threads, p.smem, stream, mq, mk,
+                        mv, mdo, static_cast<const float*>(lse),
+                        static_cast<const float*>(delta), static_cast<const int*>(q_start),
+                        static_cast<const int*>(kv_len), static_cast<float*>(dk),
+                        static_cast<float*>(dv), Sq, Tk, nh, nkv, hd, causal, scale);
+}
+#endif
 
 }  // namespace
 
@@ -413,8 +684,9 @@ extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_dq_bf16)(const void* q, const void* k
                                     const void* q_start, const void* kv_len, void* dq, int B,
                                     int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                     float scale, void* stream) {
-  return launch_bwd<Bf16Route, bf16>(false, q, k, v, dout, lse, delta, q_start, kv_len, dq,
-                                     nullptr, B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
+  return launch_bwd<Bf16Route, bf16, false>(q, k, v, dout, lse, delta, q_start, kv_len, dq,
+                                            nullptr, B, Sq, Tk, nh, nkv, hd, causal, scale,
+                                            stream);
 }
 
 // ... dk, dv (f32, k's shape), B, Sq, T, nh, nkv, hd, causal, scale, stream
@@ -423,8 +695,16 @@ extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_dkv_bf16)(const void* q, const void* 
                                      const void* q_start, const void* kv_len, void* dk, void* dv,
                                      int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                      float scale, void* stream) {
-  return launch_bwd<Bf16Route, bf16>(true, q, k, v, dout, lse, delta, q_start, kv_len, dk, dv,
-                                     B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
+#ifdef QT_FLASH_WIDE
+  if (bad_bwd_sizes(B, Sq, Tk, nh, nkv)) return (int)cudaErrorInvalidValue;
+  return with_hd(hd, [&](auto, auto P) {
+    return launch_dkv_ws<decltype(P)::value>(q, k, v, dout, lse, delta, q_start, kv_len, dk, dv,
+                                             B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
+  });
+#else
+  return launch_bwd<Bf16Route, bf16, true>(q, k, v, dout, lse, delta, q_start, kv_len, dk, dv,
+                                           B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
+#endif
 }
 
 // The launch of this route's kernel for a report (flash_bwd.cuh's design)

@@ -31,7 +31,9 @@ DkvGrid dkv_grid(int B, int Sq, int Tk, int nh, int nkv, int bk) {
 }
 
 // One kernel's launch at a shape: grid, cluster size, kernel, warpgroups
-// a block, dynamic shared bytes, ring stages (f32: slots a warpgroup).
+// a block, dynamic shared bytes, ring stages (f32: slots a warpgroup),
+// threads a block (128 a warpgroup; a warp-specialised kernel's producer
+// warpgroup counts here, not in warpgroups).
 template <typename Kernel> struct Plan {
   dim3 grid;
   int cluster;
@@ -39,23 +41,25 @@ template <typename Kernel> struct Plan {
   int warpgroups;
   size_t smem;
   int stages;
+  int threads;
 };
 template <typename Kernel>
-Plan<Kernel> plan(dim3 grid, int cluster, Kernel kernel, int warpgroups, size_t smem, int stages) {
-  return {grid, cluster, kernel, warpgroups, smem, stages};
+Plan<Kernel> plan(dim3 grid, int cluster, Kernel kernel, int warpgroups, size_t smem, int stages,
+                  int threads = 0) {
+  return {grid, cluster, kernel, warpgroups, smem, stages, threads ? threads : 128 * warpgroups};
 }
 
 bool bad_bwd_sizes(int B, int Sq, int Tk, int nh, int nkv) {
   return B <= 0 || Sq <= 0 || Tk <= 0 || nkv <= 0 || nh % nkv != 0;
 }
 
-// dQ into d0, or dK into d0 and dV into d1, by the route's kernels on T
-// (bf16 or float) operands at head dim hd
-template <typename Route, typename T>
-int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* q_start, const void* kv_len,
-               void* d0, void* d1, int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
-               float scale, void* stream) {
+// dQ into d0 (DKV false), or dK into d0 and dV into d1, by the route's
+// kernels on T (bf16 or float) operands at head dim hd
+template <typename Route, typename T, bool DKV>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, const void* q_start, const void* kv_len, void* d0, void* d1,
+               int B, int Sq, int Tk, int nh, int nkv, int hd, int causal, float scale,
+               void* stream) {
   if (bad_bwd_sizes(B, Sq, Tk, nh, nkv)) return (int)cudaErrorInvalidValue;
   const auto* qp = static_cast<const T*>(q);
   const auto* kp = static_cast<const T*>(k);
@@ -69,33 +73,35 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
   return with_hd(hd, [&](auto H, auto P) {
     constexpr int HD = decltype(H)::value;
     constexpr bool PAD = decltype(P)::value;
-    if (dkv) {
+    if constexpr (DKV) {
       const auto p = Route::template dkv<HD, PAD>(B, Sq, Tk, nh, nkv);
-      return launch_cluster(p.kernel, p.grid, p.cluster, 128 * p.warpgroups, p.smem, stream, qp,
+      return launch_cluster(p.kernel, p.grid, p.cluster, p.threads, p.smem, stream, qp,
                             kp, vp, dop, lp, dp, qsp, klp, o0, static_cast<float*>(d1), Sq, Tk,
                             nh, nkv, hd, causal, scale);
+    } else {
+      const auto p = Route::template dq<HD, PAD>(B, Sq, nh);
+      return launch_n(p.kernel, p.grid, p.threads, p.smem, stream, qp, kp, vp, dop, lp,
+                      dp, qsp, klp, o0, Sq, Tk, nh, nkv, hd, causal, scale);
     }
-    const auto p = Route::template dq<HD, PAD>(B, Sq, nh);
-    return launch_n(p.kernel, p.grid, 128 * p.warpgroups, p.smem, stream, qp, kp, vp, dop, lp,
-                    dp, qsp, klp, o0, Sq, Tk, nh, nkv, hd, causal, scale);
   });
 }
 
 template <typename P> int report(const P& p, int* out) {
   cudaFuncAttributes attr;
   const cudaError_t rc = cudaFuncGetAttributes(&attr, p.kernel);
-  const int vals[11] = {(int)p.grid.x, (int)p.grid.y, (int)p.grid.z, p.cluster,
-                        blocks_per_sm(p.kernel, p.smem, 128 * p.warpgroups), attr.numRegs,
+  const int vals[12] = {(int)p.grid.x, (int)p.grid.y, (int)p.grid.z, p.cluster,
+                        blocks_per_sm(p.kernel, p.smem, p.threads), attr.numRegs,
                         (int)p.smem, (int)attr.localSizeBytes, sm_count(), p.stages,
-                        p.warpgroups};
-  for (int i = 0; i < 11; ++i) out[i] = vals[i];
+                        p.warpgroups, p.threads};
+  for (int i = 0; i < 12; ++i) out[i] = vals[i];
   return (int)rc;
 }
 
-// A route's launch, for a report: out[11] = grid x, y, z, cluster size,
+// A route's launch, for a report: out[12] = grid x, y, z, cluster size,
 // blocks resident per SM, registers a thread, dynamic shared bytes, local
 // (spill) bytes a thread, SMs, cp.async stages (f32: ring slots a
-// warpgroup), warpgroups a block; dkv 0 (dQ) or 1 (dK/dV); of the kernel
+// warpgroup), warpgroups a block, threads a block; dkv 0 (dQ) or 1
+// (dK/dV); of the kernel
 // that head dim hd runs (its compiled width; bf16: padded or not)
 template <typename Route>
 int design(bool dkv, int hd, int B, int Sq, int Tk, int nh, int nkv, int* out) {

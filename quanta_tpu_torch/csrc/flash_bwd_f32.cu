@@ -567,8 +567,9 @@ extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_dq_f32)(const void* q, const void* k,
                                    const void* q_start, const void* kv_len, void* dq, int B,
                                    int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                    float scale, void* stream) {
-  return launch_bwd<F32Route, float>(false, q, k, v, dout, lse, delta, q_start, kv_len, dq,
-                                     nullptr, B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
+  return launch_bwd<F32Route, float, false>(q, k, v, dout, lse, delta, q_start, kv_len, dq,
+                                            nullptr, B, Sq, Tk, nh, nkv, hd, causal, scale,
+                                            stream);
 }
 
 // ... dk, dv (f32, k's shape), B, Sq, T, nh, nkv, hd, causal, scale, stream
@@ -577,8 +578,8 @@ extern "C" int QT_FLASH_ENTRY(qt_flash_bwd_dkv_f32)(const void* q, const void* k
                                     const void* q_start, const void* kv_len, void* dk, void* dv,
                                     int B, int Sq, int Tk, int nh, int nkv, int hd, int causal,
                                     float scale, void* stream) {
-  return launch_bwd<F32Route, float>(true, q, k, v, dout, lse, delta, q_start, kv_len, dk, dv,
-                                     B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
+  return launch_bwd<F32Route, float, true>(q, k, v, dout, lse, delta, q_start, kv_len, dk, dv,
+                                           B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
 }
 
 // The launch of this route's kernel for a report (flash_bwd.cuh's design)

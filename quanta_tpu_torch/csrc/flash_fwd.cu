@@ -30,8 +30,9 @@
 // (flash_fwd_w256.cu) 256 columns; a head dim in between runs padded to the
 // next, the extra columns zero in shared memory and never stored. The
 // padded bf16 forward is held to two blocks an SM below 256. At 256 the
-// bf16 route is the same kernel (O is m64 x 256 f32, 128 registers a
-// thread, one block an SM); the f32 route's two warpgroups share 64 query
+// bf16 route is flash_fwd_ws (O is m64 x 256 f32, 128 registers a thread:
+// a producer warpgroup and two consumers, one block an SM); the f32
+// route's two warpgroups share 64 query
 // rows, each computing S and owning 128 columns of O (FwdF32::SPLIT_O), with
 // one buffer of split K / V tiles.
 //
@@ -108,6 +109,9 @@
 #include "flash_common.cuh"
 #include "flash_tf32x3.cuh"
 #include "sm90.cuh"
+#ifdef QT_FLASH_WIDE
+#include "ws_sm90.cuh"
+#endif
 
 namespace {
 
@@ -417,10 +421,9 @@ template <int HD> struct FwdSmem90 {  // FWD_WG Q tiles, then FWD_STAGES x (K, V
 // one block an SM, 26% longer at hd 128's work. The unpadded widths stay
 // unbounded (0): 96-126 registers, two blocks an SM, where a bound of one
 // block gave them 104-146 and hd 128 one block an SM, 3% slower (PERF.md).
-// HD 256 (O is 128 registers a thread; the tiles 193 KB) runs one block an
-// SM, padded or not.
+// (Built at 32, 64 and 128 columns; 256: flash_fwd_ws below.)
 template <int HD, bool PAD>
-__global__ void __launch_bounds__(FWD_THREADS, PAD && HD < 256 ? 2 : 0)
+__global__ void __launch_bounds__(FWD_THREADS, PAD ? 2 : 0)
 flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                const int* __restrict__ q_start, const int* __restrict__ kv_len,
                bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Tk, int nh, int nkv,
@@ -581,6 +584,353 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   }
 }
 
+#ifdef QT_FLASH_WIDE
+// ------------------------------------------ bf16 at 256 columns: warp-specialised
+
+// Shared memory: two Q tiles (one for each consumer), a ring of WS_STAGES K tiles
+// and one of V tiles, then the mbarriers: Q's full, K's and V's full and
+// empty a slot.
+struct FwdWs {
+  using TL = Tile<256>;
+  static constexpr uint32_t Q = 0, K = 2 * TL::BYTES, V = K + WS_STAGES * TL::BYTES;
+  static constexpr uint32_t Q_FULL = V + WS_STAGES * TL::BYTES, K_FULL = Q_FULL + 8,
+                            V_FULL = K_FULL + 8 * WS_STAGES, K_EMPTY = V_FULL + 8 * WS_STAGES,
+                            V_EMPTY = K_EMPTY + 8 * WS_STAGES;
+  static constexpr uint32_t ZERO = V_EMPTY + 8 * WS_STAGES;  // a word that holds 0 (PASS_ON)
+  static constexpr size_t bytes = ZERO + 8 + 1024;
+};
+constexpr int PING = 1;  // named barriers PING + c: consumer c's turn to issue its products
+// setmaxnreg: the producer's registers and the consumers' (24 x 128 + 240 x 256 = 168 x 384)
+constexpr int FWD_WS_PRODUCER_REGS = 24, FWD_WS_CONSUMER_REGS = 240;
+
+// The online softmax of one key tile's scores s (flash_fwd_sm90's
+// arithmetic), for this thread's rows i = 0, 1 and its columns 8j + c of
+// the tile (keys k0 + 8j + c_lo + c): -inf from the row's first dead key
+// on (FwdTurn's end[i], less k0: one compare a score, no branch, and
+// nothing masked off the causal diagonal and kv_len's tile); p = 2^((s -
+// m') scale log2 e) in place of s; l and m updated; alpha = exp(m - m')
+// for O.
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], const int (&end)[2], int k0,
+                                               float scale2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        s[4 * j + 2 * i + c] = 8 * j + c < end[i] - k0 ? s[4 * j + 2 * i + c] : -INFINITY;
+  // row max and (below) row sum as trees over the row's 16 scores: short
+  // dependency chains, where one warp a scheduler has little else to run
+  float mt[2], mb[2], ls[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]);
+#pragma unroll
+    for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
+    mt[i] = t[0];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+    mt[i] = fmaxf(m[i], mt[i]);  // m'
+    alpha[i] = mt[i] == -INFINITY ? 1.0f : fast_exp2((m[i] - mt[i]) * scale2);
+    mb[i] = mt[i] == -INFINITY ? 0.0f : mt[i] * scale2;
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = fast_exp2(fmaf(s[e], scale2, -mb[(e >> 1) & 1]));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
+#pragma unroll
+    for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] += t[j + w];
+    ls[i] = t[0];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 1);
+    ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 2);
+    l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), ls[i]);  // the TPU kernel's order, not an FMA
+    m[i] = mt[i];
+  }
+}
+
+// S = Q K^T of one key tile into s, and O += P V of one, issued as a
+// commit group each (not waited for)
+__device__ __forceinline__ void issue_s(float (&s)[32], uint32_t Qw, uint32_t Kt) {
+#pragma unroll
+  for (int kk = 0; kk < 256 / 16; ++kk)
+    wgmma_ss<64>(s, Tile<256>::k_major(Qw, kk), Tile<256>::k_major(Kt, kk), kk > 0);
+  wgmma_commit();
+}
+__device__ __forceinline__ void issue_pv(float (&o)[128], const uint32_t (&pa)[4][4], uint32_t Vt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<256>(o, pa[kk], Tile<256>::mn_major(Vt, kk));
+  wgmma_commit();
+}
+// O *= alpha, row by row
+__device__ __forceinline__ void rescale(float (&o)[128], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      o[4 * j + 2 * i] *= alpha[i];
+      o[4 * j + 2 * i + 1] *= alpha[i];
+    }
+}
+
+// A consumer's values that hold through its turns; end[i]: this thread's
+// row i's first dead key, less its first column c_lo
+struct FwdTurn {
+  uint32_t base, Qw;
+  int n_w, n_tiles, turns, c, lane, end[2];
+  float scale2;
+};
+__device__ __forceinline__ uint32_t ws_slot(int t) {  // t >= -1
+  return (t + WS_STAGES) % WS_STAGES;
+}
+__device__ __forceinline__ uint32_t ws_parity(int t) { return (t / WS_STAGES) & 1; }
+
+// Turn k of a consumer (see flash_fwd_ws): S_k in cur, S_{k+1} issued into
+// nxt. The turns run in pairs with cur and nxt swapped: a register copy of
+// S would wait on the products in flight. (P still packs into pa, the A
+// operand of P_{k-1} V_{k-1}: ptxas moves those packs into the softmax and
+// the products' wait with them; a second P buffer does not fit the 240
+// registers beside O and the two S; PERF.md.)
+__device__ __forceinline__ void fwd_turn(const FwdTurn& f, int k, float (&o)[128], float (&m)[2],
+                                         float (&l)[2], uint32_t (&pa)[4][4], float (&cur)[32],
+                                         float (&nxt)[32]) {
+  using L = FwdWs;
+  using TL = Tile<256>;
+  const uint32_t base = f.base;
+  const int mine = PING + f.c, other = PING + 1 - f.c;
+  // consumer 1 passes its last turn on to no one: every barrier phase is whole
+  const bool pass = f.c == 0 || k + 1 < f.turns;
+  if (k + 1 < f.n_tiles) mbar_wait(base + L::K_FULL + 8 * ws_slot(k + 1), ws_parity(k + 1));
+  if (k > 0) mbar_wait(base + L::V_FULL + 8 * ws_slot(k - 1), ws_parity(k - 1));
+  named_sync(mine, 256);
+  const uint32_t Kn = base + L::K + ws_slot(k + 1) * TL::BYTES;
+  const uint32_t Vp = base + L::V + ws_slot(k - 1) * TL::BYTES;
+  const int k0 = k * TILE;
+  float alpha[2];
+  if (k + 1 < f.n_w && k > 0) {  // S_{k+1} and P_{k-1} V_{k-1} beside tile k's softmax
+    wgmma_fence();
+    fence_regs(o);
+    issue_s(nxt, f.Qw, Kn);
+    issue_pv(o, pa, Vp);
+    named_arrive_if(other, 256, pass);
+    // after the arrive (PASS_ON)
+    online_softmax(cur, m, l, alpha, f.end, k0 + ld_shared_u32(base + L::ZERO), f.scale2);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(nxt);
+    rescale(o, alpha);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(cur, kk, pa[kk]);
+  } else if (k + 1 < f.n_w) {  // k = 0: S_1 beside tile 0's softmax (O is zero: no rescale)
+    wgmma_fence();
+    issue_s(nxt, f.Qw, Kn);
+    named_arrive_if(other, 256, pass);
+    online_softmax(cur, m, l, alpha, f.end, k0 + ld_shared_u32(base + L::ZERO), f.scale2);
+    wgmma_wait<0>();
+    fence_regs(nxt);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(cur, kk, pa[kk]);
+  } else if (k < f.n_w && k > 0) {  // the last tile's softmax beside P_{k-1} V_{k-1}
+    wgmma_fence();
+    fence_regs(o);
+    issue_pv(o, pa, Vp);
+    named_arrive_if(other, 256, pass);
+    online_softmax(cur, m, l, alpha, f.end, k0 + ld_shared_u32(base + L::ZERO), f.scale2);
+    wgmma_wait<0>();
+    fence_regs(o);
+    rescale(o, alpha);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(cur, kk, pa[kk]);
+  } else if (k < f.n_w) {  // a single tile: its softmax alone
+    named_arrive_if(other, 256, pass);
+    online_softmax(cur, m, l, alpha, f.end, k0, f.scale2);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(cur, kk, pa[kk]);
+  } else if (k > 0 && k <= f.n_w) {  // the last tile's P V
+    wgmma_fence();
+    fence_regs(o);
+    issue_pv(o, pa, Vp);
+    named_arrive_if(other, 256, pass);
+    wgmma_wait<0>();
+    fence_regs(o);
+  } else {  // past this consumer's horizon: the turn passes on
+    named_arrive_if(other, 256, pass);
+  }
+  // the slots this turn is done with: K_{k+1} (its S waited for, or not
+  // this consumer's), V_{k-1}
+  mbar_arrive_if(base + L::K_EMPTY + 8 * ws_slot(k + 1), f.lane == 0 && k + 1 < f.n_tiles);
+  mbar_arrive_if(base + L::V_EMPTY + 8 * ws_slot(k - 1), f.lane == 0 && k > 0);
+}
+
+// Head dims 129-256 (bf16): the same function as flash_fwd_sm90, by two
+// consumer warpgroups and a producer warpgroup (ws_sm90.cuh). The
+// producer's one thread loads the block's two Q tiles once, then streams
+// K and V tiles by TMA through rings of WS_STAGES slots. Each consumer owns
+// 64 query rows and holds S of the next key tile beside this one's: its
+// turn k issues S_{k+1} = Q K_{k+1}^T and O += P_{k-1} V_{k-1} (P of the
+// tile before, in registers as the A operand) back to back, runs tile k's
+// softmax on S_k while both run, waits for both, rescales O by tile k's
+// alpha and packs P_k: O = O alpha_k + P_k V_k as flash_fwd_sm90 adds it,
+// one turn later, and no product's latency between two softmaxes. The two
+// consumers take turns on two named barriers (ping-pong): consumer c issues
+// turn k once the other has issued its turn k - 1 (c = 0) or k (c = 1).
+// PASS_ON: tile k's softmax reads S_k, which the turn before completed, so
+// nothing held it after the arrive that passes the turn on; ptxas moved it
+// into the products' issue, above the arrive, the other consumer waited
+// for the whole softmax, and the two softmaxes ran one after the other
+// (PERF.md). The softmax now takes its first key from a word of shared
+// memory (0) loaded after the arrive, which ptxas cannot see through.
+// Every consumer takes n_tiles + 1 turns: one past its causal horizon only
+// passes the turn on and releases the slots. No __syncthreads in the key
+// loop; between a product's issue and its wait only straight-line code
+// (masks as selects, predicated arrivals).
+template <bool PAD>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_fwd_ws(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const int* __restrict__ q_start,
+             const int* __restrict__ kv_len, bf16* __restrict__ out, float* __restrict__ lse,
+             int Sq, int Tk, int nh, int nkv, int hd_arg, int causal, float scale) {
+  using TL = Tile<256>;
+  using L = FwdWs;
+  constexpr int HD = 256;
+  const int hd = PAD ? hd_arg : HD;  // the real head dim, of HD columns
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+
+  const int wg = warpgroup(), wtid = threadIdx.x % 128;
+  const int warp = wtid / 32, lane = threadIdx.x % 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * FWD_ROWS;  // the longest rows first
+  const int g = h / (nh / nkv);
+  const int qs = q_start[b];
+  const int kvl = max(0, min(kv_len[b], Tk));
+  const int kv_end = causal ? min(kvl, qs + min(q0 + FWD_ROWS, Sq)) : kvl;
+  const int n_tiles = kv_end > 0 ? (kv_end + TILE - 1) / TILE : 0;
+
+  if (threadIdx.x == 0) {
+    st_shared_u32(base + L::ZERO, 0);
+    mbar_init(base + L::Q_FULL, 1);
+    for (int s = 0; s < WS_STAGES; ++s) {
+      mbar_init(base + L::K_FULL + 8 * s, 1);
+      mbar_init(base + L::V_FULL + 8 * s, 1);
+      mbar_init(base + L::K_EMPTY + 8 * s, 8);  // one arrival a consumer warp
+      mbar_init(base + L::V_EMPTY + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == WS_CONSUMERS) {  // the producer
+    regs_dec<FWD_WS_PRODUCER_REGS>();
+    if (wtid == 0 && n_tiles > 0) {
+      mbar_expect_tx(base + L::Q_FULL, 2 * TL::BYTES);
+      tma_tile<HD>(base + L::Q, &tq, base + L::Q_FULL, h, q0, b);
+      tma_tile<HD>(base + L::Q + TL::BYTES, &tq, base + L::Q_FULL, h, q0 + TILE, b);
+      // K runs a tile ahead of V, as the consumers read them (S_{k+1} beside P_{k-1} V_{k-1})
+      auto load = [&](uint32_t tiles, uint32_t full, uint32_t empty, const CUtensorMap* map,
+                      int t) {
+        const int s = t % WS_STAGES;
+        mbar_wait_guarded(empty + 8 * s, ((t / WS_STAGES) & 1) ^ 1);  // the slot's last phase
+        mbar_expect_tx(full + 8 * s, TL::BYTES);
+        tma_tile<HD>(tiles + s * TL::BYTES, map, full + 8 * s, g, t * TILE, b);
+      };
+      load(base + L::K, base + L::K_FULL, base + L::K_EMPTY, &tk, 0);
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t + 1 < n_tiles) load(base + L::K, base + L::K_FULL, base + L::K_EMPTY, &tk, t + 1);
+        load(base + L::V, base + L::V_FULL, base + L::V_EMPTY, &tv, t);
+      }
+    }
+    return;
+  }
+  regs_inc<FWD_WS_CONSUMER_REGS>();
+
+  const int c = wg;  // this consumer: query rows qw .. qw + 63
+  const int qw = q0 + c * TILE;
+  const int kv_end_w = qw < Sq ? live_kv_end(qs, qw, Sq, kvl, causal) : 0;
+  const int n_w = kv_end_w > 0 ? (kv_end_w + TILE - 1) / TILE : 0;
+  const uint32_t Qw = base + L::Q + c * TL::BYTES;
+  // this thread's rows r_lo and r_lo + 8 of the consumer's tile, columns
+  // 8j + c_lo + c: running max (of the raw scores) and sum per row
+  const int r_lo = warp * 16 + lane / 4, c_lo = 2 * (lane % 4);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[HD / 2], s[32], sn[32];  // S of this tile and of the next, by turns
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+
+  // tile 0's S, outside the turns
+  if (n_tiles > 0) mbar_wait(base + L::K_FULL, 0);
+  if (n_w > 0) {
+    mbar_wait(base + L::Q_FULL, 0);
+    wgmma_fence();
+    issue_s(s, Qw, base + L::K);
+    wgmma_wait<0>();
+    fence_regs(s);
+  }
+  mbar_arrive_if(base + L::K_EMPTY, lane == 0 && n_tiles > 0);
+
+  const int turns = n_tiles > 0 ? n_tiles + 1 : 0;
+  FwdTurn f{base, Qw, n_w, n_tiles, turns, c, lane, {0, 0}, scale * kLog2e};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)  // keys past kv_len, or (causal) past the row's position, are dead
+    f.end[i] = (causal ? min(kvl, qs + qw + r_lo + 8 * i + 1) : kvl) - c_lo;
+  named_arrive_if(PING, 256, c == 1 && turns > 0);  // consumer 0 issues first
+  for (int k = 0; k < turns; k += 2) {
+    fwd_turn(f, k, o, m, l, pa, s, sn);
+    if (k + 1 < turns) fwd_turn(f, k + 1, o, m, l, pa, sn, s);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + r_lo + 8 * i;
+    if (row >= Sq) continue;
+    bf16* orow = out + (((int64_t)b * Sq + row) * nh + h) * hd + c_lo;
+    // o times 1/l rounded to nearest: 128 divisions a thread, each with its
+    // slow path, held the block's last rows (within an f32 ulp or so of o / l)
+    const float inv = l[i] > 0.0f ? __frcp_rn(l[i]) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if (PAD && 8 * j + c_lo >= hd) continue;  // a padded column
+      const float x0 = __fmul_rn(o[4 * j + 2 * i], inv);
+      const float x1 = __fmul_rn(o[4 * j + 2 * i + 1], inv);
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(x0, x1);
+    }
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((int64_t)b * nh + h) * Sq + row] = l[i] > 0.0f ? m[i] * scale + logf(l[i]) : kDeadLse;
+  }
+}
+
+// q, k, v by TMA: hd a multiple of 8 (the wrapper pads the others)
+template <bool PAD>
+int launch_fwd_ws(const void* q, const void* k, const void* v, const void* q_start,
+                  const void* kv_len, void* out, void* lse, int B, int Sq, int Tk, int nh, int nkv,
+                  int hd, int causal, float scale, void* stream) {
+  CUtensorMap mq, mk, mv;
+  if (!tile_map(&mq, q, B, Sq, nh, hd) || !tile_map(&mk, k, B, Tk, nkv, hd) ||
+      !tile_map(&mv, v, B, Tk, nkv, hd))
+    return (int)cudaErrorInvalidValue;
+  return launch_n(flash_fwd_ws<PAD>, fwd_grid(B, Sq, nh, FWD_ROWS), WS_THREADS, FwdWs::bytes,
+                  stream, mq, mk, mv, static_cast<const int*>(q_start),
+                  static_cast<const int*>(kv_len), static_cast<bf16*>(out),
+                  static_cast<float*>(lse), Sq, Tk, nh, nkv, hd, causal, scale);
+}
+#endif  // QT_FLASH_WIDE
+
 bool bad_sizes(int B, int Sq, int Tk, int nh, int nkv) {
   return B <= 0 || Sq <= 0 || Tk <= 0 || nkv <= 0 || nh % nkv != 0;
 }
@@ -611,13 +961,15 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, const void* q_st
 
 // The launch of a route at a shape, for a report (see qt_flash_fwd_design)
 template <typename Kernel>
-int report(Kernel kernel, dim3 grid, int warpgroups, size_t smem, int stages, int* out) {
+int report(Kernel kernel, dim3 grid, int warpgroups, size_t smem, int stages, int* out,
+           int threads = 0) {
   cudaFuncAttributes attr;
   const cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
-  const int vals[10] = {(int)grid.x, (int)grid.y, (int)grid.z, warpgroups,
-                        blocks_per_sm(kernel, smem, 128 * warpgroups), attr.numRegs, (int)smem,
-                        (int)attr.localSizeBytes, sm_count(), stages};
-  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  if (threads == 0) threads = 128 * warpgroups;
+  const int vals[11] = {(int)grid.x, (int)grid.y, (int)grid.z, warpgroups,
+                        blocks_per_sm(kernel, smem, threads), attr.numRegs, (int)smem,
+                        (int)attr.localSizeBytes, sm_count(), stages, threads};
+  for (int i = 0; i < 11; ++i) out[i] = vals[i];
   return (int)rc;
 }
 
@@ -626,8 +978,13 @@ template <int HD, bool PAD> int fwd_design(bool f32, int B, int Sq, int nh, int*
   if (f32)
     return report(flash_fwd_f32<HD, PAD>, fwd_grid(B, Sq, nh, L::ROWS), L::WGS, L::bytes, L::BUFS,
                   out);
+#ifdef QT_FLASH_WIDE
+  return report(flash_fwd_ws<PAD>, fwd_grid(B, Sq, nh, FWD_ROWS), WS_CONSUMERS, FwdWs::bytes,
+                WS_STAGES, out, WS_THREADS);
+#else
   return report(flash_fwd_sm90<HD, PAD>, fwd_grid(B, Sq, nh, FWD_ROWS), FWD_WG,
                 FwdSmem90<HD>::bytes, FWD_STAGES, out);
+#endif
 }
 
 int design(bool f32, int hd, int B, int Sq, int nh, int* out) {
@@ -647,8 +1004,13 @@ extern "C" int QT_FLASH_ENTRY(qt_flash_fwd_bf16)(const void* q, const void* k, c
                                  float scale, void* stream) {
   if (bad_sizes(B, Sq, Tk, nh, nkv)) return (int)cudaErrorInvalidValue;
   return with_hd(hd, [&](auto H, auto P) {
+#ifdef QT_FLASH_WIDE
+    return launch_fwd_ws<decltype(P)::value>(q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh,
+                                             nkv, hd, causal, scale, stream);
+#else
     return launch_fwd_bf16<decltype(H)::value, decltype(P)::value>(
         q, k, v, q_start, kv_len, out, lse, B, Sq, Tk, nh, nkv, hd, causal, scale, stream);
+#endif
   });
 }
 
@@ -663,11 +1025,13 @@ extern "C" int QT_FLASH_ENTRY(qt_flash_fwd_f32)(const void* q, const void* k, co
   });
 }
 
-// A route's launch, for a report: out[10] = grid x, y, z, warpgroups a
+// A route's launch, for a report: out[11] = grid x, y, z, warpgroups a
 // block (64 query rows each), blocks resident per SM, registers a thread,
 // dynamic shared bytes, local (spill) bytes a thread, SMs, stages (bf16:
-// the cp.async ring of K / V tiles; f32: the split K / V buffers), of the
-// kernel that head dim hd runs (its compiled width, padded or not)
+// the cp.async ring of K / V tiles, at 256 columns the TMA rings; f32: the
+// split K / V buffers), threads a block (at 256 columns in bf16 the
+// producer warpgroup's too), of the kernel that head dim hd runs (its compiled
+// width, padded or not)
 extern "C" int QT_FLASH_ENTRY(qt_flash_fwd_design)(int hd, int B, int Sq, int nh, int* out) {
   return design(false, hd, B, Sq, nh, out);
 }

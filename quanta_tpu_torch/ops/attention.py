@@ -10,7 +10,10 @@ and how it is laid out. The bf16 kernels are built for Hopper (warpgroup
 products with the scores kept in registers, cp.async tile rings;
 ``csrc/sm90.cuh``): the forward's blocks share each staged K/V tile
 between two 64-row query tiles, the backward splits dK/dV over
-thread-block clusters. The f32 kernels run each f32 product as three TF32
+thread-block clusters. At 256 columns (head dims 129-256) the bf16 forward
+and dK/dV kernels are warp-specialised (``csrc/ws_sm90.cuh``): a producer
+warpgroup streams the tiles by TMA through mbarrier rings to two consumer
+warpgroups. The f32 kernels run each f32 product as three TF32
 warpgroup products (``csrc/flash_tf32x3.cuh``); the f32 forward keeps p
 in registers, as the bf16 one does. Every kernel, in either route, is
 deterministic: two calls give the same bits. :func:`flash_fwd_design` and :func:`flash_bwd_design`
@@ -39,7 +42,9 @@ columns zero, at the scale of its own head_dim. A head_dim that is not a
 multiple of 4 would leave rows off the kernels' 8- and 16-byte copies, so
 the wrapper pads it with zero columns to the next multiple of 8 before the
 launch and slices the outputs back (:func:`kernel_head_dim`), as the TPU
-kernel pads the sequence on its host. Anything else (a head_dim above 256,
+kernel pads the sequence on its host; so too a bf16 head_dim above 128
+that is 4 mod 8 (e.g. 132): the 256-column kernels' TMA copies need rows
+of a multiple of 16 bytes. Anything else (a head_dim above 256,
 another dtype) raises a ``ValueError`` on the kernel route.
 ``flash_attention`` is differentiable in q, k and v through
 ``_FlashAttention``, whose backward computes ``D = rowsum(dO * O)`` in
@@ -62,10 +67,12 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _TAKES = "head_dim from 1 to 256"
 
 
-def kernel_head_dim(hd: int) -> int:
+def kernel_head_dim(hd: int, dtype: torch.dtype | None = None) -> int:
     """The head_dim the kernels see: hd where it is a multiple of 4, else
-    the next multiple of 8 (the wrapper's zero columns)."""
-    return hd if hd % 4 == 0 else -(-hd // 8) * 8
+    the next multiple of 8 (the wrapper's zero columns). For bf16 above 128
+    columns, where the kernels load by TMA, a multiple of 8 as well."""
+    tma = dtype == torch.bfloat16 and hd > PADDED_HEAD_DIMS[-2]
+    return hd if hd % (8 if tma else 4) == 0 else -(-hd // 8) * 8
 
 
 def padded_head_dim(hd: int) -> int:
@@ -118,7 +125,7 @@ def _to_kernel(x, dtype):
     """x in the kernels' dtype and layout, its head_dim zero-padded to
     :func:`kernel_head_dim`."""
     x = x.to(dtype)
-    pad = kernel_head_dim(x.shape[-1]) - x.shape[-1]
+    pad = kernel_head_dim(x.shape[-1], dtype) - x.shape[-1]
     return _aligned(torch.nn.functional.pad(x, (0, pad)) if pad else x)
 
 
@@ -196,10 +203,10 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, q_start, kv_len, *, causal=
 
 
 def _sizes(q, k, causal):
-    """The kernels' size arguments: their head_dim (padded to a multiple
-    of 8 where q's is not one of 4) and the scale of q's own."""
+    """The kernels' size arguments: their head_dim (:func:`kernel_head_dim`)
+    and the scale of q's own."""
     b, sq, nh, hd = q.shape
-    return (b, sq, k.shape[1], nh, k.shape[2], kernel_head_dim(hd), int(causal),
+    return (b, sq, k.shape[1], nh, k.shape[2], kernel_head_dim(hd, q.dtype), int(causal),
             1.0 / math.sqrt(hd))
 
 
@@ -248,10 +255,11 @@ def _bwd_launch(name, q, k, v, do, lse, delta, q_start, kv_len, causal, outs):
     _build.launches[name] += 1
 
 
-def _grad_out(shape, device):
-    """An f32 gradient of the kernels' head_dim, for ``shape`` (..., hd)."""
-    return torch.empty((*shape[:-1], kernel_head_dim(shape[-1])), dtype=torch.float32,
-                       device=device)
+def _grad_out(shape, q):
+    """An f32 gradient of the kernels' head_dim for q's operands, for
+    ``shape`` (..., hd)."""
+    return torch.empty((*shape[:-1], kernel_head_dim(shape[-1], q.dtype)), dtype=torch.float32,
+                       device=q.device)
 
 
 def _own_hd(x, hd):
@@ -264,7 +272,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_start, kv_len, *, causal=True, use_k
     (both (B, nh, Sq) f32)."""
     if not _build.use_kernel_for(use_kernel, q):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, q_start, kv_len, causal=causal)
-    dq = _grad_out(q.shape, q.device)
+    dq = _grad_out(q.shape, q)
     _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, q_start, kv_len, causal, [dq])
     return _own_hd(dq, q.shape[-1])
 
@@ -273,15 +281,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_start, kv_len, *, causal=True, use_
     """(dk, dv), each (B, T, nkv, hd) f32, from the same inputs as dq."""
     if not _build.use_kernel_for(use_kernel, q):
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, q_start, kv_len, causal=causal)
-    dk, dv = _grad_out(k.shape, q.device), _grad_out(k.shape, q.device)
+    dk, dv = _grad_out(k.shape, q), _grad_out(k.shape, q)
     _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, q_start, kv_len, causal, [dk, dv])
     return _own_hd(dk, q.shape[-1]), _own_hd(dv, q.shape[-1])
 
 
 _DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "cluster", "blocks_per_sm", "registers",
-                "shared_bytes", "spill_bytes", "sms", "stages", "warpgroups")
+                "shared_bytes", "spill_bytes", "sms", "stages", "warpgroups", "threads")
 _FWD_DESIGN_KEYS = ("grid_x", "grid_y", "grid_z", "warpgroups", "blocks_per_sm", "registers",
-                    "shared_bytes", "spill_bytes", "sms", "stages")
+                    "shared_bytes", "spill_bytes", "sms", "stages", "threads")
 
 
 def _design_check(name, hd, dtype):
@@ -292,22 +300,35 @@ def _design_check(name, hd, dtype):
     return padded_head_dim(hd)
 
 
+# the kernels that are warp-specialised at 256 columns in bf16
+_WS_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+
+
+def _design_name(name, padded, dtype):
+    """"wgmma_3xtf32" (f32), "wgmma_ws" (bf16 #8 and #10 at 256 columns: a
+    TMA producer warpgroup and two consumer warpgroups) or "wgmma"."""
+    if dtype == torch.float32:
+        return "wgmma_3xtf32"
+    return "wgmma_ws" if padded == PADDED_HEAD_DIMS[-1] and name in _WS_KERNELS else "wgmma"
+
+
 def flash_fwd_design(b, sq, nh, hd, dtype=torch.bfloat16):
     """How the forward kernel launches for ``dtype`` operands at this shape
-    on this card: its grid, warpgroups a block (64 query rows each), blocks
-    resident per SM, registers a thread, dynamic shared bytes a block and
-    spill bytes a thread (from ``cudaFuncGetAttributes``), the SMs, and its
-    stages (bf16: the K/V ring's; f32: the split K/V buffers); ``design``
-    "wgmma" (bf16) or "wgmma_3xtf32" (f32); ``padded_head_dim`` the
-    compiled width the head_dim runs in (the kernel reported is that
-    width's, padded where the two differ)."""
+    on this card: its grid, warpgroups a block (64 query rows each),
+    blocks resident per SM, registers a thread, dynamic shared bytes a
+    block and spill bytes a thread (from ``cudaFuncGetAttributes``), the
+    SMs, its stages (bf16: the K/V ring's; f32: the split K/V buffers) and
+    threads a block ("wgmma_ws": its producer warpgroup's too); ``design``
+    "wgmma", "wgmma_ws" (bf16 at 256 columns) or "wgmma_3xtf32" (f32);
+    ``padded_head_dim`` the compiled width the head_dim runs in (the kernel
+    reported is that width's, padded where the two differ)."""
     padded = _design_check("flash_fwd", hd, dtype)
     f32 = dtype == torch.float32
     entry = _entry("flash_fwd_f32_design" if f32 else "flash_fwd_design", padded)
     out = (ctypes.c_int * len(_FWD_DESIGN_KEYS))()
-    _build.check(getattr(_build.library(), entry)(kernel_head_dim(hd), b, sq, nh, out),
+    _build.check(getattr(_build.library(), entry)(kernel_head_dim(hd, dtype), b, sq, nh, out),
                  "flash_fwd")
-    return {"design": "wgmma_3xtf32" if f32 else "wgmma", "padded_head_dim": padded,
+    return {"design": _design_name("flash_fwd", padded, dtype), "padded_head_dim": padded,
             **dict(zip(_FWD_DESIGN_KEYS, out))}
 
 
@@ -317,17 +338,17 @@ def flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=torch.bfloat16):
     cluster size (dK/dV), blocks resident per SM, registers a thread,
     dynamic shared bytes a block and spill bytes a thread (from
     ``cudaFuncGetAttributes``), the SMs, the stages of its cp.async ring
-    (f32: the slots of each warpgroup's) and its warpgroups a block;
-    ``design`` "wgmma" (bf16) or "wgmma_3xtf32" (f32); ``padded_head_dim``
+    (f32: the slots of each warpgroup's; "wgmma_ws": its mbarrier ring's),
+    its warpgroups and threads a block; ``design`` and ``padded_head_dim``
     as for :func:`flash_fwd_design`."""
     padded = _design_check(name, hd, dtype)
     f32 = dtype == torch.float32
     entry = _entry("flash_bwd_f32_design" if f32 else "flash_bwd_design", padded)
     out = (ctypes.c_int * len(_DESIGN_KEYS))()
-    rc = getattr(_build.library(), entry)(int(name == "flash_bwd_dkv"), kernel_head_dim(hd), b,
-                                          sq, t, nh, nkv, out)
+    rc = getattr(_build.library(), entry)(int(name == "flash_bwd_dkv"),
+                                          kernel_head_dim(hd, dtype), b, sq, t, nh, nkv, out)
     _build.check(rc, name)
-    return {"design": "wgmma_3xtf32" if f32 else "wgmma", "padded_head_dim": padded,
+    return {"design": _design_name(name, padded, dtype), "padded_head_dim": padded,
             **dict(zip(_DESIGN_KEYS, out))}
 
 

@@ -191,6 +191,90 @@ def test_kernel_takes_and_padded_head_dims():
         assert tattn.padded_head_dim(hd) == 0 and not tattn.kernel_takes(hd, torch.bfloat16)
 
 
+# (hd, dtype, the head dim the kernels see): a multiple of 4 as it is, up to
+# 128 columns and in f32; off one, the next multiple of 8; in bf16 above
+# 128 columns (the TMA rows of the 256-column kernels) a multiple of 8 too
+KERNEL_HDS = [(132, torch.bfloat16, 136), (132, torch.float32, 132), (100, torch.bfloat16, 100),
+              (136, torch.bfloat16, 136), (252, torch.bfloat16, 256), (252, torch.float32, 252),
+              (37, torch.bfloat16, 40), (37, torch.float32, 40), (255, torch.float32, 256)]
+
+
+@pytest.mark.parametrize("hd,dtype,kernel_hd", KERNEL_HDS)
+def test_kernel_head_dim_gives_tma_rows_in_bf16_above_128(hd, dtype, kernel_hd):
+    """The head dim the wrapper hands the kernels: its zero columns reach a
+    multiple of 8 wherever the rows must be 16-byte multiples, in the same
+    compiled width."""
+    assert tattn.kernel_head_dim(hd, dtype) == kernel_hd
+    assert tattn.padded_head_dim(kernel_hd) == tattn.padded_head_dim(hd)
+
+
+def _design_library():
+    """A library whose design entry points fill their report with 1s and
+    record the head dim they were given."""
+    seen = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                seen.append((name, args[1] if "bwd" in name else args[0]))
+                out = args[-1]
+                for i in range(len(out)):
+                    out[i] = 1
+                return 0
+            return entry
+    return Lib(), seen
+
+
+@pytest.mark.parametrize("hd,dtype,want", [
+    (256, torch.bfloat16, ("wgmma_ws", "wgmma", "wgmma_ws")),
+    (132, torch.bfloat16, ("wgmma_ws", "wgmma", "wgmma_ws")),
+    (128, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    (256, torch.float32, ("wgmma_3xtf32",) * 3)])
+def test_flash_design_names_the_warp_specialised_kernels(hd, dtype, want):
+    """The design reports name the warp-specialised forward and dK/dV
+    ("wgmma_ws") for bf16 head dims run in 256 columns, the dQ kernel and
+    narrower widths "wgmma", and f32 "wgmma_3xtf32"; each reports its
+    threads and reaches the 256-column entry points (``_w256``) with the
+    head dim the kernels see."""
+    lib, seen = _design_library()
+    with mock.patch.object(tattn._build, "library", lambda: lib):
+        got = (tattn.flash_fwd_design(2, 1024, 8, hd, dtype=dtype),
+               tattn.flash_bwd_design("flash_bwd_dq", 2, 1024, 1024, 8, 1, hd, dtype=dtype),
+               tattn.flash_bwd_design("flash_bwd_dkv", 2, 1024, 1024, 8, 1, hd, dtype=dtype))
+    assert tuple(d["design"] for d in got) == want
+    assert all("threads" in d for d in got)
+    wide = tattn.padded_head_dim(hd) == 256
+    assert all(name.endswith("_w256") == wide for name, _ in seen)
+    assert {h for _, h in seen} == {tattn.kernel_head_dim(hd, dtype)}
+
+
+def test_flash_kernel_route_at_head_dim_132_bf16_pads_to_136():
+    """bf16 at hd 132 (4 mod 8) on the kernel route (the fake library on
+    the CPU): the wrapper pads q, k, v and dO to 136 columns for the
+    256-column entry points, the scale stays 1/sqrt(132), and the output
+    and the gradients, sliced back to 132, are the plain route's."""
+    from torch_fakes import kernel_routes
+
+    b, s, t, nh, nkv, hd = 2, 48, 80, 4, 2, 132
+    q, k, v, qs, kl = _inputs(b, s, t, nh, nkv, hd, [0, 24], seed=21)
+    kl = np.asarray([48, 72], np.int32)
+    w = torch.from_numpy(np.random.default_rng(22).standard_normal((b, s, nh, hd)).astype(
+        np.float32))
+    outs = {}
+    for route in (None, False):
+        tq, tk, tv = (x.to(torch.bfloat16).requires_grad_() for x in _t(q, k, v))
+        with kernel_routes():
+            out = tattn.flash_attention(tq, tk, tv, *_t(qs, kl), use_kernel=route)
+            (out.float() * w).sum().backward()
+            launches = {n: tattn._build.launches[n]
+                        for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        assert launches == dict.fromkeys(launches, 1 if route is None else 0)
+        outs[route] = (out, tq.grad, tk.grad, tv.grad)
+    for got, want in zip(outs[None], outs[False]):
+        assert got.shape[-1] == hd and got.dtype == torch.bfloat16
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("hd,flash", [(64, True), (100, True), (160, True), (256, True),
                                       (288, False)])
 def test_use_flash_default_follows_the_kernels(hd, flash):

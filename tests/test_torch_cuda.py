@@ -21,7 +21,8 @@ two calls give the same bits. The flash kernels take any head dim from 1
 to 256, run in the smallest compiled width of 32, 64, 128 and 256 that
 holds it (FLASH_HDS: each compiled width unpadded and, padded, 48, 80, 96,
 OpenLLaMA-3B's 100, 160 and 192; 37 and 98, off a multiple of 4, padded
-by the wrapper to 40 and 104 first). ``matmul_8bit`` and ``matmul_8bit_t``
+by the wrapper to 40 and 104 first; 132, 4 mod 8, padded by the wrapper to
+136 in bf16, whose 256-column kernels load by TMA). ``matmul_8bit`` and ``matmul_8bit_t``
 read the same 256-entry level table as their plain versions and differ
 only in f32 summation order: bf16 within 2 bf16 ulps of max|plain|, f32
 within 1e-5 of it; the bf16 ``matmul_4bit`` and ``matmul_8bit`` sum their
@@ -569,11 +570,12 @@ FLASH_CASES = [
 
 
 # head dims: the compiled widths 32, 64, 128 and 256, and head dims run
-# padded to them (48 in 64; 80, 96 and OpenLLaMA-3B's 100 in 128; 160 and
-# 192 in 256; 100 is off the 16-byte rows of bf16), and two off a multiple
-# of 4 that the wrapper pads with zero columns first (37 to 40, in 64; 98 to
-# 104, in 128)
-FLASH_HDS = [32, 37, 48, 64, 80, 96, 98, 100, 128, 160, 192, 256]
+# padded to them (48 in 64; 80, 96 and OpenLLaMA-3B's 100 in 128; 132, 160
+# and 192 in 256; 100 is off the 16-byte rows of bf16), and two off a
+# multiple of 4 that the wrapper pads with zero columns first (37 to 40, in
+# 64; 98 to 104, in 128); in bf16 the wrapper pads 132 to 136 too (the
+# 256-column kernels' TMA rows are multiples of 16 bytes)
+FLASH_HDS = [32, 37, 48, 64, 80, 96, 98, 100, 128, 132, 160, 192, 256]
 
 
 def _rel(a, b):
@@ -634,7 +636,7 @@ def _bwd_args(cuda, b, sq, t, nh, nkv, hd, q_start, kv_len, dtype=torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [32, 64, 100, 128, 160, 256])
+@pytest.mark.parametrize("hd", [32, 64, 100, 128, 132, 160, 256])
 def test_flash_bwd_deterministic(cuda, dtype, hd):
     """Two calls on the same inputs give the same bits: dK/dV's blocks sum
     their partials in a fixed order, and nothing uses atomics."""
@@ -669,6 +671,77 @@ def test_flash_dkv_cluster_split_covers_every_pair(cuda, nkv, cluster):
     dk, dv = tattn.flash_bwd_dkv(*args)
     dk_ref, dv_ref = tattn.flash_bwd_dkv_reference(*args)
     assert _rel(dk, dk_ref) <= 1e-3 and _rel(dv, dv_ref) <= 1e-3
+
+
+@pytest.mark.parametrize("hd", [200, 256])
+def test_flash_dkv_ws_cluster_split_covers_every_pair(cuda, hd):
+    """The 256-column bf16 dK/dV kernel (two consumer warpgroups, consumer 0
+    handing p^T to consumer 1 through shared memory) at Gemma-2B's MQA
+    geometry (8 query heads to one KV head), Sq = 1000, T = 1024, q_start 0
+    and 24: grid y is nkv * B (no column split), each key tile's pairs split
+    over a cluster of 8 on a 132-SM card, and dK and dV within the same
+    1e-3 rel-L2 as test_flash_dkv_cluster_split_covers_every_pair. A pair
+    missed or summed twice, or a p^T read before it was written, would move
+    them by far more."""
+    nh, nkv = 8, 1
+    args = _bwd_args(cuda, 2, 1000, 1024, nh, nkv, hd, [0, 24], [1000, 1024])
+    design = tattn.flash_bwd_design("flash_bwd_dkv", 2, 1000, 1024, nh, nkv, hd)
+    assert design["design"] == "wgmma_ws" and design["grid_y"] == nkv * 2
+    if design["sms"] != 132:
+        pytest.skip(f"the cluster sizes are worked out for 132 SMs, not {design['sms']}")
+    assert design["cluster"] == 8 and design["grid_x"] == 8
+    dk, dv = tattn.flash_bwd_dkv(*args)
+    dk_ref, dv_ref = tattn.flash_bwd_dkv_reference(*args)
+    assert _rel(dk, dk_ref) <= 1e-3 and _rel(dv, dv_ref) <= 1e-3
+
+
+# registers and spill bytes a thread of the kernels this file pins: the
+# 32-, 64- and 128-column ones (hd 100 runs padded in 128) of both dtypes,
+# the f32 routes and the bf16 dQ at 256, as nvcc 12.9's ptxas built them
+# before the 256-column forward and dK/dV were redesigned
+# ((kernel, hd, dtype): (registers, spill_bytes))
+KEPT_REGISTERS = {
+    ("flash_fwd", 32, "bf16"): (96, 0), ("flash_bwd_dq", 32, "bf16"): (116, 0),
+    ("flash_bwd_dkv", 32, "bf16"): (167, 0), ("flash_fwd", 64, "bf16"): (102, 0),
+    ("flash_bwd_dq", 64, "bf16"): (124, 0), ("flash_bwd_dkv", 64, "bf16"): (168, 24),
+    ("flash_fwd", 100, "bf16"): (128, 24), ("flash_bwd_dq", 100, "bf16"): (168, 0),
+    ("flash_bwd_dkv", 100, "bf16"): (254, 0), ("flash_fwd", 128, "bf16"): (126, 0),
+    ("flash_bwd_dq", 128, "bf16"): (159, 0), ("flash_bwd_dkv", 128, "bf16"): (254, 0),
+    ("flash_bwd_dq", 256, "bf16"): (227, 0),
+    ("flash_fwd", 32, "f32"): (158, 0), ("flash_bwd_dq", 32, "f32"): (197, 0),
+    ("flash_bwd_dkv", 32, "f32"): (255, 32), ("flash_fwd", 64, "f32"): (203, 0),
+    ("flash_bwd_dq", 64, "f32"): (197, 0), ("flash_bwd_dkv", 64, "f32"): (255, 32),
+    ("flash_fwd", 100, "f32"): (246, 0), ("flash_bwd_dq", 100, "f32"): (162, 0),
+    ("flash_bwd_dkv", 100, "f32"): (246, 0), ("flash_fwd", 128, "f32"): (245, 0),
+    ("flash_bwd_dq", 128, "f32"): (162, 0), ("flash_bwd_dkv", 128, "f32"): (246, 0),
+    ("flash_fwd", 256, "f32"): (241, 0), ("flash_bwd_dq", 256, "f32"): (209, 0),
+    ("flash_bwd_dkv", 256, "f32"): (255, 24),
+}
+
+
+def _design(name, hd, dtype, b=2, s=1024, nh=8, nkv=1):
+    if name == "flash_fwd":
+        return tattn.flash_fwd_design(b, s, nh, hd, dtype=dtype)
+    return tattn.flash_bwd_design(name, b, s, s, nh, nkv, hd, dtype=dtype)
+
+
+def test_flash_ws_design_at_gemma_and_kept_widths(cuda):
+    """At Gemma-2B's geometry's s1024 shape (B 2, S = T = 1024, 8 query
+    heads to one KV head, hd 256) the bf16 forward and dK/dV are the
+    warp-specialised kernels: two consumer warpgroups and a producer
+    warpgroup (384 threads), a 2-slot ring, no spill; dK/dV's grid y is nkv
+    * B (no column split). Every other kernel keeps the registers and
+    spills pinned in KEPT_REGISTERS (their code is unchanged)."""
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        d = _design(name, 256, torch.bfloat16)
+        assert d["design"] == "wgmma_ws" and d["spill_bytes"] == 0, d
+        assert d["warpgroups"] == 2 and d["threads"] == 384 and d["stages"] == 2, d
+        assert d["blocks_per_sm"] == 1, d
+    assert _design("flash_bwd_dkv", 256, torch.bfloat16)["grid_y"] == 1 * 2
+    got = {key: (lambda d: (d["registers"], d["spill_bytes"]))(
+        _design(key[0], key[1], dtypes[key[2]])) for key in KEPT_REGISTERS}
+    assert got == KEPT_REGISTERS
 
 
 # (b, sq, t, nh, nkv, q_start, kv_len): GQA at rep 8 and MHA, each with a

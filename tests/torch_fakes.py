@@ -68,19 +68,19 @@ class FakeKernels:
         return 0
 
     @staticmethod
-    def _own(hd, scale):
+    def _own(hd, scale, dtype):
         """The caller's head_dim, from the scale: hd itself, or (where the
         wrapper padded it with zero columns to a multiple of 8) below it."""
         own = round(1.0 / scale ** 2)
         assert scale == pytest.approx(1.0 / math.sqrt(own))
-        assert own == hd or (hd % 8 == 0 and own % 4 and hd - 8 < own < hd), (own, hd)
+        assert own == hd or (own < hd == tattn.kernel_head_dim(own, dtype)), (own, hd)
         return own
 
     @classmethod
     def _attn(cls, dtype, q, k, v, q_start, kv_len, b, sq, t, nh, nkv, hd, causal, scale):
         """The operands, cut to the caller's head_dim (the padded columns
         are zeros)."""
-        own = cls._own(hd, scale)
+        own = cls._own(hd, scale, dtype)
         return (_view(q, (b, sq, nh, hd), dtype)[..., :own],
                 _view(k, (b, t, nkv, hd), dtype)[..., :own],
                 _view(v, (b, t, nkv, hd), dtype)[..., :own], _view(q_start, (b,), torch.int32),
@@ -91,7 +91,7 @@ class FakeKernels:
         b, sq, _, nh, _, hd, _, scale = sizes
         qv, kv, vv, qs, kl, causal = self._attn(dtype, q, k, v, q_start, kv_len, *sizes)
         o, l = tattn.flash_forward_reference(qv, kv, vv, qs, kl, causal=causal)
-        _view(out, (b, sq, nh, hd), dtype).zero_()[..., :self._own(hd, scale)].copy_(o)
+        _view(out, (b, sq, nh, hd), dtype).zero_()[..., :self._own(hd, scale, dtype)].copy_(o)
         if lse is not None:
             _view(lse, (b, nh, sq), torch.float32).copy_(l)
         return 0
@@ -100,7 +100,7 @@ class FakeKernels:
         *outs, b, sq, t, nh, nkv, hd, causal, scale, _stream = outs_sizes_stream
         sizes = (b, sq, t, nh, nkv, hd, causal, scale)
         qv, kv, vv, qs, kl, causal = self._attn(dtype, q, k, v, q_start, kv_len, *sizes)
-        own = self._own(hd, scale)
+        own = self._own(hd, scale, dtype)
         stats = (_view(lse, (b, nh, sq), torch.float32), _view(delta, (b, nh, sq), torch.float32))
         args = (qv, kv, vv, _view(do, (b, sq, nh, hd), dtype)[..., :own], *stats, qs, kl)
         if len(outs) == 1:
