@@ -357,7 +357,13 @@ and the script exits non-zero (nothing is caught):
      ``matmul_4bit``; (c) the Engine with the int8 KV pool; (d) QLoRA at
      b2 x s1024, per kernel-route step 126 ``matmul_4bit``, 123
      ``matmul_4bit_t``, 18 of each flash kernel and one ``adam8bit_update``,
-     phase 9's rules; then ``train_bench``'s row.
+     phase 9's rules; then ``train_bench``'s row; (e) after those, their
+     memory freed, phase 33's protocol on an f32 base of the same
+     geometry (nf4, all 18 layers) at b2 x s1024 through the f32 flash
+     kernels at 256 columns: per kernel-route step 126 ``matmul_4bit``,
+     123 ``matmul_4bit_t``, 18 of each flash kernel and one
+     ``adam8bit_update``, the f32 limits, the loss falling; then
+     ``train_bench``'s row with the kernels' shares of its device time.
 
 Then the seconds each phase took, the redesigned kernels' earlier times
 as PERF.md records them (``earlier_times``, beside this run's), the
@@ -511,10 +517,14 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # shapes named (quantize_blockwise: one warp per vector, the window's K);
 # the bf16 flash forward and dK/dV at 256 columns before their
 # warp-specialised redesign (the cp.async kernels; dK/dV two blocks of 128
-# columns each) at Gemma-2B's geometry's QLoRA shape (*_hd256). Printed on
-# a line of their own, apart from the kernels line's measured times.
+# columns each) at Gemma-2B's geometry's QLoRA shape (*_hd256); the f32 dQ
+# and dK/dV there before their split redesign (one block of 16 own rows
+# and all 256 columns, each raw tile loaded before its products;
+# *_f32_hd256). Printed on a line of their own, apart from the kernels
+# line's measured times.
 EARLIER_MS = {"flash_bwd_dq": 0.2697, "flash_bwd_dkv": 0.7539, "flash_fwd": 0.1999,
               "flash_fwd_hd256": 0.0609, "flash_bwd_dkv_hd256": 0.2026,
+              "flash_bwd_dq_f32_hd256": 0.4929, "flash_bwd_dkv_f32_hd256": 0.6940,
               "matmul_8bit": 23.588, "matmul_4bit": 20.954, "matmul_8bit_t": 79.827,
               "matmul_4bit_t": 67.866, "matmul_int4c": 10.977, "matmul_int8_fused": 8.832,
               "matmul_int8": 5.251, "adam8bit_update": 0.484}
@@ -567,10 +577,11 @@ CROSSOVER_SEQS = (256, 512, 1024, 2048)  # long_prefill's S; 2048 is the referen
 EIGHT_BIT = ("int8", "nf8", "fp8", "int8a")
 # the timed serve rows (phase 7b), decode bench (phase 8) and phase 28's
 # trace run the first TIMED_DEPTH of the 22 layers: timing rows only, whose
-# host-bound loops took 420 s of a 785 s run at full depth, and at 11
-# layers phases 8 and 28 took 53 and 76 s of a 1118 s run (PERF.md);
-# phases 5, 6 and 7a check the same paths at full depth
-TIMED_DEPTH = 6
+# host-bound loops took 420 s of a 785 s run at full depth, at 11 layers
+# phases 8 and 28 took 53 and 76 s of a 1118 s run, and at 6 they took 30
+# and 40 s of a 1065 s run on a slow host (PERF.md); phases 5, 6 and 7a
+# check the same paths at full depth
+TIMED_DEPTH = 4
 F32_SHAPE = (2048, 5632, M_TRAIN)
 # matmul_8bit's middle M, on either side of its decode/prefill split (16
 # and 32 take the decode kernels of 16 and 32 rows), at the attention and
@@ -664,6 +675,11 @@ GPT2_REORDER_REL = 2.0 ** -22
 F32_QLORA = (("nf4", ("matmul_4bit", "matmul_4bit_t")),
              ("int8", ("matmul_8bit", "matmul_8bit_t")))
 F32_QLORA_REL = 1e-4
+# the f32 QLoRA steps' kernels (phases 33, 35 (e)) by a part of their names
+# in a profile: #1's f32 forward, #4's f32 dx, the f32 flash kernels
+F32_SHARE_KEYS = {"matmul_4bit": "mmf_", "matmul_4bit_t": "mmt_tf32x3",
+                  "flash_fwd": "flash_fwd_f32", "flash_bwd_dq": "flash_bwd_dq_f32",
+                  "flash_bwd_dkv": "flash_bwd_dkv_f32"}
 # phase 34: OpenLLaMA-3B v2 (openlm-research/open_llama_3b_v2, a
 # LlamaForCausalLM; its config.json: hidden_size 3200, intermediate_size
 # 8640, num_hidden_layers 26, num_attention_heads 32, num_key_value_heads
@@ -702,9 +718,9 @@ GM_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 # window of 8 steps for 8 slots
 KV_WRITES_HD256 = {"prefill_256_hd256": (18, 256, 1, 256), "window_8x8_hd256": (18, 8, 8, 1, 256)}
 # phase 31's depth: at 11 layers the phase took 72.7 s on an
-# H100 80GB HBM3 at 700 W, most of it the host issuing profiled and timed
-# windows
-GAP_DEPTH = 8
+# H100 80GB HBM3 at 700 W, at 8 59.7 s on a slow host, most of it the host
+# issuing profiled and timed windows
+GAP_DEPTH = 6
 
 
 # the H100 SXM's published rates (profiling.H100): device memory, and
@@ -2748,19 +2764,22 @@ def qlora_f32_flash(dev):
                           seq=LONG_SEQ, use_flash=True)
     row = train_bench.bench_qlora(tree, cfg, batch=LONG_BATCH, seq=LONG_SEQ)
     check(math.isfinite(row["loss_step1"]), f"train row nf4 f32 s1024: {row['loss_step1']}")
-    # the kernels' share of the profiled step's device time, as far as they
-    # stand among its top ops (the f32 routes' kernel names)
-    top, busy = row["top_device_ms"], row["device_busy_ms"]
-    keys = {"matmul_4bit": "mmf_", "matmul_4bit_t": "mmt_tf32x3", "flash_fwd": "flash_fwd_f32",
-            "flash_bwd_dq": "flash_bwd_dq_f32", "flash_bwd_dkv": "flash_bwd_dkv_f32"}
-    shares = {k: sum(ms for name, ms in top.items() if key in name) / busy if busy else None
-              for k, key in keys.items()}
     row = {"name": "tinyllama nf4 f32-base s1024 flash", "fmt": "nf4", "dtype": "float32",
-           "kernel_share_of_device_ms": shares, **row}
+           "kernel_share_of_device_ms": f32_kernel_shares(row), **row}
     emit(train_row=row)
     del tree
     torch.cuda.empty_cache()
     return launches
+
+
+def f32_kernel_shares(row):
+    """The share of a ``train_bench`` row's profiled step's device time of
+    each kernel of an f32 QLoRA step through flash, as far as it stands
+    among the step's top ops (``F32_SHARE_KEYS``: the f32 routes' kernel
+    names)."""
+    top, busy = row["top_device_ms"], row["device_busy_ms"]
+    return {k: sum(ms for name, ms in top.items() if key in name) / busy if busy else None
+            for k, key in F32_SHARE_KEYS.items()}
 
 
 def openllama_3b(dev):
@@ -2810,7 +2829,40 @@ def gemma_2b_geometry(dev):
         emit(kernel_check=kv_rows[name])
     launches, rows = full_width_model(dev, cfg, "gemma-2b-geometry", GM_SHAPES, seed=36)
     rows["kv_write"] = kv_rows
+    got, rows["train_f32"] = gemma_2b_f32_qlora(dev)
+    for name, c in got.items():
+        launches[name] = launches.get(name, 0) + c
     return launches, rows
+
+
+def gemma_2b_f32_qlora(dev):
+    """Phase 35 (e): QLoRA on an f32 base of Gemma-2B's geometry
+    (``GEMMA_2B`` in f32, all 18 layers, random weights from seed 0,
+    quantized to nf4) at b2 x s1024 through the flash kernels, phase 33's
+    protocol: phase 9's 3 + 3 + 1 steps under the f32 limits of
+    ``F32_QLORA_REL``, the loss falling, per kernel-route step 126
+    ``matmul_4bit``, 123 ``matmul_4bit_t``, 18 each of ``flash_fwd``,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` (their f32 routes at 256
+    columns) and one ``adam8bit_update``; then ``train_bench.bench_qlora``'s
+    row (step ms, busy share, step-peak GiB) with the kernels' shares of the
+    profiled step's device time under phase 33's names. Returns the kernel
+    route's launches and the row."""
+    cfg = dataclasses.replace(llama.LlamaConfig(**GEMMA_2B), dtype=torch.float32)
+    dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    tree = qnn.quantize_params(dense, mode="nf4")
+    del dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = qlora_path(dev, cfg, tree, fmt="nf4 gemma-2b-geometry f32-base s1024 flash",
+                          batch=OL_BATCH, seq=OL_SEQ, use_flash=True)
+    row = train_bench.bench_qlora(tree, cfg, batch=OL_BATCH, seq=OL_SEQ)
+    check(math.isfinite(row["loss_step1"]), f"train row gemma-2b f32: {row['loss_step1']}")
+    row = {"name": "gemma-2b-geometry nf4 f32-base s1024 flash", "fmt": "nf4",
+           "dtype": "float32", "kernel_share_of_device_ms": f32_kernel_shares(row), **row}
+    emit(train_row=row)
+    del tree
+    torch.cuda.empty_cache()
+    return launches, row
 
 
 def full_width_model(dev, cfg, label, shapes, seed):
@@ -3195,7 +3247,8 @@ def main():
         gm_launches, gm_rows = gemma_2b_geometry(dev)
         for k, v in gm_launches.items():
             (train_launches if k in ("matmul_4bit_t", "adam8bit_update") else launches)[k] += v
-        emit(gemma_2b_geometry={k: v for k, v in gm_rows.items() if k != "train"})
+        emit(gemma_2b_geometry={k: v for k, v in gm_rows.items()
+                                if k not in ("train", "train_f32")})
     emit(phase_seconds=phase_s)
 
     def entry(name, source, replaces, n_launches, ms, plain_ms, kind, at, library_ms=None,
@@ -3274,6 +3327,8 @@ def main():
     measured["adam8bit_update"] = adam_step[0]
     for name in ("flash_fwd", "flash_bwd_dkv"):
         measured[f"{name}_hd256"] = flash_rows["gemma_2b_s1024"][f"{name}_ms"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        measured[f"{name}_f32_hd256"] = flash_f32["gemma_2b_s1024"][f"{name}_ms"]
     emit(earlier_times=dict(
         note="PERF.md's times of the designs before the Hopper redesigns, at the same work, "
              "not measured in this run", **{f"{name}_ms": ms for name, ms in EARLIER_MS.items()},

@@ -22,7 +22,9 @@ reach ``matmul_8bit``'s f32 entry point.
 The pretrained model is cached under ``~/.cache/quanta_tpu_torch``, keyed
 by its hyperparameters and a hash of the corpus (``--no-cache``: neither
 read nor written). The bench prints one JSON line; ``--out PATH`` also
-writes the table as markdown there. Exit code 1 when a gate fails.
+writes the table as markdown there. Both carry that hash
+(``corpus_tag``) and the train split's size in bytes (``train_bytes``),
+so rows from two corpora are told apart. Exit code 1 when a gate fails.
 
     python -m quanta_tpu_torch.benchmarks.accuracy_bench [--steps 3000] [--cpu]
 
@@ -130,10 +132,13 @@ def gate_rows(table: dict) -> tuple[list, int]:
 
 
 def markdown(rows, result) -> str:
+    loss = result["final_loss"]  # None where the checkpoint came from the cache
+    loss = "from the cache" if loss is None else f"final loss {loss:.4f}"
     lines = ["# Accuracy: held-out perplexity per weight format (quanta_tpu_torch)", "",
              f"Byte-level Llama (dim={result['dim']}, layers={result['layers']}) pretrained "
-             f"{result['steps']} steps (final loss {result['final_loss']:.4f}) on the local "
-             "corpus; device: " + result["device"] + ".", "",
+             f"{result['steps']} steps ({loss}) on the local "
+             f"corpus ({result['train_bytes']} train bytes, tag {result['corpus_tag']}); "
+             "device: " + result["device"] + ".", "",
              "| format | ppl | delta vs unquantized | gate | pass |", "|---|---|---|---|---|"]
     for r in rows:
         ok = "" if r["pass"] is None else ("yes" if r["pass"] else "**NO**")
@@ -170,6 +175,7 @@ def run(*, steps: int = 3000, dim: int = 512, layers: int = 8, seq: int = 256,
     table = qeval.ppl_table(variants, eval_ids, cfg, seq_len=seq, batch=batch)
     rows, n_fail = gate_rows(table)
     result = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+              "corpus_tag": tag, "train_bytes": len(train_ids),
               "dim": dim, "layers": layers, "seq": seq, "batch": batch, "steps": steps,
               "final_loss": final_loss, "train_s": train_s,
               "eval_s": time.perf_counter() - t1, "eval_tokens": len(eval_ids),

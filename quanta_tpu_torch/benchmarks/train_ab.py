@@ -1,7 +1,7 @@
 """Time QLoRA train steps of two checkouts of this repository, in turns.
 
     python -m quanta_tpu_torch.benchmarks.train_ab DIR_A DIR_B [--rounds 2] [--decode nf4a] [--kernels]
-        [--serve llm_int8] [--optim] [--closed] [--no-train]
+        [--serve llm_int8] [--optim] [--closed] [--gemma-f32] [--no-train]
 
 One subprocess a run, in the order A, B, B, A (two rounds), each started in
 its checkout's root, so that it imports that checkout's ``quanta_tpu_torch``,
@@ -45,8 +45,13 @@ closed serve trace through the kernels (full TinyLlama-1.1B, llm_int8
 weights, int8 KV, 8 requests all submitted at once, 8 slots, multi_step
 8), once to warm up and once counted: launches by kernel, windows,
 admissions, seconds: one line ``{"dir": ..., "run": i, "closed":
-{...}}`` a run. ``--no-train`` leaves the train rows out. Comparing two
-versions holds only within one call, on one card.
+{...}}`` a run. With ``--gemma-f32`` it runs ``chip_smoke.py``'s phase 35
+(e) row: QLoRA on an f32 base of Gemma-2B's geometry (``chip_smoke.GEMMA_2B``
+in f32, all 18 layers, random weights from seed 0, nf4) at b2 x s1024
+through the flash kernels, ``train_bench.bench_qlora``'s row: one line
+``{"dir": ..., "run": i, "gemma_f32": {...}}`` a run. ``--no-train``
+leaves the train rows out. Comparing two versions holds only within one
+call, on one card.
 """
 
 from __future__ import annotations
@@ -281,6 +286,22 @@ print(json.dumps(res))
 """
 
 
+GEMMA_F32_CHILD = """
+import dataclasses, json, torch
+from chip_smoke import GEMMA_2B
+from quanta_tpu_torch import nn as qnn
+from quanta_tpu_torch.benchmarks import train_bench
+from quanta_tpu_torch.models import llama
+dev = torch.device("cuda")
+cfg = dataclasses.replace(llama.LlamaConfig(**GEMMA_2B), dtype=torch.float32)
+dense = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+base = qnn.quantize_params(dense, mode="nf4")
+del dense
+torch.cuda.empty_cache()
+print(json.dumps(train_bench.bench_qlora(base, cfg, batch=2, seq=1024)))
+"""
+
+
 def run_one(root: str, script: str) -> list[dict] | dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
@@ -305,6 +326,8 @@ def main(argv=None):
                     help="then time opt.step() of the tinyllama nf4 row")
     ap.add_argument("--closed", action="store_true",
                     help="then count the closed serve trace's launches")
+    ap.add_argument("--gemma-f32", action="store_true",
+                    help="then the QLoRA row on an f32 base of Gemma-2B's geometry")
     ap.add_argument("--no-train", action="store_true", help="leave the train rows out")
     args = ap.parse_args(argv)
     order = [args.dir_a, args.dir_b]
@@ -317,6 +340,8 @@ def main(argv=None):
         jobs.append(("optim", OPTIM_CHILD))
     if args.closed:
         jobs.append(("closed", CLOSED_CHILD))
+    if args.gemma_f32:
+        jobs.append(("gemma_f32", GEMMA_F32_CHILD))
     if args.serve:
         jobs.append(("serve", SERVE_CHILD % (args.serve, args.serve)))
     for key, script in jobs:

@@ -80,6 +80,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
                             nh, nkv, hd, causal, scale);
     } else {
       const auto p = Route::template dq<HD, PAD>(B, Sq, nh);
+      if (p.cluster > 1)  // the f32 route at 256 columns: a pair of blocks splits hd
+        return launch_cluster(p.kernel, p.grid, p.cluster, p.threads, p.smem, stream, qp, kp,
+                              vp, dop, lp, dp, qsp, klp, o0, Sq, Tk, nh, nkv, hd, causal, scale);
       return launch_n(p.kernel, p.grid, p.threads, p.smem, stream, qp, kp, vp, dop, lp,
                       dp, qsp, klp, o0, Sq, Tk, nh, nkv, hd, causal, scale);
     }

@@ -15,7 +15,9 @@ and dK/dV kernels are warp-specialised (``csrc/ws_sm90.cuh``): a producer
 warpgroup streams the tiles by TMA through mbarrier rings to two consumer
 warpgroups. The f32 kernels run each f32 product as three TF32
 warpgroup products (``csrc/flash_tf32x3.cuh``); the f32 forward keeps p
-in registers, as the bf16 one does. Every kernel, in either route, is
+in registers, as the bf16 one does. At 256 columns the f32 dQ and dK/dV
+kernels split hd over the two blocks of a cluster, which sum their S and
+dP partials through distributed shared memory. Every kernel, in either route, is
 deterministic: two calls give the same bits. :func:`flash_fwd_design` and :func:`flash_bwd_design`
 report how they launch.
 
@@ -302,14 +304,20 @@ def _design_check(name, hd, dtype):
 
 # the kernels that are warp-specialised at 256 columns in bf16
 _WS_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+# the f32 kernels whose two blocks of a cluster split hd at 256 columns
+_SPLIT_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _design_name(name, padded, dtype):
-    """"wgmma_3xtf32" (f32), "wgmma_ws" (bf16 #8 and #10 at 256 columns: a
-    TMA producer warpgroup and two consumer warpgroups) or "wgmma"."""
+    """"wgmma_3xtf32" (f32), "wgmma_3xtf32_split" (the f32 dQ and dK/dV
+    at 256 columns: a pair of blocks splits hd, summing S and dP through
+    distributed shared memory), "wgmma_ws" (the bf16 forward and dK/dV at
+    256 columns: a TMA producer warpgroup and two consumer warpgroups) or
+    "wgmma"."""
+    wide = padded == PADDED_HEAD_DIMS[-1]
     if dtype == torch.float32:
-        return "wgmma_3xtf32"
-    return "wgmma_ws" if padded == PADDED_HEAD_DIMS[-1] and name in _WS_KERNELS else "wgmma"
+        return "wgmma_3xtf32_split" if wide and name in _SPLIT_KERNELS else "wgmma_3xtf32"
+    return "wgmma_ws" if wide and name in _WS_KERNELS else "wgmma"
 
 
 def flash_fwd_design(b, sq, nh, hd, dtype=torch.bfloat16):
@@ -339,8 +347,10 @@ def flash_bwd_design(name, b, sq, t, nh, nkv, hd, dtype=torch.bfloat16):
     dynamic shared bytes a block and spill bytes a thread (from
     ``cudaFuncGetAttributes``), the SMs, the stages of its cp.async ring
     (f32: the slots of each warpgroup's; "wgmma_ws": its mbarrier ring's),
-    its warpgroups and threads a block; ``design`` and ``padded_head_dim``
-    as for :func:`flash_fwd_design`."""
+    its warpgroups and threads a block; ``design`` ("wgmma",
+    "wgmma_ws", "wgmma_3xtf32" or, the f32 kernels at 256 columns,
+    "wgmma_3xtf32_split") and ``padded_head_dim`` as for
+    :func:`flash_fwd_design`."""
     padded = _design_check(name, hd, dtype)
     f32 = dtype == torch.float32
     entry = _entry("flash_bwd_f32_design" if f32 else "flash_bwd_design", padded)

@@ -229,13 +229,17 @@ def _design_library():
     (256, torch.bfloat16, ("wgmma_ws", "wgmma", "wgmma_ws")),
     (132, torch.bfloat16, ("wgmma_ws", "wgmma", "wgmma_ws")),
     (128, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
-    (256, torch.float32, ("wgmma_3xtf32",) * 3)])
+    (256, torch.float32, ("wgmma_3xtf32", "wgmma_3xtf32_split", "wgmma_3xtf32_split")),
+    (160, torch.float32, ("wgmma_3xtf32", "wgmma_3xtf32_split", "wgmma_3xtf32_split")),
+    (128, torch.float32, ("wgmma_3xtf32",) * 3)])
 def test_flash_design_names_the_warp_specialised_kernels(hd, dtype, want):
     """The design reports name the warp-specialised forward and dK/dV
     ("wgmma_ws") for bf16 head dims run in 256 columns, the dQ kernel and
-    narrower widths "wgmma", and f32 "wgmma_3xtf32"; each reports its
-    threads and reaches the 256-column entry points (``_w256``) with the
-    head dim the kernels see."""
+    narrower widths "wgmma"; f32 "wgmma_3xtf32", but for the dQ and dK/dV
+    kernels at 256 columns, whose pair of blocks splits hd
+    ("wgmma_3xtf32_split"); each reports its threads and reaches the
+    256-column entry points (``_w256``) with the head dim the kernels
+    see."""
     lib, seen = _design_library()
     with mock.patch.object(tattn._build, "library", lambda: lib):
         got = (tattn.flash_fwd_design(2, 1024, 8, hd, dtype=dtype),

@@ -16,6 +16,7 @@ through ``interop.from_jax_params``. Tolerances:
 """
 
 import dataclasses
+import hashlib
 import json
 
 import jax
@@ -404,3 +405,27 @@ def test_accuracy_bench_prints_the_transcoded_row(monkeypatch):
     table = accuracy_bench.markdown(result["rows"], result)
     assert "| nf4->nf4a |" in table and "Left out" not in table
     json.dumps(result)
+
+
+def test_accuracy_bench_names_its_corpus(monkeypatch, tmp_path):
+    """The JSON result and the markdown table carry the corpus's tag (the
+    hash that also names the cached checkpoint) and the train split's size
+    in bytes, so that perplexity rows from two corpora are told apart; a
+    second run reads the checkpoint from the cache (no final loss) and
+    writes its table all the same. The variants are cut to the unquantized
+    model: the formats are not this test's subject."""
+    monkeypatch.setattr(accuracy_bench, "build_variants",
+                        lambda params, cfg, ids, device: {"bf16": params})
+    train_ids, _ = accuracy_bench.corpus_ids(1000)
+    tag = hashlib.sha256(train_ids.tobytes()).hexdigest()[:12]
+    kw = dict(steps=2, dim=64, layers=1, seq=32, batch=2, eval_bytes=1000, device="cpu",
+              cache_dir=str(tmp_path))
+    first, *_ = accuracy_bench.run(**kw)
+    cached, *_ = accuracy_bench.run(**kw)
+    assert first["final_loss"] is not None and cached["final_loss"] is None
+    assert [p.name for p in tmp_path.iterdir()] == [f"accbench_d64_l1_s32_b2_t2_{tag}.npz"]
+    for result in (first, cached):
+        assert result["corpus_tag"] == tag and result["train_bytes"] == len(train_ids) > 0
+        table = accuracy_bench.markdown(result["rows"], result)
+        assert f"({len(train_ids)} train bytes, tag {tag})" in table
+        assert json.loads(json.dumps(result))["corpus_tag"] == tag

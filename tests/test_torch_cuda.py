@@ -714,8 +714,8 @@ KEPT_REGISTERS = {
     ("flash_fwd", 100, "f32"): (246, 0), ("flash_bwd_dq", 100, "f32"): (162, 0),
     ("flash_bwd_dkv", 100, "f32"): (246, 0), ("flash_fwd", 128, "f32"): (245, 0),
     ("flash_bwd_dq", 128, "f32"): (162, 0), ("flash_bwd_dkv", 128, "f32"): (246, 0),
-    ("flash_fwd", 256, "f32"): (241, 0), ("flash_bwd_dq", 256, "f32"): (209, 0),
-    ("flash_bwd_dkv", 256, "f32"): (255, 24),
+    ("flash_fwd", 256, "f32"): (241, 0), ("flash_bwd_dq", 256, "f32"): (182, 0),
+    ("flash_bwd_dkv", 256, "f32"): (255, 16),
 }
 
 
@@ -731,7 +731,8 @@ def test_flash_ws_design_at_gemma_and_kept_widths(cuda):
     warp-specialised kernels: two consumer warpgroups and a producer
     warpgroup (384 threads), a 2-slot ring, no spill; dK/dV's grid y is nkv
     * B (no column split). Every other kernel keeps the registers and
-    spills pinned in KEPT_REGISTERS (their code is unchanged)."""
+    spills pinned in KEPT_REGISTERS (their code is unchanged, but for the
+    f32 dQ and dK/dV at 256 columns: the split design's)."""
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     for name in ("flash_fwd", "flash_bwd_dkv"):
         d = _design(name, 256, torch.bfloat16)
@@ -752,12 +753,14 @@ F32_BWD_CASES = {"gqa": (3, 200, 230, 8, 1, [0, 30, 0], [200, 230, 0]),
 
 
 @pytest.mark.parametrize("shape", list(F32_BWD_CASES))
-@pytest.mark.parametrize("hd", [32, 64, 100, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 100, 128, 132, 160, 252, 256])
 def test_flash_bwd_f32_kernels_match_plain(cuda, hd, shape):
     """The f32 dQ and dK/dV kernels (each f32 product as three TF32
     tensor-core products) against their plain versions: within 1e-4 of
     max|plain|, zero gradients on the dead row, the same bits over two
-    calls, one launch a call."""
+    calls, one launch a call. Head dims 132, 160, 252 and 256 run in 256
+    columns, where a pair of blocks splits hd (132: the second block holds
+    4 real columns)."""
     b, sq, t, nh, nkv, q_start, kv_len = F32_BWD_CASES[shape]
     args = _bwd_args(cuda, b, sq, t, nh, nkv, hd, q_start, kv_len, torch.float32, seed=5)
     before = {n: _build.launches[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")}
@@ -771,6 +774,29 @@ def test_flash_bwd_f32_kernels_match_plain(cuda, hd, shape):
         assert g.dtype == torch.float32 and torch.equal(g, a)
         assert not bool(g[dead].any())
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_flash_bwd_f32_split_design_at_gemma(cuda):
+    """At Gemma-2B's geometry's s1024 shape (B 2, S = T = 1024, 8 query
+    heads to one KV head, hd 256) the f32 dQ and dK/dV kernels are the
+    256-column split design: two warpgroups (256 threads) a block, taking
+    every second item each through a slot of their own, one block an SM;
+    clusters of two blocks that split hd (dQ: grid x 2 * nh), and for dK/dV
+    two blocks for each of C parts of the pairs, C = 2 on a 132-SM card
+    (32-key tiles: 32 key tiles x B 2 x 2 halves = 128 blocks; C stops at
+    2). dQ spills nothing, dK/dV 16 bytes (the one-block design before it:
+    24)."""
+    dq, dkv = (_design(name, 256, torch.float32) for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+    for d in (dq, dkv):
+        assert d["design"] == "wgmma_3xtf32_split", d
+        assert d["warpgroups"] == 2 and d["threads"] == 256 and d["stages"] == 1, d
+        assert d["blocks_per_sm"] == 1, d
+    assert dq["spill_bytes"] == 0 and dkv["spill_bytes"] <= 16, (dq, dkv)
+    assert dq["cluster"] == 2 and (dq["grid_x"], dq["grid_y"], dq["grid_z"]) == (16, 2, 32), dq
+    assert (dkv["grid_y"], dkv["grid_z"]) == (2, 32) and dkv["grid_x"] == dkv["cluster"], dkv
+    if dkv["sms"] != 132:
+        pytest.skip(f"the cluster size is worked out for 132 SMs, not {dkv['sms']}")
+    assert dkv["cluster"] == 4, dkv
 
 
 def test_flash_bwd_f32_design_fills_the_card(cuda):
